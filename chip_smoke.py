@@ -22,11 +22,30 @@ Phases, in order; any failed check raises and the script exits non-zero:
    bound, its plain version and ``torch.sparse`` CSR SpMV of the same matrix.
 6. Trace: one 504-step solve per path under ``torch.profiler``: the device's
    busy time and share of the solve, and the kernels that take it.
+7. GMRES kernel parity at 216^3: panel MGS, the panel stencil SpMV and the
+   fused Arnoldi step against their plain versions, on f32 and bf16 panels.
+8. The GMRES main path: ``gmres(...)`` GMRES(20) on the 216^3 Laplacian, the
+   workload of ``bench.py``'s second metric (reltol 0, 500 and 240 steps),
+   on five routes: stencil with a bf16 panel (the headline) and an f32 panel
+   (the fused kernel), stored DIA with f32, bf16 and int8 diagonals and a
+   bf16 panel.  Per-iteration time, true residual, launches per step and per
+   cycle, and the witness: the same stencil solves with the kernels routed
+   off through the solver's dispatch functions, and the spread of the
+   500-step solves over runs that change only their rounding.
+9. Converging solves on the shifted Laplacian (center 7): f32 panel (fused),
+   bf16 panel (two kernels), and the stored f32 DIA matrix, each against its
+   witness.
+10. The fused step against the two-kernel route, and bf16 against f32
+    panels: per-iteration time of each, in turns on one card.
+11. Timing of every kernel beside its bound, its plain version and a
+    library call where one computes the same function; a ``torch.profiler``
+    trace of GMRES steps.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It imports no JAX and nothing of the JAX package.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -107,6 +126,463 @@ def laplace_csr(torch, A):
                                    check_invariants=False)
 
 
+def device_ms(torch, prof, name):
+    """Device time (ms) by kernel name (cut to 60 characters) in a
+    ``torch.profiler`` trace; raises if the trace holds none."""
+    by_kernel = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            key = e.name[:60]
+            by_kernel[key] = (by_kernel.get(key, 0.0)
+                              + e.time_range.elapsed_us() / 1e3)
+    if not by_kernel:
+        raise AssertionError(f"the trace of {name} holds no device time")
+    return by_kernel
+
+
+# ---- GMRES (phases 7-11) ---------------------------------------------------
+GM_RESTART = 20
+GM_LONG, GM_SHORT = 500, 240      # bench.py's differential: 25 and 12 cycles
+# Witness limits (phase 8): each kernel route against the same solve with
+# the kernels routed off.  Over the first cycle the residual estimates agree
+# within WITNESS_EST_REL of the largest and x within WITNESS_X_REL on both
+# panels.  After 500 steps, for b = 1 and the SPREAD_SEEDS b, the f32 route
+# and each of its rounding variants (``rounding_variants``) agree within
+# WITNESS_RES_FACTOR in true residual and WITNESS_X_REL in x.  A bf16
+# panel's 500-step residual depends on rounding: with only the sum order
+# changed the same kernel reads 0.399 and 0.233 at b = 1, its plain
+# versions 0.305 and the witness 0.179 (PERF.md, Findings).  So the bf16
+# route is held within BF16_SPREAD of the range its three rounding variants
+# span, which a fault that costs convergence outright would leave.
+WITNESS_EST_REL = 1e-4
+WITNESS_RES_FACTOR = 1.05
+WITNESS_X_REL = 1e-3
+BF16_SPREAD = 1.5
+SPREAD_SEEDS = (1, 2)
+# the stored DIA matrix is the stencil's matrix: its x against the stencil
+# route's with the same panel
+DIA_X_REL = 1e-3
+# converging solves (phase 9) against their witnesses
+CONV_X_REL = 1e-4
+# kernel parity (phase 7): each h_j is a dot of a unit row with w, summed in
+# another order, so h within TOL_H * |w|; nrm within TOL_NRM relative; a row
+# stored in bf16 within one bf16 step at its largest value, 2^-7 of it
+# (the f32 values it rounds may differ in the last bits)
+TOL_H = 1e-5
+TOL_NRM = 1e-5
+TOL_ROW_BF16 = 2.0 ** -7
+
+
+@contextlib.contextmanager
+def routed(gm, **decisions):
+    """Replace dispatch functions of ``solvers/gmres.py`` for the duration
+    (the kernel-free witness, or one route forced); restored on exit."""
+    saved = {name: getattr(gm, name) for name in decisions}
+    for name, fn in decisions.items():
+        setattr(gm, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(gm, name, fn)
+
+
+def kernels_off(gm):
+    """Every GMRES kernel routed off: plain PyTorch orthogonalization and
+    ``op.mv`` (the operator's own kernel) in every step."""
+    return routed(gm, _fused_setup=lambda *a: None,
+                  _stencil_panel_setup=lambda *a: None,
+                  _use_panel_mgs=lambda *a: False)
+
+
+def check_h(name, h, hp, wn, nrm, nrmp):
+    """h within TOL_H * |w| and nrm within TOL_NRM relative."""
+    eh = float((h - hp).abs().max())
+    en = abs(float(nrm) - float(nrmp))
+    print(f"  {name}: h max_abs_err {eh:.3e} (limit {TOL_H * wn:.3e}), "
+          f"nrm abs err {en:.3e} (limit {TOL_NRM * float(nrmp):.3e})")
+    if not (eh <= TOL_H * wn and en <= TOL_NRM * float(nrmp)):
+        raise AssertionError(f"{name}: h or nrm off")
+
+
+def gmres_parity(torch, its, cm, ca, n):
+    """Phase 7.  Returns the panels (f32 and bf16, rows 0..19 orthonormal),
+    a w and the max abs errors for the kernels line."""
+    m1 = GM_RESTART + 1
+    g = torch.Generator(device="cuda").manual_seed(2)
+    Q, _ = torch.linalg.qr(torch.randn(n, m1 - 1, generator=g, device="cuda"))
+    V32 = torch.zeros(m1, n, device="cuda")
+    V32[: m1 - 1] = Q.T
+    del Q
+    panels = {"f32": V32, "bf16": V32.to(torch.bfloat16)}
+    w = torch.randn(n, generator=g, device="cuda")
+    wn = float(torch.linalg.vector_norm(w))
+
+    def i32(v):
+        return torch.tensor(v, dtype=torch.int32, device="cuda")
+
+    def check_step(tag, Va, Vb, V, k, do, h, nrm, hp, nrmp, wn):
+        """The step's checks: h and nrm, rows other than k + 1 bit-unchanged,
+        row k + 1 against the plain version's (do = 1) or zeros (do = 0);
+        returns the row's max abs error (0 for do = 0)."""
+        check_h(tag, h, hp, wn, nrm, nrmp)
+        if h[k + 1:].any():
+            raise AssertionError(f"{tag}: h past k is not zero")
+        if not (torch.equal(Va[: k + 1], V[: k + 1])
+                and torch.equal(Va[k + 2:], V[k + 2:])):
+            raise AssertionError(f"{tag}: a row other than k+1 changed")
+        if do:
+            return check(f"{tag} row k+1", Va[k + 1], Vb[k + 1],
+                         TOL_Y_F32 if V.dtype == torch.float32
+                         else TOL_ROW_BF16)
+        if Va[k + 1].any():
+            raise AssertionError(f"{tag}: the masked step wrote a row")
+        return 0.0
+
+    err = {}
+    print("GMRES kernels, parity at 216^3 (panel of 21 rows):")
+    for label, V in panels.items():
+        for k in (0, 9, 19):
+            for do in (1, 0):
+                tag = f"panel_mgs {label} panel k={k} do={do}"
+                Va, Vb = V.clone(), V.clone()
+                h, nrm = cm.panel_mgs(Va, w, i32(k), i32(do))
+                hp, nrmp = cm.panel_mgs_plain(Vb, w, i32(k), i32(do))
+                e = check_step(tag, Va, Vb, V, k, do, h, nrm, hp, nrmp, wn)
+                err[f"panel_mgs {label}"] = max(
+                    e, err.get(f"panel_mgs {label}", 0.0))
+                del Va, Vb
+    for op_label, op in (("laplacian", its.laplacian(SIDE, 3)),
+                         ("advection_diffusion",
+                          its.advection_diffusion_stencil(SIDE))):
+        args = (op.n, op.center, op.terms, op.coeffs)
+        for label, V in panels.items():
+            e = check(f"stencil_panel_mv {op_label} {label} panel",
+                      ca.stencil_panel_mv(*args, V, i32(5)),
+                      ca.stencil_panel_mv_plain(*args, V, i32(5)), TOL_Y_F32)
+            if op_label == "laplacian":
+                err[f"stencil_panel_mv {label}"] = e
+    St = its.laplacian(SIDE, 3)
+    args = (St.n, St.center, St.terms, St.coeffs)
+    for label, V in panels.items():
+        for k, do in ((19, 1), (19, 0), (9, 1)):
+            tag = f"fused_arnoldi {label} panel k={k} do={do}"
+            Va, Vb = V.clone(), V.clone()
+            h, nrm = ca.fused_arnoldi(*args, Va, i32(k), i32(do))
+            hp, nrmp = ca.fused_arnoldi_plain(*args, Vb, i32(k), i32(do))
+            wk = float(torch.linalg.vector_norm(
+                ca.stencil_panel_mv_plain(*args, V, i32(k))))
+            e = check_step(tag, Va, Vb, V, k, do, h, nrm, hp, nrmp, wk)
+            err[f"fused_arnoldi {label}"] = max(
+                e, err.get(f"fused_arnoldi {label}", 0.0))
+            del Va, Vb
+    torch.cuda.synchronize()
+    return panels, w, err
+
+
+def rounding_variants(gm):
+    """The kernel route of a GMRES solve and three ways to run the same
+    solve that change only its rounding: the kernels on half their
+    cooperative grid (every grid-wide sum in another order), the kernels'
+    plain versions on the card (the kernels' formulas in torch's sum
+    order), and the kernel-free witness (the JAX package's formulas: w /
+    nrm, no FMA)."""
+    from iterativesolvers_tpu_torch.ops import cuda_arnoldi as ca
+    from iterativesolvers_tpu_torch.ops import cuda_mgs as cm
+
+    def half(f):
+        return lambda *a: max(1, f(*a) // 2)
+
+    @contextlib.contextmanager
+    def half_grid():
+        with routed(cm, _grid=half(cm._grid)), \
+                routed(ca, _fused_grid=half(ca._fused_grid)):
+            yield
+
+    return {"kernels": contextlib.nullcontext,
+            "kernels, half grid": half_grid,
+            "plain versions": lambda: routed(
+                gm, panel_mgs=cm.panel_mgs_plain,
+                stencil_panel_mv=ca.stencil_panel_mv_plain,
+                fused_arnoldi=ca.fused_arnoldi_plain),
+            "witness": lambda: kernels_off(gm)}
+
+
+def gmres_rounding_spread(torch, gm, counters, routes, solve, true_res,
+                          rel_diff, runs, b):
+    """Phase 8, the witness: the 500-step stencil solves of both panels,
+    for b = 1 and two seeded b in [0.5, 1.5), in each rounding variant.
+    The f32 panel must agree across variants (WITNESS_RES_FACTOR,
+    WITNESS_X_REL); a bf16 panel's 500-step residual depends on rounding,
+    and the kernel route is held to the spread of the other variants
+    (BF16_SPREAD)."""
+    n = b.shape[0]
+    rhs = {"b = 1": b}
+    for seed in SPREAD_SEEDS:
+        g = torch.Generator(device=b.device).manual_seed(seed)
+        rhs[f"b seed {seed}"] = 0.5 + torch.rand(n, generator=g,
+                                                 device=b.device)
+    panel_kernels = {"panel_mgs", "stencil_panel_mv", "fused_arnoldi"}
+    variants = rounding_variants(gm)
+    table, bad = {}, []
+    print(f"  rounding spread of the {GM_LONG}-step stencil solves "
+          f"(true relative residual; |x - x_kernels| / |x_kernels|):")
+    for bname, bv in rhs.items():
+        for name in ("stencil_bf16", "stencil_f32"):
+            op, panel = routes[name]
+            row = {}
+            for vname, ctx in variants.items():
+                if vname == "kernels" and bname == "b = 1":
+                    x = runs[name][0]
+                else:
+                    for f in counters:
+                        f.launches = 0
+                    with ctx():
+                        x = solve(op, GM_LONG, panel, rhs=bv)
+                    torch.cuda.synchronize()
+                    launched = sum(f.launches for f in counters
+                                   if f.__name__ in panel_kernels)
+                    if (launched > 0) != vname.startswith("kernels"):
+                        raise AssertionError(f"{name} {vname}: panel kernel "
+                                             f"launches {launched}")
+                if not torch.isfinite(x).all():
+                    raise AssertionError(f"{name} {vname}: x not finite")
+                row[vname] = (x, true_res(x, bv))
+            xk, rk = row["kernels"]
+            cell = {v: {"true_rel_residual": r, "x_rel_diff": rel_diff(x, xk)}
+                    for v, (x, r) in row.items()}
+            table[f"{name}, {bname}"] = cell
+            print(f"    {name}, {bname}: " + "; ".join(
+                f"{v} {c['true_rel_residual']:.4e} ({c['x_rel_diff']:.2e})"
+                for v, c in cell.items()))
+            others = sorted(c["true_rel_residual"] for v, c in cell.items()
+                            if v != "kernels")
+            if panel is None:
+                if not all(c["x_rel_diff"] <= WITNESS_X_REL
+                           and max(rk, c["true_rel_residual"])
+                           <= WITNESS_RES_FACTOR * min(rk,
+                                                       c["true_rel_residual"])
+                           for c in cell.values()):
+                    bad.append(f"{name}, {bname}")
+            elif not (others[0] / BF16_SPREAD <= rk
+                      <= others[-1] * BF16_SPREAD):
+                bad.append(f"{name}, {bname}")
+            del row
+    if bad:
+        raise AssertionError(f"kernel route outside its witnesses: {bad}")
+    return table
+
+
+def gmres_main_path(torch, its, gm, counters, ops, b, true_res, rel_diff,
+                    timed):
+    """Phase 8: bench.py's GMRES workload through ``gmres(...)`` on five
+    routes, its launch counts, its witness and its per-iteration time."""
+    bf16 = torch.bfloat16
+    routes = {"stencil_bf16": (ops["stencil"], bf16),
+              "stencil_f32": (ops["stencil"], None),
+              "dia_f32": (ops["dia_f32"], bf16),
+              "dia_bf16": (ops["dia_bf16"], bf16),
+              "dia_int8": (ops["dia_int8"], bf16)}
+    cycles = GM_LONG // GM_RESTART
+    expect = {"stencil_bf16": {"stencil_panel_mv": GM_LONG,
+                               "panel_mgs": GM_LONG, "stencil_apply": cycles},
+              "stencil_f32": {"fused_arnoldi": GM_LONG,
+                              "stencil_apply": cycles}}
+    for name in ("dia_f32", "dia_bf16", "dia_int8"):
+        expect[name] = {"dia_spmv": GM_LONG + cycles, "panel_mgs": GM_LONG}
+
+    def solve(op, maxiter, panel, log=False, rhs=None):
+        # no convergence: exactly maxiter steps, as bench.py times them
+        return its.gmres(op, b if rhs is None else rhs, restart=GM_RESTART,
+                         reltol=0.0, abstol=1e-30, maxiter=maxiter,
+                         panel_dtype=panel, ir_stall_exit=False, log=log)
+
+    def run(name, op, panel, want):
+        for f in counters:
+            f.launches = 0
+        t0 = time.perf_counter()
+        x, h = solve(op, GM_LONG, panel, log=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = {f.__name__: f.launches for f in counters}
+        want = {f.__name__: want.get(f.__name__, 0) for f in counters}
+        res = true_res(x)
+        print(f"  {name}: {h}, {secs:.3f} s, true relative residual "
+              f"{res:.4e}, launches {counts}")
+        if not (h.iters == GM_LONG and h.mvps == GM_LONG + cycles
+                and torch.isfinite(x).all()):
+            raise AssertionError(f"{name}: {h}")
+        if counts != want:
+            raise AssertionError(f"{name}: launches {counts}, expected {want}")
+        return x, h, counts, res
+
+    print(f"GMRES({GM_RESTART}) on the {SIDE}^3 Laplacian, {GM_LONG} steps, "
+          f"reltol 0:")
+    runs = {name: run(name, op, panel, expect[name])
+            for name, (op, panel) in routes.items()}
+    x_st = runs["stencil_bf16"][0]
+    for name in ("dia_f32", "dia_bf16", "dia_int8"):
+        d = rel_diff(runs[name][0], x_st)
+        print(f"  {name} vs stencil_bf16: |x - x_st| / |x_st| {d:.3e}")
+        if not d <= DIA_X_REL:
+            raise AssertionError(f"{name} disagrees with the stencil route")
+    witness = {}
+    for name in ("stencil_bf16", "stencil_f32"):
+        op, panel = routes[name]
+        # the first cycle, kernels on and off
+        x1, h1 = solve(op, GM_RESTART, panel, log=True)
+        with kernels_off(gm):
+            x1w, h1w = solve(op, GM_RESTART, panel, log=True)
+        est = float(abs(h1["resnorm"] - h1w["resnorm"]).max()
+                    / h1w["resnorm"].max())
+        d1 = rel_diff(x1, x1w)
+        print(f"  {name} vs its witness, first cycle: estimates within "
+              f"{est:.3e}, |x - x_w| / |x_w| {d1:.3e}")
+        if not (est <= WITNESS_EST_REL and d1 <= WITNESS_X_REL):
+            raise AssertionError(f"{name}: first cycle off its witness")
+        witness[name] = {"first_cycle_estimates_rel": est,
+                         "first_cycle_x_rel_diff": d1}
+    spread = gmres_rounding_spread(torch, gm, counters, routes, solve,
+                                   true_res, rel_diff, runs, b)
+    # the step is host-bound and its host time varies from solve to solve:
+    # 5 solves of each length, and the mean step of the 500-step solve
+    # beside the differential
+    per_iter, per_step = {}, {}
+    for name, (op, panel) in routes.items():
+        t_long = timed(f"gmres {name} maxiter={GM_LONG}",
+                       lambda: solve(op, GM_LONG, panel), 1, 5)
+        t_short = timed(f"gmres {name} maxiter={GM_SHORT}",
+                        lambda: solve(op, GM_SHORT, panel), 1, 5)
+        per_iter[name] = (t_long - t_short) / (GM_LONG - GM_SHORT) * 1e3
+        per_step[name] = t_long / GM_LONG * 1e3
+    out = {"gmres_us_per_iter": per_iter,
+           "gmres_us_per_step_of_500": per_step,
+           "timed_iters": GM_LONG - GM_SHORT,
+           "true_rel_residual_500": {k: r[3] for k, r in runs.items()},
+           "witness": witness, "rounding_spread": spread}
+    print(json.dumps(out))
+    return runs, out, solve, routes
+
+
+def gmres_converging(torch, its, gm, St, b):
+    """Phase 9: the shifted Laplacian (center 7), on which restarted GMRES
+    converges, through three routes, each against its witness."""
+    n = St.n
+    Sh = its.StencilOperator(n, 7.0, St.terms, St.coeffs)
+    Sh64 = its.StencilOperator(n, 7.0, St.terms, St.coeffs,
+                               dtype=torch.float64)
+    b64 = b.double()
+
+    def true_res(x):
+        r = b64 - Sh64.mv(x.double())
+        return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
+
+    cases = [("stencil, f32 panel (fused)", Sh, None, 1e-5, 2e-5),
+             ("stencil, bf16 panel (two kernels)", Sh, torch.bfloat16, 1e-4,
+              2e-4),
+             ("stored f32 DIA, f32 panel", Sh.to_dia(), None, 1e-5, 2e-5)]
+    out = {}
+    print("GMRES(10) on the shifted Laplacian (center 7):")
+    for name, op, panel, reltol, bound in cases:
+        kw = dict(restart=10, reltol=reltol, panel_dtype=panel, log=True)
+        x, h = its.gmres(op, b, **kw)
+        with kernels_off(gm):
+            xw, hw = its.gmres(op, b, **kw)
+        torch.cuda.synchronize()
+        res, d = true_res(x), float(torch.linalg.vector_norm(x - xw)
+                                    / torch.linalg.vector_norm(xw))
+        print(f"  {name}: {h}, restarts {h.restarts}, true relative residual "
+              f"{res:.3e} (limit {bound}); witness {hw}, |x - x_w| / |x_w| "
+              f"{d:.3e}")
+        if not (h.isconverged and h.restarts >= 1 and res <= bound):
+            raise AssertionError(f"{name} did not converge as required")
+        if not (abs(h.iters - hw.iters) <= 1 and d <= CONV_X_REL):
+            raise AssertionError(f"{name} disagrees with its witness")
+        out[name] = {"iters": h.iters, "restarts": h.restarts,
+                     "true_rel_residual": res, "witness_iters": hw.iters,
+                     "x_rel_diff": d}
+    print(json.dumps({"gmres_converging": out}))
+    return out
+
+
+def gmres_fused_ab(torch, gm, counters, St, solve, timed):
+    """Phase 10: per-iteration time of the fused step and of the two-kernel
+    route, on f32 and on bf16 panels, in turns (A B B A)."""
+    bf16 = torch.bfloat16
+    cases = {"f32 fused": (None, {}, "fused_arnoldi"),
+             "f32 two kernels": (None, {"_fused_setup": lambda *a: None},
+                                 "stencil_panel_mv"),
+             "bf16 two kernels": (bf16, {}, "stencil_panel_mv"),
+             "bf16 fused": (bf16, {"_fused_setup": gm._stencil_panel_setup},
+                            "fused_arnoldi")}
+    times = {name: [] for name in cases}
+    for name in list(cases) + list(reversed(cases)):
+        panel, decisions, kernel = cases[name]
+        for f in counters:
+            f.launches = 0
+        with routed(gm, **decisions):
+            t_long = timed(f"ab {name} {GM_LONG}",
+                           lambda: solve(St, GM_LONG, panel), 1, 3)
+            t_short = timed(f"ab {name} {GM_SHORT}",
+                            lambda: solve(St, GM_SHORT, panel), 1, 3)
+        launched = {f.__name__: f.launches for f in counters}
+        if not launched[kernel] or launched[
+                {"fused_arnoldi": "stencil_panel_mv",
+                 "stencil_panel_mv": "fused_arnoldi"}[kernel]]:
+            raise AssertionError(f"{name}: launches {launched}")
+        times[name].append((t_long - t_short) / (GM_LONG - GM_SHORT) * 1e3)
+    out = {name: statistics.mean(t) for name, t in times.items()}
+    print(json.dumps({"fused_vs_two_kernels_us_per_iter": out,
+                      "samples": times}))
+    return out
+
+
+def dispatch_count(torch, fn):
+    """The torch ops ``fn()`` dispatches (each costs host time; most launch
+    a kernel)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        fn()
+    return c.n
+
+
+def gmres_trace(torch, solve, routes, samples):
+    """Where the time of a GMRES step goes: one profiled 240-step solve per
+    route, device busy time against the untraced solve's median; and the
+    torch ops a step dispatches (two cycles less one, over a cycle's steps:
+    a cycle boundary's share included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    trace = {}
+    for name, (op, panel) in routes.items():
+        ops = [dispatch_count(torch, lambda c=c: solve(op, c * GM_RESTART,
+                                                       panel))
+               for c in (1, 2)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            solve(op, GM_SHORT, panel)
+            torch.cuda.synchronize()
+        by_kernel = device_ms(torch, prof, name)
+        busy = sum(by_kernel.values())
+        wall = statistics.median(samples[f"gmres {name} maxiter={GM_SHORT}"])
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+        trace[name] = {"steps": GM_SHORT, "wall_ms": wall,
+                       "device_busy_ms": busy, "busy_share": busy / wall,
+                       "device_us_per_step": busy / GM_SHORT * 1e3,
+                       "torch_ops_per_step": (ops[1] - ops[0]) / GM_RESTART,
+                       "top_device_ms": dict(top)}
+    print(json.dumps({"gmres_trace": trace}))
+    return trace
+
+
 def main():
     import torch
 
@@ -117,11 +593,12 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import iterativesolvers_tpu_torch as its
-    from iterativesolvers_tpu_torch.ops import _build
+    from iterativesolvers_tpu_torch.ops import _build, cuda_arnoldi, cuda_mgs
     from iterativesolvers_tpu_torch.ops.cuda_spmv import (
         dia_spmv, dia_spmv_dot, dia_spmv_plain)
     from iterativesolvers_tpu_torch.ops.cuda_stencil import (
         stencil_apply, stencil_apply_plain)
+    from iterativesolvers_tpu_torch.solvers import gmres as gmres_mod
     from iterativesolvers_tpu_torch.solvers.common import chunked_steps
     from iterativesolvers_tpu_torch.utils.fixtures import laplace_dia
 
@@ -170,8 +647,9 @@ def main():
     for label, Ad in dias.items():
         if label != "f32" and Ad.dtype == torch.float32:
             raise AssertionError(f"compress_values kept f32 for {label}")
-        check(f"dia_spmv {label}", dia_spmv(Ad.diags, Ad.offsets, x32),
-              dia_spmv_plain(Ad.diags, Ad.offsets, x32), TOL_Y_F32)
+        err[f"dia_spmv {label}"] = check(
+            f"dia_spmv {label}", dia_spmv(Ad.diags, Ad.offsets, x32),
+            dia_spmv_plain(Ad.diags, Ad.offsets, x32), TOL_Y_F32)
         y, d = dia_spmv_dot(Ad.diags, Ad.offsets, x32, x32)
         yp, dp = dia_spmv_plain(Ad.diags, Ad.offsets, x32, x32)
         err[label] = check(f"dia_spmv_dot {label} y", y, yp, TOL_Y_F32)
@@ -186,8 +664,8 @@ def main():
     b = torch.ones(n, device="cuda")
     A64 = A.astype(torch.float64)
 
-    def true_res(x):
-        b64 = b.double()
+    def true_res(x, rhs=None):
+        b64 = (b if rhs is None else rhs).double()
         r = b64 - A64.mv(x.double())
         return float(torch.linalg.vector_norm(r) / torch.linalg.vector_norm(b64))
 
@@ -289,14 +767,7 @@ def main():
             solve(op, 504)
             torch.cuda.synchronize()
             traced_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel = {}
-        for e in prof.events():
-            if e.device_type == torch.autograd.DeviceType.CUDA:
-                key = e.name[:60]
-                by_kernel[key] = (by_kernel.get(key, 0.0)
-                                  + e.time_range.elapsed_us() / 1e3)
-        if not by_kernel:
-            raise AssertionError(f"the trace of {name} holds no device time")
+        by_kernel = device_ms(torch, prof, name)
         busy = sum(by_kernel.values())
         wall = statistics.median(samples[f"cg {name} maxiter=504"])
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
@@ -305,6 +776,20 @@ def main():
                        "busy_share": busy / wall, "top_device_ms": dict(top)}
     print(json.dumps({"trace": trace}))
 
+    # ---- 7-10. GMRES -------------------------------------------------------
+    panels, w_gm, gerr = gmres_parity(torch, its, cuda_mgs, cuda_arnoldi, n)
+    gcounters = counters + (cuda_mgs.panel_mgs, cuda_arnoldi.stencil_panel_mv,
+                            cuda_arnoldi.fused_arnoldi)
+    gruns, gout, gsolve, groutes = gmres_main_path(
+        torch, its, gmres_mod, gcounters, paths, b, true_res, rel_diff, timed)
+    conv = gmres_converging(torch, its, gmres_mod, St, b)
+    ab = gmres_fused_ab(torch, gmres_mod, gcounters, St, gsolve, timed)
+    gtrace = gmres_trace(torch, gsolve,
+                         {k: groutes[k] for k in ("stencil_bf16",
+                                                  "stencil_f32", "dia_f32")},
+                         samples)
+
+    # ---- 11. every kernel beside its bound ----------------------------------
     csr = laplace_csr(torch, A)
     library_ms = timed("torch.sparse CSR @ x", lambda: csr @ x32)
     nnz_off = sum(n - abs(o) for o in A.offsets if o != 0)
@@ -326,6 +811,7 @@ def main():
     }]
     for label in ("f32", "bf16", "int8"):
         Ad = dias[label]
+        diag_bytes = sum(d.numel() * d.element_size() for d in Ad.diags)
         kernels.append({
             "name": f"dia_spmv_dot[{label} diagonals]",
             "route": "cuda",
@@ -339,17 +825,106 @@ def main():
                                                      x32, x32), reps=5),
             # every diagonal, x (= u) once, y once; one FMA per in-range
             # product and the dot's FMA
-            "bytes": sum(d.numel() * d.element_size() for d in Ad.diags)
-            + 8 * n,
+            "bytes": diag_bytes + 8 * n,
             "flops": 2 * (n + nnz_off) + 2 * n,
             "library_ms": library_ms,
         })
+        # the same kernel without the dot: GMRES's step on a stored matrix
+        kernels.append({
+            "name": f"dia_spmv[{label} diagonals]",
+            "route": "cuda",
+            "source": "iterativesolvers_tpu_torch/csrc/dia_spmv.cu",
+            "replaces": "iterativesolvers_tpu/ops/pallas_spmv.py:142",
+            "launches": gruns[f"dia_{label}"][2]["dia_spmv"],
+            "max_abs_err": err[f"dia_spmv {label}"],
+            "ms": timed(f"dia_spmv {label}", lambda: Ad.mv(x32)),
+            "plain_ms": timed(f"dia_spmv {label} plain",
+                              lambda: dia_spmv_plain(Ad.diags, Ad.offsets,
+                                                     x32), reps=5),
+            "bytes": diag_bytes + 8 * n,
+            "flops": 2 * (n + nnz_off),
+            "library_ms": library_ms,
+        })
+
+    def bound(nbytes, nflops):
+        byte_ms, op_ms = nbytes / bw * 1e3, nflops / flops * 1e3
+        return max(byte_ms, op_ms), ("bytes" if byte_ms >= op_ms
+                                     else "operations")
+
+    # bytes and operations of one call at step k, panel element size es:
+    # panel MGS reads w and rows 0..k and writes row k+1, 4 operations an
+    # entry a row and 3 for the norm; the fused step reads rows 0..k (row k
+    # among them) and writes row k+1, plus the stencil's FMAs; the panel
+    # SpMV reads one row and writes f32 w
+    nnz_ops = 2 * (n + nnz_off)
+    shape = {"panel_mgs": lambda es, k: ((4 + (k + 2) * es) * n,
+                                         (4 * (k + 1) + 3) * n),
+             "fused_arnoldi": lambda es, k: ((k + 2) * es * n,
+                                             nnz_ops + (4 * (k + 1) + 3) * n),
+             "stencil_panel_mv": lambda es, k: ((es + 4) * n, nnz_ops)}
+    sargs = (St.n, St.center, St.terms, St.coeffs)
+    one = torch.ones((), dtype=torch.int32, device="cuda")
+    k19, k9, k5 = (torch.tensor(k, dtype=torch.int32, device="cuda")
+                   for k in (19, 9, 5))
+    gtimes = {}
+    for label, V in panels.items():
+        Vs = V.clone()
+        calls = {
+            "panel_mgs": (lambda k: cuda_mgs.panel_mgs(Vs, w_gm, k, one),
+                          lambda: cuda_mgs.panel_mgs_plain(Vs, w_gm, k19,
+                                                           one)),
+            "fused_arnoldi": (
+                lambda k: cuda_arnoldi.fused_arnoldi(*sargs, Vs, k, one),
+                lambda: cuda_arnoldi.fused_arnoldi_plain(*sargs, Vs, k19,
+                                                         one)),
+            "stencil_panel_mv": (
+                lambda k: cuda_arnoldi.stencil_panel_mv(*sargs, Vs, k5),
+                lambda: cuda_arnoldi.stencil_panel_mv_plain(*sargs, Vs, k5))}
+        es = V.element_size()
+        for name, (kernel, plain) in calls.items():
+            b_ms, b_by = bound(*shape[name](es, 19))
+            gtimes[name, label] = {
+                "ms": timed(f"{name} {label} k=19", lambda: kernel(k19)),
+                "ms_k9": timed(f"{name} {label} k=9", lambda: kernel(k9)),
+                "plain_ms": timed(f"{name} {label} plain", plain, reps=3),
+                "bound_ms": b_ms, "bound_by": b_by}
+        del Vs
+    # each GMRES kernel at the panel dtype of its main-path routes; the
+    # other dtype beside it
+    main_dtype = {"panel_mgs": "bf16", "fused_arnoldi": "f32",
+                  "stencil_panel_mv": "bf16"}
+    sources = {"panel_mgs": ("csrc/panel_mgs.cu", "ops/pallas_mgs.py:294"),
+               "fused_arnoldi": ("csrc/arnoldi.cu", "ops/pallas_arnoldi.py:385"),
+               "stencil_panel_mv": ("csrc/arnoldi.cu",
+                                    "ops/pallas_arnoldi.py:560")}
+    no_library = ("no single PyTorch call computes modified Gram-Schmidt: "
+                  "each h_j depends on the w left by row j-1")
+    for name, dt in main_dtype.items():
+        other = "f32" if dt == "bf16" else "bf16"
+        t = gtimes[name, dt]
+        kernels.append({
+            "name": f"{name}[{dt} panel]",
+            "route": "cuda",
+            "source": "iterativesolvers_tpu_torch/" + sources[name][0],
+            "replaces": "iterativesolvers_tpu/" + sources[name][1],
+            "launches": sum(r[2][name] for r in gruns.values()),
+            "max_abs_err": gerr[f"{name} {dt}"],
+            "ms": t["ms"], "ms_k9": t["ms_k9"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": library_ms if name == "stencil_panel_mv" else None,
+            **({} if name == "stencil_panel_mv"
+               else {"library_note": no_library}),
+            f"{other}_panel": dict(gtimes[name, other],
+                                   max_abs_err=gerr[f"{name} {other}"]),
+        })
     for k in kernels:
-        byte_ms = k.pop("bytes") / bw * 1e3
-        op_ms = k.pop("flops") / flops * 1e3
-        k["bound_ms"] = max(byte_ms, op_ms)
-        k["bound_by"] = "bytes" if byte_ms >= op_ms else "operations"
+        if "bytes" in k:
+            k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"),
+                                                 k.pop("flops"))
     print(json.dumps({"timing_samples_ms": samples}))
+    print(json.dumps({"gmres": {**gout, "converging": conv,
+                                "fused_vs_two_kernels_us_per_iter": ab,
+                                "trace": gtrace}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

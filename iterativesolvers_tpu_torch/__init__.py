@@ -8,7 +8,9 @@ the operator's device.  Each Pallas kernel of the reference is a hand-written
 CUDA kernel here (``csrc/``, built by ``nvcc`` at first use), launched for
 CUDA tensors; a CPU tensor takes the kernel's plain PyTorch version.
 
-This slice ports CG with the stencil and DIA operators.
+Ported so far: CG and restarted GMRES (with the bf16-panel GMRES-IR mode)
+on the stencil and DIA operators, and the Givens, Hessenberg and
+orthogonalization ops GMRES uses.
 """
 
 from .operators.linear_operator import (
@@ -36,5 +38,9 @@ from .operators.sparse import (
     values_representable,
 )
 from .solvers.cg import cg, cg_iterator
+from .solvers.gmres import gmres, gmres_iterator
+from .ops.givens import givens
+from .ops.hessenberg import hessenberg_lstsq
+from .ops.orthogonalize import ORTH_METHODS, orthogonalize_and_normalize
 from .utils.dtypes import zerox
 from .utils.history import ConvergenceHistory

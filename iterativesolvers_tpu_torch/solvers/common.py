@@ -32,6 +32,7 @@ __all__ = [
     "tolerance",
     "norm",
     "vdot",
+    "safe_inv",
     "SolverIterator",
     "resolve_tols",
     "make_history",
@@ -48,6 +49,13 @@ def norm(x):
 def vdot(a, b):
     """<a, b> with the first argument conjugated (Julia ``dot`` semantics)."""
     return torch.sum(a.conj() * b)
+
+
+def safe_inv(x):
+    """1/x for x > 0, else 0 — the breakdown guard used when normalizing
+    Golub-Kahan / Lanczos vectors (a zero norm means the recurrence
+    terminated; the masked-step machinery freezes the state)."""
+    return torch.where(x > 0, 1.0 / torch.where(x > 0, x, 1.0), 0.0)
 
 
 def tolerance(resnorm0, reltol, abstol):

@@ -42,7 +42,8 @@ def port_stencil(St):
 
 
 def rel(a, b):
-    """||a - b|| / ||b|| of two arrays, in f64."""
-    a = np.asarray(a, dtype=np.float64)
-    b = np.asarray(b, dtype=np.float64)
+    """||a - b|| / ||b|| of two arrays, in f64 (complex128 for complex)."""
+    dt = np.result_type(np.asarray(a).dtype, np.asarray(b).dtype, np.float64)
+    a = np.asarray(a, dtype=dt)
+    b = np.asarray(b, dtype=dt)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 import iterativesolvers_tpu_torch as pits
-from iterativesolvers_tpu_torch.ops import cuda_spmv, cuda_stencil
+from iterativesolvers_tpu_torch.ops import (cuda_arnoldi, cuda_mgs, cuda_spmv,
+                                           cuda_stencil)
 from iterativesolvers_tpu_torch.utils import fixtures as pfix
 
 torch.set_num_threads(1)
@@ -80,3 +81,100 @@ def test_cuda_operators_past_the_kernel_limits_raise(cuda):
                        (40, 40), device=cuda)
     with pytest.raises(ValueError, match="at most"):
         A.mv(torch.ones(40, device=cuda))
+
+
+# ---- the GMRES panel kernels (csrc/panel_mgs.cu, csrc/arnoldi.cu) ----------
+# Tolerances: f32 vectors within 1e-6 of max|.| (FMA contraction); h within
+# 1e-5 of |w| (each h_j a dot of a unit row with w, summed in another
+# order) and nrm within 1e-5 relative; a row stored in bf16 within one bf16
+# step (2^-7 of its largest value), since the f32 values it rounds may
+# differ in the last bits.
+
+
+def _panel(cuda, n, dtype, m1=4, seed=0):
+    """(m1, n) panel with orthonormal rows 0..k, k = min(2, n - 1), zeros
+    past k; and a w of norm ~sqrt(n)."""
+    k = min(2, n - 1)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    Q, _ = torch.linalg.qr(torch.randn(n, k + 1, generator=g, device=cuda))
+    V = torch.zeros(m1, n, device=cuda)
+    V[: k + 1] = Q.T
+    w = torch.randn(n, generator=g, device=cuda)
+    k_t = torch.tensor(k, dtype=torch.int32, device=cuda)
+    return V.to(dtype), w, k_t
+
+
+def _close(got, want, tol):
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max()) <= tol * float(want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", [1, 5, 67])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_panel_mgs_matches_plain(cuda, side, dtype):
+    before = cuda_mgs.panel_mgs.launches
+    for do in (1, 0):
+        V, w, k = _panel(cuda, side**3, dtype, seed=side + do)
+        Vp = V.clone()
+        do_t = torch.tensor(do, dtype=torch.int32, device=cuda)
+        h, nrm = cuda_mgs.panel_mgs(V, w, k, do_t)
+        hp, nrmp = cuda_mgs.panel_mgs_plain(Vp, w, k, do_t)
+        torch.cuda.synchronize()
+        kk = int(k)
+        wn = float(torch.linalg.vector_norm(w))
+        assert float((h - hp).abs().max()) <= 1e-5 * wn
+        assert abs(float(nrm) - float(nrmp)) <= 1e-5 * float(nrmp)
+        assert not h[kk + 1:].any()
+        assert torch.equal(V[: kk + 1], Vp[: kk + 1])
+        assert not V[kk + 2:].any()
+        if do:
+            assert _close(V[kk + 1], Vp[kk + 1],
+                          1e-6 if dtype == torch.float32 else 2**-7)
+        else:
+            assert not V[kk + 1].any()
+    assert cuda_mgs.panel_mgs.launches == before + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", [1, 5, 67])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_stencil_panel_mv_matches_plain(cuda, side, dtype):
+    St = pits.advection_diffusion_stencil(side, device=cuda)
+    V, _, k = _panel(cuda, St.n, dtype, seed=side)
+    args = (St.n, St.center, St.terms, St.coeffs)
+    before = cuda_arnoldi.stencil_panel_mv.launches
+    w = cuda_arnoldi.stencil_panel_mv(*args, V, k)
+    wp = cuda_arnoldi.stencil_panel_mv_plain(*args, V, k)
+    torch.cuda.synchronize()
+    assert w.dtype == torch.float32 and _close(w, wp, 1e-6)
+    assert cuda_arnoldi.stencil_panel_mv.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side", [1, 5, 67])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_fused_arnoldi_matches_plain(cuda, side, dtype):
+    St = pits.laplacian(side, 3, device=cuda)
+    args = (St.n, St.center, St.terms, St.coeffs)
+    before = cuda_arnoldi.fused_arnoldi.launches
+    for do in (1, 0):
+        V, _, k = _panel(cuda, St.n, dtype, seed=side + do)
+        Vp = V.clone()
+        do_t = torch.tensor(do, dtype=torch.int32, device=cuda)
+        h, nrm = cuda_arnoldi.fused_arnoldi(*args, V, k, do_t)
+        hp, nrmp = cuda_arnoldi.fused_arnoldi_plain(*args, Vp, k, do_t)
+        torch.cuda.synchronize()
+        kk = int(k)
+        w = cuda_arnoldi.stencil_panel_mv_plain(*args, Vp, k)
+        assert float((h - hp).abs().max()) <= 1e-5 * float(
+            torch.linalg.vector_norm(w))
+        assert abs(float(nrm) - float(nrmp)) <= 1e-5 * float(nrmp)
+        assert torch.equal(V[: kk + 1], Vp[: kk + 1])
+        assert not V[kk + 2:].any()
+        if do:
+            assert _close(V[kk + 1], Vp[kk + 1],
+                          1e-6 if dtype == torch.float32 else 2**-7)
+        else:
+            assert not V[kk + 1].any()
+    assert cuda_arnoldi.fused_arnoldi.launches == before + 2
