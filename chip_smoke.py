@@ -40,13 +40,23 @@ Phases, in order; any failed check raises and the script exits non-zero:
 11. Timing of every kernel beside its bound, its plain version and a
     library call where one computes the same function; a ``torch.profiler``
     trace of GMRES steps.
+12. Distributed: the two CGS2 sweeps (``panel_dots``, ``panel_update``)
+    against their plain versions and timed at the D = 2 shard shape; then
+    two rank processes of this script (``--dist-rank``, started here) on the
+    one card over gloo run GMRES(20) at reltol 0 on the row-sharded 216^3
+    stencil with its launch counts, its witness (the sweeps' plain
+    versions), its step time and a trace; converging GMRES(10) on the
+    shifted Laplacian (f32 and bf16 panels) and CG, each against its witness
+    and the single-card solves of phases 4 and 9.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It imports no JAX and nothing of the JAX package.
 """
 
+import argparse
 import contextlib
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -466,7 +476,8 @@ def gmres_main_path(torch, its, gm, counters, ops, b, true_res, rel_diff,
 
 def gmres_converging(torch, its, gm, St, b):
     """Phase 9: the shifted Laplacian (center 7), on which restarted GMRES
-    converges, through three routes, each against its witness."""
+    converges, through three routes, each against its witness.  Returns the
+    results and, by panel dtype, the stencil routes' (x, history)."""
     n = St.n
     Sh = its.StencilOperator(n, 7.0, St.terms, St.coeffs)
     Sh64 = its.StencilOperator(n, 7.0, St.terms, St.coeffs,
@@ -481,7 +492,7 @@ def gmres_converging(torch, its, gm, St, b):
              ("stencil, bf16 panel (two kernels)", Sh, torch.bfloat16, 1e-4,
               2e-4),
              ("stored f32 DIA, f32 panel", Sh.to_dia(), None, 1e-5, 2e-5)]
-    out = {}
+    out, xs = {}, {}
     print("GMRES(10) on the shifted Laplacian (center 7):")
     for name, op, panel, reltol, bound in cases:
         kw = dict(restart=10, reltol=reltol, panel_dtype=panel, log=True)
@@ -501,8 +512,10 @@ def gmres_converging(torch, its, gm, St, b):
         out[name] = {"iters": h.iters, "restarts": h.restarts,
                      "true_rel_residual": res, "witness_iters": hw.iters,
                      "x_rel_diff": d}
+        if op is Sh:
+            xs[panel] = (x, h)
     print(json.dumps({"gmres_converging": out}))
-    return out
+    return out, xs
 
 
 def gmres_fused_ab(torch, gm, counters, St, solve, timed):
@@ -583,7 +596,431 @@ def gmres_trace(torch, solve, routes, samples):
     return trace
 
 
+# ---- distributed GMRES and CG (phase 12) -------------------------------------
+# D ranks, one process each, all on the one card over gloo: NCCL refuses two
+# ranks on one card ("Duplicate GPU detected").  Gloo reduces CUDA tensors,
+# and the halo slabs go through host buffers (RowMesh.exchange), so the
+# collectives run through the host: the phase measures the kernels and the
+# correctness of the path, not an interconnect.
+DIST_RANKS = 2
+DIST_COLLECTIVE_TIMEOUT = 300     # seconds a collective may wait
+DIST_TIMEOUT = 900                # seconds the ranks may take in all
+DIST_REPS = 3                     # timed solves of each length
+# the 500-step f32 route against the same solve with the two sweeps routed
+# to their plain versions on the card: WITNESS_RES_FACTOR, WITNESS_X_REL.
+# The converging solves against their distributed witness: +-1 step and
+# CONV_X_REL; against phase 9's single-card MGS solve: at most one restart
+# cycle of GMRES(10) apart and x within DIST_CONV_X_REL (CGS2 against MGS
+# at reltol 1e-5 / 1e-4 on a matrix of condition ~13).
+DIST_CONV_X_REL = {"f32": 1e-3, "bf16": 1e-2}
+# shard-shape parity: each part[j] a dot of (half) a unit row with w, summed
+# in another order: within TOL_H * |w|; y within TOL_Y_F32 of max|y|; ss
+# within TOL_NRM relative
+PANEL_KS = (0, 9, 19)
+
+
+def panel_ortho_parity(torch, cpo, panels, n, D):
+    """The two sweeps against their plain versions on the card at rank 0's
+    shard shape: rank 0's block of phase 7's panels, (21, R, 512)."""
+    from iterativesolvers_tpu_torch.parallel import panel_layout
+
+    lay = panel_layout(n, D)
+    m1, N = GM_RESTART + 1, lay.R * 512
+    blocks = {}
+    for label, V in panels.items():
+        Vb = torch.zeros(m1, N, dtype=V.dtype, device="cuda")
+        Vb[:, :lay.nloc] = V[:, :lay.nloc]
+        blocks[label] = Vb.view(m1, lay.R, 512)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    w = torch.zeros(N, device="cuda")
+    w[:lay.nloc] = torch.randn(lay.nloc, generator=g, device="cuda")
+    w = w.view(lay.R, 512)
+    wn = float(torch.linalg.vector_norm(w))
+    err = {}
+    print(f"panel_ortho kernels, parity at the D = {D} shard shape "
+          f"({m1}, {lay.R}, 512):")
+    for label, V in blocks.items():
+        for k in PANEL_KS:
+            kt = torch.tensor(k, dtype=torch.int32, device="cuda")
+            part = cpo.panel_dots(V, w, kt)
+            partp = cpo.panel_dots_plain(V, w, kt)
+            e = float((part - partp).abs().max())
+            print(f"  panel_dots {label} k={k}: max_abs_err {e:.3e} (limit "
+                  f"{TOL_H * wn:.3e})")
+            if not (e <= TOL_H * wn and not part[k + 1:].any()):
+                raise AssertionError(f"panel_dots {label} k={k} off")
+            h = torch.randn(m1, generator=g, device="cuda")
+            y, ss = cpo.panel_update(V, w, h, kt)
+            yp, ssp = cpo.panel_update_plain(V, w, h, kt)
+            ey = check(f"panel_update {label} k={k} y", y, yp, TOL_Y_F32)
+            es = abs(float(ss) - float(ssp))
+            print(f"  panel_update {label} k={k} ss: abs err {es:.3e} "
+                  f"(limit {TOL_NRM * float(ssp):.3e})")
+            if not es <= TOL_NRM * float(ssp):
+                raise AssertionError(f"panel_update {label} k={k} ss off")
+            for name, e_ in (("panel_dots", e), ("panel_update", ey)):
+                key = f"{name} {label}"
+                err[key] = max(e_, err.get(key, 0.0))
+    torch.cuda.synchronize()
+    return blocks, w, err
+
+
+def panel_ortho_timing(torch, cpo, blocks, w, timed, bound):
+    """Each sweep at k = 19 and 9 beside its byte bound, its plain version
+    and, on an f32 panel, the cuBLAS call of the same function (the dots:
+    ``V @ w``; the update without its sum of squares: ``addmv``)."""
+    out = {}
+    m1 = blocks["f32"].shape[0]
+    N = w.numel()
+    wf = w.reshape(-1)
+    h = torch.linspace(-1, 1, m1, device="cuda")
+    ks = {k: torch.tensor(k, dtype=torch.int32, device="cuda")
+          for k in (19, 9)}
+    for label, V in blocks.items():
+        es = V.element_size()
+        Vf = V.view(m1, -1)
+        # (kernel, plain, library, bytes and operations past the 20 rows'
+        # reads and FMAs at k = 19: w read; w read, y written and y^2 summed)
+        calls = {
+            "panel_dots": (lambda k: cpo.panel_dots(V, w, k),
+                           lambda: cpo.panel_dots_plain(V, w, ks[19]),
+                           lambda: Vf @ wf, 4 * N, 0),
+            "panel_update": (lambda k: cpo.panel_update(V, w, h, k),
+                             lambda: cpo.panel_update_plain(V, w, h, ks[19]),
+                             lambda: torch.addmv(wf, Vf.t(), h, alpha=-1),
+                             8 * N, 2 * N)}
+        for name, (kernel, plain, lib, extra, extra_ops) in calls.items():
+            b_ms, b_by = bound(20 * es * N + extra, 2 * 20 * N + extra_ops)
+            out[name, label] = {
+                "ms": timed(f"{name} {label} k=19", lambda: kernel(ks[19])),
+                "ms_k9": timed(f"{name} {label} k=9", lambda: kernel(ks[9])),
+                "plain_ms": timed(f"{name} {label} plain", plain, reps=3),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": (timed(f"{name} {label} library", lib)
+                               if label == "f32" else None)}
+    return out
+
+
+def dist_rank(args):
+    """One rank of phase 12 (``--dist-rank``): runs the distributed solves
+    on the card, writes its results to ``args.out`` (rank 0 also the
+    gathered solutions)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke rank: torch.cuda.is_available() is false")
+    from iterativesolvers_tpu_torch.parallel import row_mesh
+
+    mesh = row_mesh("gloo", "cuda:0",
+                    init_method=f"file://{args.rendezvous}",
+                    rank=args.dist_rank, world_size=args.world,
+                    timeout=DIST_COLLECTIVE_TIMEOUT)
+    try:
+        res, xs = dist_solves(torch, mesh)
+    finally:
+        mesh.close()
+    with open(f"{args.out}/rank{args.dist_rank}.json", "w") as f:
+        json.dump(res, f)
+    if args.dist_rank == 0:
+        torch.save(xs, f"{args.out}/x.pt")
+
+
+def dist_solves(torch, mesh):
+    """Phase 12 on one rank: GMRES(20) at reltol 0 (the main path, its
+    witness, its timing and a trace), converging GMRES(10) on the shifted
+    Laplacian, and CG, all on the row-sharded 216^3 stencil.  Returns the
+    results and (rank 0) the gathered solutions, on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import iterativesolvers_tpu_torch as its
+    from iterativesolvers_tpu_torch.ops import cuda_panel_ortho as cpo
+    from iterativesolvers_tpu_torch.ops.cuda_stencil import stencil_apply
+    from iterativesolvers_tpu_torch.parallel import (HaloStencilOperator,
+                                                     gather_vector)
+    from iterativesolvers_tpu_torch.parallel import panel_ortho as po
+    from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+    dev = mesh.device
+    St = its.laplacian(SIDE, 3, device=dev)
+    op = HaloStencilOperator(St, mesh)
+    b = torch.ones(op.n_local, device=dev)
+    counters = (cpo.panel_dots, cpo.panel_update, stencil_apply)
+    res, xs = {"rank": mesh.rank}, {}
+
+    def sync():
+        torch.cuda.synchronize()
+        mesh.all_reduce(torch.zeros(1, device=dev))
+
+    def counted(fn):
+        """fn() with every count set to 0 just before; the counts after."""
+        for f in counters:
+            f.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {f.__name__: f.launches for f in counters}
+
+    def gmres(A, **kw):
+        return its.gmres(A, b, log=True, **kw)
+
+    def bench(maxiter):
+        # bench.py's workload: no convergence, exactly maxiter steps
+        return gmres(op, restart=GM_RESTART, reltol=0.0, abstol=1e-30,
+                     maxiter=maxiter, panel_dtype=None, ir_stall_exit=False)
+
+    def plain_sweeps():
+        return routed(po, panel_dots=cpo.panel_dots_plain,
+                      panel_update=cpo.panel_update_plain)
+
+    def keep(name, x):
+        full = gather_vector(x, mesh)
+        if mesh.rank == 0:
+            xs[name] = full.cpu()
+
+    bench(GM_RESTART)                         # warm-up: one cycle
+    sync()
+    # the main path: GMRES(20), 500 steps, reltol 0
+    t0 = time.perf_counter()
+    (x, h), counts = counted(lambda: bench(GM_LONG))
+    res["gmres_500"] = {"iters": h.iters, "mvps": h.mvps, "launches": counts,
+                        "s": time.perf_counter() - t0,
+                        "resnorm_last": float(h["resnorm"][-1])}
+    keep("gmres_500", x)
+    with plain_sweeps():
+        (xw, hw), counts_w = counted(lambda: bench(GM_LONG))
+    res["gmres_500_witness"] = {"iters": hw.iters, "launches": counts_w,
+                                "resnorm_last": float(hw["resnorm"][-1])}
+    keep("gmres_500_witness", xw)
+    del x, xw
+    # per-step time: DIST_REPS solves of each length, rank 0's clock
+    times = {}
+    for m in (GM_LONG, GM_SHORT):
+        times[m] = []
+        for _ in range(DIST_REPS):
+            sync()
+            t0 = time.perf_counter()
+            bench(m)
+            sync()
+            times[m].append(time.perf_counter() - t0)
+    t_long, t_short = (statistics.median(times[m]) for m in (GM_LONG,
+                                                             GM_SHORT))
+    res["timing"] = {"solve_s": times,
+                     "us_per_iter": (t_long - t_short)
+                     / (GM_LONG - GM_SHORT) * 1e6,
+                     "us_per_step_of_500": t_long / GM_LONG * 1e6}
+    # one traced 240-step solve (rank 0 traces; rank 1 runs it alongside)
+    sync()
+    if mesh.rank == 0:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            bench(GM_SHORT)
+            torch.cuda.synchronize()
+        by_kernel = device_ms(torch, prof, "distributed gmres")
+        busy = sum(by_kernel.values())
+        sweeps = {name: sum(v for k, v in by_kernel.items() if name in k)
+                  for name in ("panel_dots_kernel", "reduce_rows",
+                               "panel_update_kernel", "stencil_kernel")}
+        res["trace"] = {
+            "steps": GM_SHORT, "wall_ms": t_short * 1e3,
+            "rank0_device_busy_ms": busy, "rank0_busy_share": busy
+            / (t_short * 1e3),
+            "us_per_step": {k: v / GM_SHORT * 1e3 for k, v in sweeps.items()},
+            "top_device_ms": dict(sorted(by_kernel.items(),
+                                         key=lambda kv: -kv[1])[:8])}
+    else:
+        bench(GM_SHORT)
+    sync()
+    # converging GMRES(10) on the shifted Laplacian, f32 and bf16 panels
+    Sh = HaloStencilOperator(its.StencilOperator(St.n, 7.0, St.terms,
+                                                 St.coeffs, device=dev), mesh)
+    for label, panel, reltol in (("f32", None, 1e-5),
+                                 ("bf16", torch.bfloat16, 1e-4)):
+        # as phase 9 runs it on one card
+        kw = dict(restart=10, reltol=reltol, panel_dtype=panel)
+        (x, h), counts = counted(lambda: gmres(Sh, **kw))
+        with plain_sweeps():
+            xw, hw = gmres(Sh, **kw)
+        res[f"converging_{label}"] = {
+            "iters": h.iters, "restarts": h.restarts,
+            "converged": h.isconverged, "launches": counts,
+            "witness_iters": hw.iters, "witness_converged": hw.isconverged}
+        keep(f"converging_{label}", x)
+        keep(f"converging_{label}_witness", xw)
+    # CG to reltol 1e-5, its mv_dot the halo stencil's
+    (x, h), counts = counted(lambda: its.cg(op, b, reltol=RELTOL, log=True,
+                                            chunk=CHUNK))
+    res["cg"] = {"iters": h.iters, "converged": h.isconverged,
+                 "launches": counts, "steps": chunked_steps(h.iters, CHUNK)}
+    keep("cg", x)
+    return res, xs
+
+
+def run_ranks(torch):
+    """Phase 12's ranks: DIST_RANKS processes of this script on the card
+    (file rendezvous, a timeout on every collective and on the ranks).
+    Returns each rank's results and rank 0's gathered solutions (host).
+    A rank that fails fails the phase."""
+    import tempfile
+
+    print(f"distributed: GMRES and CG on {DIST_RANKS} ranks over gloo on one "
+          f"card, the {SIDE}^3 Laplacian row-sharded (n_local "
+          f"{SIDE**3 // DIST_RANKS}):")
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [sys.executable, str(pathlib.Path(__file__).resolve()),
+               "--world", str(DIST_RANKS), "--rendezvous", f"{tmp}/rendezvous",
+               "--out", tmp]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(cmd + ["--dist-rank", str(r)],
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT)
+                 for r in range(DIST_RANKS)]
+        logs = []
+        try:
+            for p in procs:
+                left = DIST_TIMEOUT - (time.perf_counter() - t0)
+                logs.append(p.communicate(timeout=max(left, 1))[0].decode())
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        secs = time.perf_counter() - t0
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                print(f"rank {r} output:\n{log[-6000:]}")
+                raise AssertionError(f"rank {r} exited {p.returncode}")
+        ranks = []
+        for r in range(DIST_RANKS):
+            with open(f"{tmp}/rank{r}.json") as f:
+                ranks.append(json.load(f))
+        xs = torch.load(f"{tmp}/x.pt")
+    print(f"  ranks took {secs:.1f} s")
+    return ranks, xs, secs
+
+
+def check_ranks(torch, its, ranks, xs, secs, true_res, rel_diff, refs):
+    """Phase 12's checks: the ranks' launches and agreement, the main path
+    against its witness, and the converging solves and CG against their
+    witness and the single-card solves in ``refs``."""
+    n = SIDE**3
+    x64 = refs["cg"][3]
+    dev = x64.device
+    xs = {k: v.to(dev) for k, v in xs.items()}
+    r0 = ranks[0]
+    cycles = GM_LONG // GM_RESTART
+    want = {"panel_dots": 2 * GM_LONG, "panel_update": 2 * GM_LONG,
+            "stencil_apply": GM_LONG + cycles}
+    want_w = dict(want, panel_dots=0, panel_update=0)
+    for r in ranks:
+        g, gw = r["gmres_500"], r["gmres_500_witness"]
+        print(f"  rank {r['rank']}: {GM_LONG} steps, launches {g['launches']}"
+              f"; witness launches {gw['launches']}")
+        if not (g["iters"] == GM_LONG and g["mvps"] == GM_LONG + cycles
+                and g["launches"] == want and gw["launches"] == want_w):
+            raise AssertionError(f"rank {r['rank']}: {g}, {gw}, expected "
+                                 f"launches {want} / {want_w}")
+        for key in ("gmres_500", "converging_f32", "converging_bf16", "cg"):
+            if r[key]["iters"] != r0[key]["iters"]:
+                raise AssertionError(f"ranks disagree on {key}")
+    out = {"ranks": DIST_RANKS, "backend": "gloo", "ranks_s": secs,
+           "timing": r0["timing"], "trace": r0["trace"]}
+    # the main path against its witness (the two sweeps' plain versions)
+    res, res_w = true_res(xs["gmres_500"]), true_res(xs["gmres_500_witness"])
+    d = rel_diff(xs["gmres_500"], xs["gmres_500_witness"])
+    print(f"  GMRES({GM_RESTART}) {GM_LONG} steps, f32 panel: true relative "
+          f"residual {res:.5e}, witness {res_w:.5e}, |x - x_w| / |x_w| "
+          f"{d:.3e}; {r0['timing']['us_per_iter']:.1f} us per iteration, "
+          f"{r0['timing']['us_per_step_of_500']:.1f} us per step of "
+          f"{GM_LONG}")
+    if not (max(res, res_w) <= WITNESS_RES_FACTOR * min(res, res_w)
+            and d <= WITNESS_X_REL):
+        raise AssertionError("distributed GMRES off its witness")
+    out["gmres_500"] = {"true_rel_residual": res,
+                        "witness_true_rel_residual": res_w, "x_rel_diff": d,
+                        "resnorm_last": r0["gmres_500"]["resnorm_last"]}
+    # converging GMRES(10) on the shifted Laplacian
+    St = its.laplacian(SIDE, 3, device=dev)
+    Sh64 = its.StencilOperator(n, 7.0, St.terms, St.coeffs,
+                               dtype=torch.float64, device=dev)
+    b64 = torch.ones(n, dtype=torch.float64, device=dev)
+
+    def shifted_res(x):
+        return float(torch.linalg.vector_norm(b64 - Sh64.mv(x.double()))
+                     / torch.linalg.vector_norm(b64))
+
+    for label, panel in (("f32", None), ("bf16", torch.bfloat16)):
+        c = r0[f"converging_{label}"]
+        x, xw = xs[f"converging_{label}"], xs[f"converging_{label}_witness"]
+        x1, h1 = refs["converging"][panel]
+        dw, d1 = rel_diff(x, xw), rel_diff(x, x1)
+        res = shifted_res(x)
+        print(f"  converging GMRES(10), {label} panel: {c['iters']} steps, "
+              f"{c['restarts']} restarts, true relative residual {res:.3e}, "
+              f"launches {c['launches']}; witness {c['witness_iters']} steps,"
+              f" |x - x_w| / |x_w| {dw:.3e}; single card {h1.iters} steps, "
+              f"|x - x_1| / |x_1| {d1:.3e} (limit {DIST_CONV_X_REL[label]})")
+        if not (c["converged"] and c["witness_converged"]
+                and c["launches"]["panel_dots"] > 0):
+            raise AssertionError(f"converging {label}: {c}")
+        if not (abs(c["iters"] - c["witness_iters"]) <= 1
+                and dw <= CONV_X_REL):
+            raise AssertionError(f"converging {label} off its witness")
+        if not (abs(c["iters"] - h1.iters) <= 10
+                and d1 <= DIST_CONV_X_REL[label]):
+            raise AssertionError(f"converging {label} off the single card")
+        out[f"converging_{label}"] = dict(
+            c, true_rel_residual=res, witness_x_rel_diff=dw,
+            single_card_iters=h1.iters, single_card_x_rel_diff=d1)
+    # CG to reltol 1e-5
+    c = r0["cg"]
+    x1, h1, res_pl, x64 = refs["cg"]
+    res, d1, d64 = true_res(xs["cg"]), rel_diff(xs["cg"], x1), rel_diff(
+        xs["cg"], x64)
+    print(f"  CG: {c['iters']} steps (single card {h1.iters}, difference "
+          f"{c['iters'] - h1.iters}), true relative residual {res:.3e} "
+          f"(single card {true_res(x1):.3e}, plain {res_pl:.3e}), "
+          f"|x - x_1| / |x_1| {d1:.3e}, |x - x64| / |x64| {d64:.3e}, "
+          f"launches {c['launches']} for {c['steps']} steps")
+    if not (c["converged"]
+            and res <= min(TRUE_RES_F32, PLAIN_RES_FACTOR * res_pl)):
+        raise AssertionError(f"distributed CG: true relative residual {res}")
+    if c["launches"]["stencil_apply"] != c["steps"]:
+        raise AssertionError(f"distributed CG launches {c['launches']}")
+    out["cg"] = dict(c, true_rel_residual=res, single_card_iters=h1.iters,
+                     x_rel_diff_single_card=d1, x_rel_diff_f64=d64)
+    print(json.dumps({"distributed": out}))
+    return out, r0
+
+
+def panel_ortho_entries(ptimes, perr, r0):
+    """The kernels-line entries of the two sweeps: f32 panel (the main
+    path's), the bf16 panel beside it."""
+    no_library = ("no single PyTorch call computes a bf16 panel's product "
+                  "with an f32 w (torch rounds the mixed product to bf16)")
+    out = []
+    for name, line in (("panel_dots", 197), ("panel_update", 227)):
+        t = ptimes[name, "f32"]
+        out.append({
+            "name": f"{name}[f32 panel]", "route": "cuda",
+            "source": "iterativesolvers_tpu_torch/csrc/panel_ortho.cu",
+            "replaces": f"iterativesolvers_tpu/parallel/panel_ortho.py:{line}",
+            "launches": r0["gmres_500"]["launches"][name],
+            "max_abs_err": perr[f"{name} f32"], **t,
+            "bf16_panel": dict(ptimes[name, "bf16"],
+                               max_abs_err=perr[f"{name} bf16"],
+                               library_note=no_library)})
+    return out
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help="run one rank of phase 12 (the script starts them)")
+    ap.add_argument("--world", type=int, default=DIST_RANKS)
+    ap.add_argument("--rendezvous")
+    ap.add_argument("--out")
+    args = ap.parse_args()
+    if args.dist_rank is not None:
+        return dist_rank(args)
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -593,7 +1030,8 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import iterativesolvers_tpu_torch as its
-    from iterativesolvers_tpu_torch.ops import _build, cuda_arnoldi, cuda_mgs
+    from iterativesolvers_tpu_torch.ops import (_build, cuda_arnoldi, cuda_mgs,
+                                               cuda_panel_ortho)
     from iterativesolvers_tpu_torch.ops.cuda_spmv import (
         dia_spmv, dia_spmv_dot, dia_spmv_plain)
     from iterativesolvers_tpu_torch.ops.cuda_stencil import (
@@ -782,7 +1220,7 @@ def main():
                             cuda_arnoldi.fused_arnoldi)
     gruns, gout, gsolve, groutes = gmres_main_path(
         torch, its, gmres_mod, gcounters, paths, b, true_res, rel_diff, timed)
-    conv = gmres_converging(torch, its, gmres_mod, St, b)
+    conv, conv_x = gmres_converging(torch, its, gmres_mod, St, b)
     ab = gmres_fused_ab(torch, gmres_mod, gcounters, St, gsolve, timed)
     gtrace = gmres_trace(torch, gsolve,
                          {k: groutes[k] for k in ("stencil_bf16",
@@ -917,6 +1355,19 @@ def main():
             f"{other}_panel": dict(gtimes[name, other],
                                    max_abs_err=gerr[f"{name} {other}"]),
         })
+    # ---- 12. distributed GMRES and CG on DIST_RANKS ranks ------------------
+    blocks, w_sh, perr = panel_ortho_parity(torch, cuda_panel_ortho, panels,
+                                            n, DIST_RANKS)
+    ptimes = panel_ortho_timing(torch, cuda_panel_ortho, blocks, w_sh, timed,
+                                bound)
+    del blocks, w_sh
+    torch.cuda.empty_cache()
+    dout, r0 = check_ranks(
+        torch, its, *run_ranks(torch), true_res, rel_diff,
+        {"converging": conv_x,
+         "cg": (runs["stencil"][0], runs["stencil"][1], res_pl, x64)})
+    kernels += panel_ortho_entries(ptimes, perr, r0)
+
     for k in kernels:
         if "bytes" in k:
             k["bound_ms"], k["bound_by"] = bound(k.pop("bytes"),
@@ -925,6 +1376,8 @@ def main():
     print(json.dumps({"gmres": {**gout, "converging": conv,
                                 "fused_vs_two_kernels_us_per_iter": ab,
                                 "trace": gtrace}}))
+    print(json.dumps({"distributed": dout}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

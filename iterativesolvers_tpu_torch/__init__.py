@@ -10,7 +10,9 @@ CUDA tensors; a CPU tensor takes the kernel's plain PyTorch version.
 
 Ported so far: CG and restarted GMRES (with the bf16-panel GMRES-IR mode)
 on the stencil and DIA operators, and the Givens, Hessenberg and
-orthogonalization ops GMRES uses.
+orthogonalization ops GMRES uses; and the row-sharded halo operators and
+GMRES's sharded-panel CGS2 route over ``torch.distributed``
+(``iterativesolvers_tpu_torch.parallel``, one process per rank).
 """
 
 from .operators.linear_operator import (
@@ -44,3 +46,4 @@ from .ops.hessenberg import hessenberg_lstsq
 from .ops.orthogonalize import ORTH_METHODS, orthogonalize_and_normalize
 from .utils.dtypes import zerox
 from .utils.history import ConvergenceHistory
+from . import parallel

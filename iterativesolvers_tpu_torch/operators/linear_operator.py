@@ -31,6 +31,9 @@ class LinearOperator:
 
     shape: Tuple[int, int]
     device: torch.device
+    # the mesh of a row-sharded operator (parallel/sharded.py), whose
+    # vectors are each rank's block of rows; None on one device
+    mesh = None
 
     @property
     def dtype(self):
@@ -153,6 +156,10 @@ class AdjointOperator(LinearOperator):
     @property
     def device(self):
         return self.inner.device
+
+    @property
+    def mesh(self):
+        return self.inner.mesh
 
     def mv(self, x):
         return self.inner.rmv(x)

@@ -12,7 +12,9 @@ Numerics mirror the reference (src/cg.jl:43-96):
     residual = |r|
 
 Per iteration: 1 SpMV + 2 global reductions (<u,c> and |r|; +1 for <c,r> when
-preconditioned).
+preconditioned).  On a row-sharded operator (``op.mesh``, parallel/) every
+reduction is allreduced over the mesh, so the scalars, and the host's exit
+decision from them, are the same on every rank.
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ def _cg_init(op, b, x0, reltol, abstol, maxiter, initially_zero):
     dtype = solve_dtype(op.dtype, b.dtype)
     x = x0.to(dtype)
     r = b.to(dtype) if initially_zero else b.to(dtype) - op.mv(x)
-    residual = norm(r)
+    residual = norm(r, op.mesh)
     tol = tolerance(residual, reltol, abstol)
     return CGState(
         x=x,
@@ -74,7 +76,7 @@ def _cg_step(op, Pl, state: CGState, live, log_in_place=False) -> CGState:
     earlier state, writes the log in place, to avoid a copy of
     ``maxiter`` values per step."""
     c = Pl.ldiv(state.r)
-    rho = vdot(c, state.r)
+    rho = vdot(c, state.r, op.mesh)
     beta = torch.where(live, rho / state.rho, 1.0)
     keep = live.to(c.dtype)
     u = torch.addcmul(beta * state.u, keep, c)      # c + beta u, or u
@@ -82,7 +84,7 @@ def _cg_step(op, Pl, state: CGState, live, log_in_place=False) -> CGState:
     alpha = torch.where(live, rho / sigma, 0.0)
     x = torch.addcmul(state.x, alpha, u)
     r = torch.addcmul(state.r, alpha, c, value=-1)
-    residual = torch.where(live, norm(r), state.residual)
+    residual = torch.where(live, norm(r, op.mesh), state.residual)
     log = state.resnorm_log if log_in_place else state.resnorm_log.clone()
     slot = state.k.clamp(max=log.shape[0] - 1).reshape(1)
     log.index_put_((slot,), torch.where(live, residual, log.index_select(0, slot)))
@@ -131,7 +133,8 @@ def _prepare(A, b, x0, Pl, abstol, reltol, maxiter):
     dtype = solve_dtype(op.dtype, b.dtype)
     initially_zero = x0 is None
     if x0 is None:
-        x0 = torch.zeros(op.shape[1], dtype=dtype, device=dev)
+        # b's rows: all n on one device, this rank's block on a mesh
+        x0 = torch.zeros(b.shape[0], dtype=dtype, device=dev)
     else:
         x0 = torch.as_tensor(x0, device=dev)
     reltol_, abstol_ = resolve_tols(dtype, reltol, abstol, device=dev)

@@ -41,14 +41,22 @@ __all__ = [
 ]
 
 
-def norm(x):
-    """2-norm, always real.  (Complex-safe: sums |x|^2.)"""
-    return torch.linalg.vector_norm(x)
+def norm(x, mesh=None):
+    """2-norm, always real.  (Complex-safe: sums |x|^2.)  With a ``mesh``
+    (an operator's ``mesh``, ``parallel/sharded.py``; None is one device)
+    ``x`` is this rank's block of a row-sharded vector, and the local sum of
+    squares is allreduced over the mesh."""
+    if mesh is None:
+        return torch.linalg.vector_norm(x)
+    xr = (x * x.conj()).real if x.is_complex() else x * x
+    return torch.sqrt(mesh.all_reduce(torch.sum(xr)))
 
 
-def vdot(a, b):
-    """<a, b> with the first argument conjugated (Julia ``dot`` semantics)."""
-    return torch.sum(a.conj() * b)
+def vdot(a, b, mesh=None):
+    """<a, b> with the first argument conjugated (Julia ``dot`` semantics);
+    with a ``mesh``, of two row-sharded vectors (see :func:`norm`)."""
+    s = torch.sum(a.conj() * b)
+    return s if mesh is None else mesh.all_reduce(s)
 
 
 def safe_inv(x):

@@ -30,10 +30,18 @@ with a panel of the solve's dtype; the panel SpMV
 ``op.mv`` followed by the panel MGS for any other real f32 MGS solve.  Every
 other solve (f64, complex, CGS/CGS2/DGKS) runs plain PyTorch
 (``ops/orthogonalize.py``).
+
+On a row-sharded operator of D > 1 ranks (``op.mesh``, ``parallel/``) the
+step takes the sharded-panel route (``_dist_panel_setup``): the panel lives
+in the per-rank padded ``(m+1, R, 512)`` blocks of ``parallel/panel_ortho.py``
+and is orthogonalized by distributed CGS2, whose two sweeps are the CUDA
+kernels of ``ops/cuda_panel_ortho.py`` in an f32 solve.  Every scalar of the
+state is computed from allreduced values, so all ranks hold the same bits.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -46,6 +54,8 @@ from ..ops.cuda_mgs import PANEL_DTYPES, panel_mgs
 from ..ops.givens import apply_givens, apply_givens_chain, givens
 from ..ops.hessenberg import back_substitute
 from ..ops.orthogonalize import ORTH_METHODS, orthogonalize_and_normalize_rows
+from ..parallel.panel_ortho import (dist_panel_ortho, panel_layout,
+                                    panel_row_to_vec, vec_to_panel_row)
 from ..utils.dtypes import as_dtype, real_dtype, solve_dtype
 from .common import (SolveResult, SolverIterator, make_history, norm,
                      resolve_tols, tolerance, with_highest_precision)
@@ -55,7 +65,8 @@ __all__ = ["gmres", "gmres_iterator", "GMRESState"]
 
 class GMRESState(NamedTuple):
     x: torch.Tensor
-    V: torch.Tensor          # (m+1, n) Arnoldi basis rows, zero beyond active
+    V: torch.Tensor          # (m+1, n) Arnoldi basis rows, zero beyond
+    #                          active; (m+1, R, 512) blocks on a mesh
     R: torch.Tensor          # (m+1, m) rotated Hessenberg (upper triangular)
     g: torch.Tensor          # (m+1,) rotated rhs
     cs: torch.Tensor         # (m,) Givens cosines (real)
@@ -101,33 +112,103 @@ def _fused_setup(op, Pl, Pr, n, dtype, orth_method, panel_dtype=None):
                                 panel_dtype)
 
 
+class _DistPanel(NamedTuple):
+    """The sharded-panel route (``gmres.py:119-148`` of the JAX package):
+    the Krylov panel lives in the per-rank padded ``(m+1, R, 512)`` blocks
+    of ``parallel/panel_ortho.py`` and is orthogonalized by distributed CGS2
+    (two classical passes, the DGKS stability class): one (m+1,)-vector
+    allreduce a pass instead of distributed MGS's m scalar allreduces a
+    step."""
+    mesh: object
+    layout: object
+
+    def to_row(self, vec):
+        return vec_to_panel_row(vec, self.mesh, self.layout)
+
+    def row_to_vec(self, row2d):
+        return panel_row_to_vec(row2d, self.mesh, self.layout)
+
+    def ortho(self, V, w, k):
+        return dist_panel_ortho(V, w, k, V.shape[0], self.mesh, self.layout)
+
+    @property
+    def vtail(self):
+        return (self.layout.R, 512)
+
+
+def _dist_panel_setup(op, n, dtype, orth_method, warn: bool = False,
+                      explicit: bool = True) -> _DistPanel | None:
+    """The sharded-panel route applies when the operator carries a mesh of
+    D > 1 ranks, the solve is real f32/f64 and the caller asked for the
+    default MGS (subsumed by CGS2 on a mesh) or CGS/CGS2 explicitly.  A
+    non-divisible n takes the layout's zero-padded last shard.
+
+    Where the JAX package falls back to GSPMD orthogonalization ('dgks',
+    complex dtypes) the port raises NotImplementedError: that fallback needs
+    a mesh-aware ``ops/orthogonalize.py`` (ROADMAP.md, Queue A item 11), and
+    orthogonalizing rank-local blocks as if they were whole vectors would be
+    wrong.  ``warn=True`` (set once by ``gmres()``) warns where an EXPLICIT
+    'mgs'/'cgs' is upgraded to distributed CGS2 (the solver's own default
+    pick is not a substitution)."""
+    mesh = op.mesh
+    if mesh is None or mesh.size <= 1:
+        return None
+    D = mesh.size
+    on_mesh_but = None
+    if orth_method not in ("mgs", "cgs", "cgs2"):
+        on_mesh_but = f"orth_method={orth_method!r} has no sharded-panel form"
+    elif dtype not in (torch.float32, torch.float64):
+        on_mesh_but = f"solve dtype {dtype} is not f32/f64"
+    if on_mesh_but is not None:
+        raise NotImplementedError(
+            f"gmres on a {D}-device mesh operator: {on_mesh_but}; the JAX "
+            "package falls back to GSPMD orthogonalization (m scalar "
+            "allreduces per Arnoldi step), which the port does not have yet "
+            "(ROADMAP.md, Queue A item 11)")
+    if warn and explicit and orth_method in ("mgs", "cgs"):
+        warnings.warn(
+            f"gmres on a {D}-device mesh operator: orth_method="
+            f"{orth_method!r} is subsumed by distributed CGS2 on the "
+            "sharded-panel path (same DGKS stability class, one (m+1,)-"
+            "vector allreduce per pass)", stacklevel=3)
+    return _DistPanel(mesh, panel_layout(n, D))
+
+
 class _Routes(NamedTuple):
     fused: tuple | None        # stencil args of fused_arnoldi
     panel_mv: tuple | None     # stencil args of stencil_panel_mv
     mgs: bool                  # panel_mgs orthogonalizes
+    dist: _DistPanel | None    # the sharded-panel route
 
 
 def _routes(op, Pl, Pr, n, dtype, orth_method, vdtype) -> _Routes:
+    dist = _dist_panel_setup(op, n, dtype, orth_method)
+    if dist is not None:
+        return _Routes(None, None, False, dist)
     fused = _fused_setup(op, Pl, Pr, n, dtype, orth_method, vdtype)
     mgs = _use_panel_mgs(n, dtype, orth_method, vdtype)
     panel_mv = None
     if fused is None and mgs:
         panel_mv = _stencil_panel_setup(op, Pl, Pr, n, dtype, orth_method,
                                         vdtype)
-    return _Routes(fused, panel_mv, mgs)
+    return _Routes(fused, panel_mv, mgs, None)
 
 
-def _new_cycle(r, m, dtype, vdtype, V=None):
+def _new_cycle(r, m, dtype, vdtype, mesh=None, dist=None, V=None):
     """Panel and rotations of a cycle started from the (left-preconditioned)
-    residual r (~ init!, src/gmres.jl:235-255).  ``V`` is zeroed and reused
-    when given (``gmres``'s own loop, which holds no earlier state)."""
-    beta = norm(r)
+    residual r (~ init!, src/gmres.jl:235-255), this rank's rows of it on a
+    ``mesh``.  ``dist`` lays the panel out in its sharded blocks.  ``V`` is
+    zeroed and reused when given (``gmres``'s own loop, which holds no
+    earlier state)."""
+    beta = norm(r, mesh)
     safe = torch.where(beta == 0, 1, beta)
+    tail = dist.vtail if dist is not None else (r.shape[0],)
     if V is None:
-        V = torch.zeros((m + 1, r.shape[0]), dtype=vdtype, device=r.device)
+        V = torch.zeros((m + 1, *tail), dtype=vdtype, device=r.device)
     else:
         V.zero_()
-    V[0] = (r / safe).to(vdtype)
+    V[0] = (dist.to_row(r / safe) if dist is not None
+            else r / safe).to(vdtype)
     R = torch.zeros((m + 1, m), dtype=dtype, device=r.device)
     g = torch.zeros(m + 1, dtype=dtype, device=r.device)
     g[0] = beta
@@ -136,18 +217,21 @@ def _new_cycle(r, m, dtype, vdtype, V=None):
     return V, R, g, cs, ss, beta
 
 
-def _panel_update(y, Vm, out_dtype):
+def _panel_update(y, Vm, out_dtype, dist=None):
     """x-update ``V^T y``.  On a bf16 panel, y is rounded to bf16 and the
     products are summed in f32 into an f32 result, as the JAX package's
     ``tensordot(..., preferred_element_type=f32)``: one ``addcmul`` per row,
-    with no f32 copy of the panel."""
+    with no f32 copy of the panel.  In the sharded layout (``dist``) the
+    rank's padded block is unpadded to its rows."""
+    Vm = Vm.reshape(Vm.shape[0], -1)
     if Vm.dtype == y.dtype:
-        return y @ Vm
-    yv = y.to(Vm.dtype).to(out_dtype)
-    upd = torch.zeros(Vm.shape[1], dtype=out_dtype, device=Vm.device)
-    for j in range(Vm.shape[0]):
-        upd.addcmul_(Vm[j], yv[j])
-    return upd
+        upd = y @ Vm
+    else:
+        yv = y.to(Vm.dtype).to(out_dtype)
+        upd = torch.zeros(Vm.shape[1], dtype=out_dtype, device=Vm.device)
+        for j in range(Vm.shape[0]):
+            upd.addcmul_(Vm[j], yv[j])
+    return dist.row_to_vec(upd) if dist is not None else upd
 
 
 def _make_step(op, Pl, Pr, m, dtype, orth_method, routes, maxiter=None,
@@ -176,6 +260,16 @@ def _make_step(op, Pl, Pr, m, dtype, orth_method, routes, maxiter=None,
             do = always
         if routes.fused is not None:
             h, nrm = fused_arnoldi(*routes.fused, V, k, do.to(torch.int32))
+        elif routes.dist is not None:
+            # sharded panel: the operator's own halo product on this rank's
+            # rows, then distributed CGS2 (one allreduce a pass)
+            dist = routes.dist
+            row = V.index_select(0, k.reshape(1).long())[0]
+            v = dist.row_to_vec(row).to(s.x.dtype)
+            w = Pl.ldiv(op.mv(Pr.ldiv(v)))
+            w, h, nrm = dist.ortho(V, w, k)
+            w = torch.where(do, w, 0)
+            V.index_copy_(0, (k + 1).reshape(1).long(), w.to(V.dtype)[None])
         else:
             if routes.panel_mv is not None:
                 w = stencil_panel_mv(*routes.panel_mv, V, k)
@@ -222,7 +316,7 @@ def _make_step(op, Pl, Pr, m, dtype, orth_method, routes, maxiter=None,
 
 
 def _gmres_init(op, b, x0, Pl, reltol, abstol, restart, maxiter,
-                initially_zero, vdtype):
+                initially_zero, vdtype, dist=None):
     """The state before the first cycle (~ gmres_iterable!,
     src/gmres.jl:108-136)."""
     dtype = solve_dtype(op.dtype, b.dtype)
@@ -230,7 +324,8 @@ def _gmres_init(op, b, x0, Pl, reltol, abstol, restart, maxiter,
     b = b.to(dtype)
     # initial (preconditioned) residual; skip the A*x when x0 == 0
     r = Pl.ldiv(b) if initially_zero else Pl.ldiv(b - op.mv(x))
-    V, R, g, cs, ss, beta = _new_cycle(r.to(dtype), restart, dtype, vdtype)
+    V, R, g, cs, ss, beta = _new_cycle(r.to(dtype), restart, dtype, vdtype,
+                                       op.mesh, dist)
     i32 = lambda: torch.zeros((), dtype=torch.int32, device=x.device)  # noqa: E731
     return GMRESState(
         x=x, V=V, R=R, g=g, cs=cs, ss=ss, k=i32(), kt=i32(), restarts=i32(),
@@ -244,12 +339,12 @@ def _running(s: GMRESState, maxiter):
     return (s.kt < maxiter) & (s.residual > s.tol) & (s.stall < 2)
 
 
-def _finalize(s: GMRESState, Pr, m, dtype):
+def _finalize(s: GMRESState, Pr, m, dtype, dist=None):
     """x after a cycle: the masked-length solve of the rotated system and
     ``x + Pr^{-1} V^T y``.  R and g froze exactly at convergence, V rows
     beyond k are zero and y is zero beyond k."""
     y = back_substitute(s.R[:m, :], s.g[:m], s.k)
-    return s.x + Pr.ldiv(_panel_update(y, s.V[:m], dtype))
+    return s.x + Pr.ldiv(_panel_update(y, s.V[:m], dtype, dist))
 
 
 @torch.no_grad()
@@ -270,9 +365,9 @@ def _gmres_solve(op, b, x0, Pl, Pr, reltol, abstol, restart, maxiter,
     ir = panel_dtype is not None and panel_dtype != dtype
     m = restart
     b = b.to(dtype)
+    routes = _routes(op, Pl, Pr, op.shape[1], dtype, orth_method, vdtype)
     state = _gmres_init(op, b, x0, Pl, reltol, abstol, restart, maxiter,
-                        initially_zero, vdtype)
-    routes = _routes(op, Pl, Pr, b.shape[0], dtype, orth_method, vdtype)
+                        initially_zero, vdtype, routes.dist)
     step = _make_step(op, Pl, Pr, m, dtype, orth_method, routes,
                       maxiter=maxiter, masked=True, in_place=True)
     zero = torch.zeros((), dtype=torch.int32, device=b.device)
@@ -284,12 +379,13 @@ def _gmres_solve(op, b, x0, Pl, Pr, reltol, abstol, restart, maxiter,
         beta_prev = s.residual
         for _ in range(m):
             s = step(s)
-        x = _finalize(s, Pr, m, dtype)
+        x = _finalize(s, Pr, m, dtype, routes.dist)
         finished = (s.residual <= s.tol) | (s.kt >= maxiter)
         # unconditional fresh cycle (1 SpMV); if finished, the loop exits
         # and none of V/R/g/cs/ss is read again
         r = Pl.ldiv(b - op.mv(x)).to(dtype)
-        V, R, g, cs, ss, beta = _new_cycle(r, m, dtype, vdtype, V=s.V)
+        V, R, g, cs, ss, beta = _new_cycle(r, m, dtype, vdtype, op.mesh,
+                                           routes.dist, V=s.V)
         stall = s.stall
         if ir:
             # decide on the true residual; the estimate only freezes steps
@@ -308,6 +404,11 @@ def _gmres_solve(op, b, x0, Pl, Pr, reltol, abstol, restart, maxiter,
             restarts=s.restarts + (~finished).to(s.restarts.dtype),
             residual=residual, stall=stall)
 
+    verbose = verbose and (op.mesh is None or op.mesh.rank == 0)
+    # the one host read of a cycle.  On a mesh every rank must take the same
+    # branch, or the ranks' collectives no longer pair up and the run
+    # deadlocks: the state it reads (residual, tol, kt, stall) is computed
+    # from allreduced values only, so every rank holds the same bits.
     while bool(_running(state, maxiter)):
         kt0 = int(state.kt) if verbose else 0
         state = cycle(state)
@@ -342,7 +443,8 @@ def _prepare(A, b, x0, Pl, Pr, abstol, reltol, restart, maxiter,
     dtype = solve_dtype(op.dtype, b.dtype)
     initially_zero = x0 is None
     if x0 is None:
-        x0 = torch.zeros(n, dtype=dtype, device=dev)
+        # b's rows: all n on one device, this rank's block on a mesh
+        x0 = torch.zeros(b.shape[0], dtype=dtype, device=dev)
     else:
         x0 = torch.as_tensor(x0, device=dev)
     reltol_, abstol_ = resolve_tols(dtype, reltol, abstol, device=dev)
@@ -392,9 +494,13 @@ def gmres(
     end of that cycle, where the loop reads the device anyway (the JAX
     package prints them live from inside its jitted loop).
     """
+    orth_explicit = orth_method is not None
     (op, b, x0, Pl, Pr, reltol_, abstol_, restart, maxiter, orth_method,
      dtype, initially_zero) = _prepare(A, b, x0, Pl, Pr, abstol, reltol,
                                        restart, maxiter, orth_method)
+    # surface a mesh-route substitution once, outside the loop
+    _dist_panel_setup(op, op.shape[1], dtype, orth_method, warn=True,
+                      explicit=orth_explicit)
     if isinstance(panel_dtype, str) and panel_dtype == "auto":
         panel_dtype = None
     if panel_dtype is not None:
@@ -454,10 +560,10 @@ def gmres_iterator(
                                        restart, maxiter, orth_method)
     m = restart
     b = b.to(dtype)
+    routes = _routes(op, Pl, Pr, op.shape[1], dtype, orth_method, dtype)
     with torch.no_grad():
         state0 = _gmres_init(op, b, x0, Pl, reltol_, abstol_, m, maxiter,
-                             initially_zero, dtype)
-    routes = _routes(op, Pl, Pr, b.shape[0], dtype, orth_method, dtype)
+                             initially_zero, dtype, routes.dist)
     arnoldi = _make_step(op, Pl, Pr, m, dtype, orth_method, routes)
 
     @torch.no_grad()
@@ -466,11 +572,12 @@ def gmres_iterator(
         s = arnoldi(s)
         if not bool((s.k >= m) | (s.residual <= s.tol) | (s.kt >= maxiter)):
             return s
-        x = _finalize(s, Pr, m, dtype)
+        x = _finalize(s, Pr, m, dtype, routes.dist)
         if bool((s.residual <= s.tol) | (s.kt >= maxiter)):
             return s._replace(x=x)
         r = Pl.ldiv(b - op.mv(x)).to(dtype)
-        V, R, g, cs, ss, beta = _new_cycle(r, m, dtype, dtype)
+        V, R, g, cs, ss, beta = _new_cycle(r, m, dtype, dtype, op.mesh,
+                                           routes.dist)
         return s._replace(x=x, V=V, R=R, g=g, cs=cs, ss=ss,
                           k=torch.zeros_like(s.k),
                           restarts=s.restarts + 1, residual=beta)

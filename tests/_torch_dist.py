@@ -1,0 +1,238 @@
+"""Rank worker of the distributed tests (``tests/test_torch_parallel.py`` on
+CPU ranks over gloo, ``tests/test_torch_gpu.py`` on the card), one process
+per rank, and :func:`launch`, which starts them.
+
+It imports torch and the port, never JAX, so that a rank starts in about two
+seconds and the JAX package stays out of it.  :func:`launch` runs D of them:
+
+    python tests/_torch_dist.py IN.npz OUT_DIR RANK WORLD RENDEZVOUS BACKEND
+
+``IN.npz`` holds a JSON list of cases under ``"cases"`` and each case's
+arrays under ``"<case>/<key>"``.  Rank r writes ``OUT_DIR/rank<r>.npz`` with
+each case's outputs under ``"<case>/<key>"``; vectors are gathered whole
+(``gather_vector``) on every rank, so every rank's file can be held against
+rank 0's.  BACKEND ``gloo`` puts every rank on the CPU, ``gloo-cuda`` every
+rank on ``cuda:0``, ``nccl`` rank r on ``cuda:r``.
+"""
+
+import contextlib
+import json
+import os
+import pathlib
+import subprocess
+import sys
+import warnings
+
+import numpy as np
+import torch
+
+import iterativesolvers_tpu_torch as pits
+from iterativesolvers_tpu_torch.parallel import panel_ortho as po
+from iterativesolvers_tpu_torch.parallel import (dist_panel_ortho,
+                                                 gather_vector, panel_layout,
+                                                 row_mesh, shard_vector)
+from iterativesolvers_tpu_torch.solvers import gmres as pgm
+from iterativesolvers_tpu_torch.utils import convert
+
+# seconds a collective may wait before it raises (the test's own timeout on
+# the processes is longer)
+COLLECTIVE_TIMEOUT = 60.0
+
+DTYPES = {"float32": torch.float32, "float64": torch.float64,
+          "bfloat16": torch.bfloat16}
+
+
+def _np(t):
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def _operator(c, a, mesh):
+    """The case's halo operator, built from host arrays with utils/convert."""
+    spec = dict(c["op"])
+    if spec["kind"] == "dia":
+        spec["diags"] = [a[f"diag{i}"] for i in range(spec.pop("ndiags"))]
+    return convert.operator_from_arrays(spec, mesh=mesh)
+
+
+@contextlib.contextmanager
+def _counted(calls, targets):
+    """Count the calls of each ``(module, name)`` in ``calls[name]``."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    for mod, name, fn in saved:
+        calls[name] = 0
+
+        def wrapped(*args, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*args, **kw)
+
+        setattr(mod, name, wrapped)
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+ROUTES = ((pgm, "dist_panel_ortho"), (pgm, "panel_mgs"),
+          (pgm, "fused_arnoldi"), (po, "panel_dots"), (po, "panel_update"))
+
+
+def halo_ops(c, a, mesh):
+    """mv, rmv and mv_dot of a halo operator on the whole x."""
+    op = _operator(c, a, mesh)
+    x = shard_vector(a["x"], mesh)
+    y, d = op.mv_dot(x)
+    return {"mv": _np(gather_vector(op.mv(x), mesh)),
+            "rmv": _np(gather_vector(op.rmv(x), mesh)),
+            "mv_dot_y": _np(gather_vector(y, mesh)), "mv_dot": _np(d)}
+
+
+def interior(c, a, mesh):
+    """Each rank's shard-local stencil interior of A and of A^H."""
+    op = _operator(c, a, mesh)
+    x = shard_vector(a["x"], mesh)
+    out = {}
+    for conj in (False, True):
+        center, eff, cs = op._stencil(conj)
+        y = op._local_interior(eff, cs, center, x)
+        out[f"conj{int(conj)}"] = _np(gather_vector(y, mesh))
+    return out
+
+
+def panel(c, a, mesh):
+    """dist_panel_ortho on this rank's block of the global (m1, D*R, 512)
+    panel, with the sweeps counted."""
+    n, m1, k = c["n"], c["m1"], c["k"]
+    lay = panel_layout(n, mesh.size)
+    R = lay.R
+    V = torch.from_numpy(a["V"][:, mesh.rank * R:(mesh.rank + 1) * R])
+    V = V.to(DTYPES[c["panel"]]).contiguous()
+    w = shard_vector(a["w"], mesh)
+    calls = {}
+    with _counted(calls, ROUTES[3:]):
+        w2d, h, nrm = dist_panel_ortho(V, w, k, m1, mesh, lay,
+                                       passes=c.get("passes", 2))
+    full = gather_vector(w2d.reshape(-1), mesh).reshape(-1, 512)
+    return {"w2d": _np(full), "h": _np(h), "nrm": _np(nrm),
+            "dtype": np.array(str(w2d.dtype)), **_calls(calls)}
+
+
+def _calls(calls):
+    return {f"calls/{k}": np.array(v) for k, v in calls.items()}
+
+
+def _history(x, h, mesh):
+    return {"x": _np(gather_vector(x, mesh)), "iters": np.array(h.iters),
+            "mvps": np.array(h.mvps), "converged": np.array(h.isconverged),
+            "resnorm": np.asarray(h["resnorm"]),
+            "restarts": np.array(getattr(h, "restarts", 0))}
+
+
+def _solve(c, a, mesh, solver):
+    op = _operator(c, a, mesh)
+    b = shard_vector(a["b"], mesh)
+    kw = dict(c.get("kw", {}))
+    if "panel_dtype" in kw:
+        kw["panel_dtype"] = DTYPES.get(kw["panel_dtype"])
+    calls = {}
+    with warnings.catch_warnings(record=True) as caught, \
+            _counted(calls, ROUTES):
+        warnings.simplefilter("always")
+        x, h = solver(op, b, log=True, **kw)
+    return {**_history(x, h, mesh), **_calls(calls),
+            "warnings": np.array([str(w.message) for w in caught] or [""])}
+
+
+def gmres(c, a, mesh):
+    return _solve(c, a, mesh, pits.gmres)
+
+
+def cg(c, a, mesh):
+    return _solve(c, a, mesh, pits.cg)
+
+
+def setup(c, a, mesh):
+    """The sharded-panel dispatch for each (dtype, orth_method): "dist",
+    "none", or "raise: <message>"."""
+    op = _operator(c, a, mesh)
+    out = {}
+    for dt, orth in c["gates"]:
+        try:
+            got = pgm._dist_panel_setup(op, op.shape[1], DTYPES.get(
+                dt, torch.complex128), orth)
+            res = "none" if got is None else "dist"
+        except NotImplementedError as e:
+            res = f"raise: {e}"
+        out[f"{dt}/{orth}"] = np.array(res)
+    return out
+
+
+CASES = {"halo_ops": halo_ops, "interior": interior, "panel": panel,
+         "gmres": gmres, "cg": cg, "setup": setup}
+
+
+MESHES = {"gloo": ("gloo", lambda r: "cpu"),
+          "gloo-cuda": ("gloo", lambda r: "cuda:0"),
+          "nccl": ("nccl", lambda r: f"cuda:{r}")}
+
+
+def launch(cases, D, tmp, backend="gloo", timeout=150):
+    """Run ``cases`` (a list of ``(case, arrays)``) in one launch of D rank
+    processes with files under the directory ``tmp``, each process given
+    ``timeout`` seconds; returns each rank's outputs.  A rank that fails or
+    runs out of time fails the launch, with its output."""
+    tmp = pathlib.Path(tmp)
+    arrays = {f"{c['name']}/{k}": v for c, a in cases for k, v in a.items()}
+    inp = tmp / "in.npz"
+    np.savez(inp, cases=np.array(json.dumps([c for c, _ in cases])),
+             **arrays)
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root), OMP_NUM_THREADS="1")
+    env.pop("XLA_FLAGS", None)
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), str(inp),
+         str(tmp), str(r), str(D),
+         str(tmp / "rendezvous"), backend], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT) for r in range(D)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    failed = [(r, p.returncode, log) for r, (p, log) in
+              enumerate(zip(procs, logs)) if p.returncode != 0]
+    if failed:
+        raise AssertionError("\n".join(f"rank {r} exited {rc}:\n{log[-4000:]}"
+                                        for r, rc, log in failed))
+    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(D)]
+
+
+def main(argv):
+    inp, out_dir, rank, world, rendezvous, backend = argv
+    torch.set_num_threads(1)
+    data = np.load(inp)
+    cases = json.loads(str(data["cases"]))
+    name, device = MESHES[backend]
+    mesh = row_mesh(name, device(int(rank)),
+                    init_method=f"file://{rendezvous}", rank=int(rank),
+                    world_size=int(world), timeout=COLLECTIVE_TIMEOUT)
+    results = {}
+    try:
+        for c in cases:
+            pre = c["name"] + "/"
+            arrays = {k[len(pre):]: data[k] for k in data.files
+                      if k.startswith(pre)}
+            for key, v in CASES[c["kind"]](c, arrays, mesh).items():
+                results[pre + key] = v
+    finally:
+        mesh.close()
+    np.savez(f"{out_dir}/rank{rank}.npz", **results)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

@@ -16,7 +16,7 @@ CPU = "cpu"
 
 def to_torch(a):
     """A copy of a numpy / JAX array as a CPU tensor of its dtype."""
-    return convert._tensor(np.asarray(a))
+    return convert.host_tensor(np.asarray(a))
 
 
 def to_numpy(t):

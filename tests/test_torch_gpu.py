@@ -178,3 +178,97 @@ def test_cuda_fused_arnoldi_matches_plain(cuda, side, dtype):
         else:
             assert not V[kk + 1].any()
     assert cuda_arnoldi.fused_arnoldi.launches == before + 2
+
+
+# ---- the distributed CGS2 sweeps (csrc/panel_ortho.cu) ----------------------
+# Tolerances: each part[j] a dot of a unit row with w summed in another
+# order, within 1e-5 of |w|; y within 1e-6 of max|y| (one FMA a row against
+# a multiply and a subtract); ss within 1e-5 relative.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R", [1, 3, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_panel_ortho_sweeps_match_plain(cuda, R, dtype):
+    """panel_dots and panel_update on an (m1, R, 512) block at k = 0 and
+    k = m (every row), rows past k zero, with a zero-padded w."""
+    from iterativesolvers_tpu_torch.ops import cuda_panel_ortho as cpo
+
+    m1, n = 5, R * 512
+    g = torch.Generator(device=cuda).manual_seed(R)
+    Q, _ = torch.linalg.qr(torch.randn(n, m1, generator=g, device=cuda))
+    w = torch.randn(n, generator=g, device=cuda)
+    w[n - 100:] = 0.0
+    w = w.view(R, 512)
+    h = torch.randn(m1, generator=g, device=cuda)
+    dots, upd = cpo.panel_dots.launches, cpo.panel_update.launches
+    for k in (0, m1 - 1):
+        V = torch.zeros(m1, n, device=cuda)
+        V[: k + 1] = Q.T[: k + 1]
+        V = V.to(dtype).view(m1, R, 512)
+        kt = torch.tensor(k, dtype=torch.int32, device=cuda)
+        part = cpo.panel_dots(V, w, kt)
+        y, ss = cpo.panel_update(V, w, h, kt)
+        torch.cuda.synchronize()
+        partp = cpo.panel_dots_plain(V, w, kt)
+        yp, ssp = cpo.panel_update_plain(V, w, h, kt)
+        wn = float(torch.linalg.vector_norm(w))
+        assert float((part - partp).abs().max()) <= 1e-5 * wn
+        assert not part[k + 1:].any()
+        assert y.dtype == torch.float32 and y.shape == w.shape
+        assert _close(y, yp, 1e-6)
+        assert abs(float(ss) - float(ssp)) <= 1e-5 * float(ssp)
+    assert cpo.panel_dots.launches == dots + 2
+    assert cpo.panel_update.launches == upd + 2
+
+
+# ---- the distributed path on the card (tests/_torch_dist.py ranks) ----------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("backend", ["gloo-cuda", "nccl"])
+def test_cuda_ranks_match_one_card(cuda, tmp_path, backend):
+    """Distributed GMRES(20) and CG on the row-sharded laplacian(48,3) in
+    rank processes, against the same solves on one card: two ranks sharing
+    cuda:0 over gloo (as chip_smoke.py runs them), and one rank per card
+    over NCCL where the machine has two or more cards.  The halo products
+    within 1e-6 of max|y|, the dot 1e-5; GMRES (CGS2 against MGS) within one
+    cycle and 1e-4 in x, CG within 2 steps and 1e-4; every step launches
+    both sweeps twice."""
+    from _torch_dist import launch
+
+    from iterativesolvers_tpu_torch.ops import _build
+
+    D = 2 if backend == "gloo-cuda" else torch.cuda.device_count()
+    if D < 2:
+        pytest.skip("NCCL takes one card per rank: needs two or more cards")
+    _build.build_all()          # once here, not in every rank
+    St = pits.laplacian(48, 3, device=cuda)
+    spec = {"kind": "stencil", "n": St.n, "center": St.center,
+            "terms": [list(t) for t in St.terms], "coeffs": list(St.coeffs),
+            "dtype": "float32"}
+    x = np.random.default_rng(0).standard_normal(St.n).astype(np.float32)
+    b = np.ones(St.n, np.float32)
+    kw = {"gmres": {"restart": 20, "reltol": 1e-5, "maxiter": 400},
+          "cg": {"reltol": 1e-5}}
+    cases = [({"name": "ops", "kind": "halo_ops", "op": spec}, {"x": x})] + [
+        ({"name": s, "kind": s, "op": spec, "kw": kw[s]}, {"b": b})
+        for s in kw]
+    got = launch(cases, D, tmp_path, backend=backend, timeout=300)[0]
+    xt, bt = torch.from_numpy(x).to(cuda), torch.from_numpy(b).to(cuda)
+    y, d = St.mv_dot(xt)
+    assert _close(torch.from_numpy(got["ops/mv"]), St.mv(xt).cpu(), 1e-6)
+    assert _close(torch.from_numpy(got["ops/rmv"]), St.rmv(xt).cpu(), 1e-6)
+    assert _close(torch.from_numpy(got["ops/mv_dot_y"]), y.cpu(), 1e-6)
+    assert abs(float(got["ops/mv_dot"]) - float(d)) <= 1e-5 * abs(float(d))
+    for solver, steps in (("gmres", 20), ("cg", 2)):
+        x1, h1 = getattr(pits, solver)(St, bt, log=True, **kw[solver])
+        assert bool(got[f"{solver}/converged"]) and h1.isconverged
+        assert abs(int(got[f"{solver}/iters"]) - h1.iters) <= steps
+        x1 = x1.double().cpu().numpy()
+        xd = got[f"{solver}/x"].astype(np.float64)
+        assert np.linalg.norm(xd - x1) <= 1e-4 * np.linalg.norm(x1)
+    calls = int(got["gmres/calls/dist_panel_ortho"])
+    assert calls == 20 * (int(got["gmres/restarts"]) + 1)
+    assert int(got["gmres/calls/panel_dots"]) == 2 * calls
+    assert int(got["gmres/calls/panel_update"]) == 2 * calls
