@@ -8,7 +8,9 @@ Run from the root of the repository, on a machine with one NVIDIA H100:
 Phases, in order; any failed check raises and the script exits non-zero:
 
 1. Card: the ``nvidia-smi`` name and power limit, torch and CUDA versions.
-2. Build: every kernel under ``iterativesolvers_tpu_torch/csrc`` by ``nvcc``.
+2. Build: every kernel under ``iterativesolvers_tpu_torch/csrc`` by ``nvcc``;
+   ``ptxas -v``'s registers, stack frame and spills of the sweep kernels
+   (panel MGS, the fused Arnoldi step), none of which may spill.
 3. Kernel parity at 216^3 (10,077,696 rows): each kernel against its plain
    PyTorch version on the card, on the same inputs.
 4. The main path: CG through ``cg(...)`` on the 216^3 Laplacian over the four
@@ -23,7 +25,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
 6. Trace: one 504-step solve per path under ``torch.profiler``: the device's
    busy time and share of the solve, and the kernels that take it.
 7. GMRES kernel parity at 216^3: panel MGS, the panel stencil SpMV and the
-   fused Arnoldi step against their plain versions, on f32 and bf16 panels.
+   fused Arnoldi step against their plain versions, on f32 and bf16 panels;
+   the two sweep kernels also on half their grid (part of the working
+   vector then spills to device memory) and twice on the same inputs (the
+   same bits).
 8. The GMRES main path: ``gmres(...)`` GMRES(20) on the 216^3 Laplacian, the
    workload of ``bench.py``'s second metric (reltol 0, 500 and 240 steps),
    on five routes: stencil with a bf16 panel (the headline) and an f32 panel
@@ -57,6 +62,7 @@ import argparse
 import contextlib
 import json
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -183,6 +189,44 @@ TOL_NRM = 1e-5
 TOL_ROW_BF16 = 2.0 ** -7
 
 
+def sweep_resources(build):
+    """``ptxas -v`` of the sweep kernels: {(kernel, panel): resources}.
+    Raises if an instance is missing, spills or has a stack frame (a
+    register array gone to local memory)."""
+    out = {}
+    for lib, kern in (("panel_mgs", "panel_mgs_kernel"),
+                      ("arnoldi", "fused_arnoldi_kernel")):
+        for name, res in build.kernel_resources(lib).items():
+            m = re.search(kern + r"I(f|13__nv_bfloat16)E", name)
+            if m:
+                key = (kern.replace("_kernel", ""),
+                       "f32" if m.group(1) == "f" else "bf16")
+                out[key] = res
+                print(f"  ptxas {key}: {res}")
+    want = {(k, d) for k in ("panel_mgs", "fused_arnoldi")
+            for d in ("f32", "bf16")}
+    if set(out) != want:
+        raise AssertionError(f"sweep kernels in the ptxas report: {sorted(out)}")
+    bad = [k for k, r in out.items()
+           if r.get("spill_stores", 1) or r.get("spill_loads", 1)
+           or r.get("stack", 1)]
+    if bad:
+        raise AssertionError(f"sweep kernels spill or use a stack: {bad}")
+    return out
+
+
+@contextlib.contextmanager
+def half_grid(cm, ca):
+    """The two sweep kernels on half their cooperative grid: twice the
+    chunk a block, part of it in the spill tier at 216^3."""
+    def half(f):
+        return lambda *a: max(1, f(*a) // 2)
+
+    with routed(cm, _grid=half(cm._grid)), \
+            routed(ca, _fused_grid=half(ca._fused_grid)):
+        yield
+
+
 @contextlib.contextmanager
 def routed(gm, **decisions):
     """Replace dispatch functions of ``solvers/gmres.py`` for the duration
@@ -217,7 +261,8 @@ def check_h(name, h, hp, wn, nrm, nrmp):
 
 def gmres_parity(torch, its, cm, ca, n):
     """Phase 7.  Returns the panels (f32 and bf16, rows 0..19 orthonormal),
-    a w and the max abs errors for the kernels line."""
+    a w, the max abs errors for the kernels line and, by panel, the sweep
+    kernels' residency on their full grid."""
     m1 = GM_RESTART + 1
     g = torch.Generator(device="cuda").manual_seed(2)
     Q, _ = torch.linalg.qr(torch.randn(n, m1 - 1, generator=g, device="cuda"))
@@ -286,8 +331,56 @@ def gmres_parity(torch, its, cm, ca, n):
             err[f"fused_arnoldi {label}"] = max(
                 e, err.get(f"fused_arnoldi {label}", 0.0))
             del Va, Vb
+    # (kernel, plain version, |w| of the step at panel V and k)
+    steps = {"panel_mgs": (lambda V, k, do: cm.panel_mgs(V, w, k, do),
+                           lambda V, k, do: cm.panel_mgs_plain(V, w, k, do),
+                           lambda V, k: wn),
+             "fused_arnoldi": (
+                 lambda V, k, do: ca.fused_arnoldi(*args, V, k, do),
+                 lambda V, k, do: ca.fused_arnoldi_plain(*args, V, k, do),
+                 lambda V, k: float(torch.linalg.vector_norm(
+                     ca.stencil_panel_mv_plain(*args, V, i32(k)))))}
+    residency = {}
+    dev = torch.cuda.current_device()
+    for label, V in panels.items():
+        code, es = cm._DTYPE_CODE[V.dtype], V.element_size()
+        smem = cm._smem(code, dev)
+        full = cm.plan_residency(n, cm._grid(code, n, dev), es, smem)
+        with half_grid(cm, ca):
+            half = cm.plan_residency(n, cm._grid(code, n, dev), es, smem)
+        print(f"  residency, {label} panel: full grid {full} (on chip "
+              f"{full.onchip_share:.4f}); half grid {half} (on chip "
+              f"{half.onchip_share:.4f})")
+        if not (full.spill == 0 and half.spill > 0):
+            raise AssertionError(f"{label}: the full grid must hold w on "
+                                 f"chip and the half grid spill")
+        residency[label] = full
+        for name, (kernel, plain, wnorm) in steps.items():
+            # half the grid: the spill tier at full size
+            with half_grid(cm, ca):
+                for k, do in ((19, 1), (9, 1), (19, 0)):
+                    tag = f"{name} {label} panel, half grid, k={k} do={do}"
+                    Va, Vb = V.clone(), V.clone()
+                    h, nrm = kernel(Va, i32(k), i32(do))
+                    hp, nrmp = plain(Vb, i32(k), i32(do))
+                    e = check_step(tag, Va, Vb, V, k, do, h, nrm, hp, nrmp,
+                                   wnorm(V, k))
+                    err[f"{name} {label}"] = max(e, err[f"{name} {label}"])
+                    del Va, Vb
+            # the same inputs twice: the same bits
+            outs = []
+            for _ in range(2):
+                Va = V.clone()
+                h, nrm = kernel(Va, i32(19), i32(1))
+                outs.append((h, nrm, Va[20].clone()))
+                del Va
+            same = all(torch.equal(a, b) for a, b in zip(*outs))
+            print(f"  {name} {label} panel, two runs on the same inputs: "
+                  f"{'the same bits' if same else 'DIFFERENT bits'}")
+            if not same:
+                raise AssertionError(f"{name} {label}: not reproducible")
     torch.cuda.synchronize()
-    return panels, w, err
+    return panels, w, err, residency
 
 
 def rounding_variants(gm):
@@ -300,17 +393,8 @@ def rounding_variants(gm):
     from iterativesolvers_tpu_torch.ops import cuda_arnoldi as ca
     from iterativesolvers_tpu_torch.ops import cuda_mgs as cm
 
-    def half(f):
-        return lambda *a: max(1, f(*a) // 2)
-
-    @contextlib.contextmanager
-    def half_grid():
-        with routed(cm, _grid=half(cm._grid)), \
-                routed(ca, _fused_grid=half(ca._fused_grid)):
-            yield
-
     return {"kernels": contextlib.nullcontext,
-            "kernels, half grid": half_grid,
+            "kernels, half grid": lambda: half_grid(cm, ca),
             "plain versions": lambda: routed(
                 gm, panel_mgs=cm.panel_mgs_plain,
                 stencil_panel_mv=ca.stencil_panel_mv_plain,
@@ -666,7 +750,7 @@ def panel_ortho_parity(torch, cpo, panels, n, D):
 
 
 def panel_ortho_timing(torch, cpo, blocks, w, timed, bound):
-    """Each sweep at k = 19 and 9 beside its byte bound, its plain version
+    """Each sweep at k = 19 and 9 beside its byte bounds, its plain version
     and, on an f32 panel, the cuBLAS call of the same function (the dots:
     ``V @ w``; the update without its sum of squares: ``addmv``)."""
     out = {}
@@ -696,6 +780,8 @@ def panel_ortho_timing(torch, cpo, blocks, w, timed, bound):
                 "ms_k9": timed(f"{name} {label} k=9", lambda: kernel(ks[9])),
                 "plain_ms": timed(f"{name} {label} plain", plain, reps=3),
                 "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms_k9": bound(10 * es * N + extra,
+                                     2 * 10 * N + extra_ops)[0],
                 "library_ms": (timed(f"{name} {label} library", lib)
                                if label == "f32" else None)}
     return out
@@ -1056,6 +1142,7 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s, {sorted(libs)}")
+    ptxas = sweep_resources(_build)
 
     # ---- 3. kernel parity at 216^3 ----------------------------------------
     print("parity at 216^3:")
@@ -1215,7 +1302,8 @@ def main():
     print(json.dumps({"trace": trace}))
 
     # ---- 7-10. GMRES -------------------------------------------------------
-    panels, w_gm, gerr = gmres_parity(torch, its, cuda_mgs, cuda_arnoldi, n)
+    panels, w_gm, gerr, gres = gmres_parity(torch, its, cuda_mgs, cuda_arnoldi,
+                                            n)
     gcounters = counters + (cuda_mgs.panel_mgs, cuda_arnoldi.stencil_panel_mv,
                             cuda_arnoldi.fused_arnoldi)
     gruns, gout, gsolve, groutes = gmres_main_path(
@@ -1302,8 +1390,8 @@ def main():
              "stencil_panel_mv": lambda es, k: ((es + 4) * n, nnz_ops)}
     sargs = (St.n, St.center, St.terms, St.coeffs)
     one = torch.ones((), dtype=torch.int32, device="cuda")
-    k19, k9, k5 = (torch.tensor(k, dtype=torch.int32, device="cuda")
-                   for k in (19, 9, 5))
+    k19, k9, k5, k0 = (torch.tensor(k, dtype=torch.int32, device="cuda")
+                       for k in (19, 9, 5, 0))
     gtimes = {}
     for label, V in panels.items():
         Vs = V.clone()
@@ -1325,8 +1413,26 @@ def main():
                 "ms": timed(f"{name} {label} k=19", lambda: kernel(k19)),
                 "ms_k9": timed(f"{name} {label} k=9", lambda: kernel(k9)),
                 "plain_ms": timed(f"{name} {label} plain", plain, reps=3),
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by,
+                "bound_ms_k9": bound(*shape[name](es, 9))[0]}
+            if name != "stencil_panel_mv":
+                # a sweep's fixed cost (its k + 2 = 2 grid syncs) at k = 0;
+                # its residency on the chip
+                plan = gres[label]
+                gtimes[name, label].update(
+                    ms_k0=timed(f"{name} {label} k=0", lambda: kernel(k0)),
+                    bound_ms_k0=bound(*shape[name](es, 0))[0],
+                    regs_per_thread=ptxas[name, label]["registers"],
+                    spill_bytes=ptxas[name, label]["spill_stores"],
+                    smem_bytes=plan.smem_bytes,
+                    onchip_share=plan.onchip_share)
         del Vs
+    for (name, label), t in gtimes.items():
+        if name != "stencil_panel_mv":
+            print(f"  {name} {label} panel: {t['ms']:.4f} ms at k=19, "
+                  f"{t['ms'] / t['bound_ms']:.2f}x its bound; "
+                  f"k=9 {t['ms_k9']:.4f} ({t['ms_k9'] / t['bound_ms_k9']:.2f}x),"
+                  f" k=0 {t['ms_k0']:.4f} ({t['ms_k0'] / t['bound_ms_k0']:.2f}x)")
     # each GMRES kernel at the panel dtype of its main-path routes; the
     # other dtype beside it
     main_dtype = {"panel_mgs": "bf16", "fused_arnoldi": "f32",
@@ -1347,8 +1453,7 @@ def main():
             "replaces": "iterativesolvers_tpu/" + sources[name][1],
             "launches": sum(r[2][name] for r in gruns.values()),
             "max_abs_err": gerr[f"{name} {dt}"],
-            "ms": t["ms"], "ms_k9": t["ms_k9"], "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            **t,
             "library_ms": library_ms if name == "stencil_panel_mv" else None,
             **({} if name == "stencil_panel_mv"
                else {"library_note": no_library}),
@@ -1378,6 +1483,7 @@ def main():
                                 "trace": gtrace}}))
     print(json.dumps({"distributed": dout}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
+    print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -19,7 +19,8 @@ panel is flat ``(m1, n)``; ``k`` and ``do`` are 0-d int32 tensors on its
 device.  A CUDA tensor launches the kernel or raises (also past the stencil
 kernel's limits); a CPU tensor takes the plain version, and the plain fused
 step is the plain ``stencil_panel_mv`` followed by the plain
-``panel_mgs``, bit for bit.
+``panel_mgs``, bit for bit.  The fused kernel keeps w on chip as the panel
+MGS kernel does, on the same residency plan (``cuda_mgs.plan_residency``).
 """
 
 from __future__ import annotations
@@ -30,7 +31,8 @@ import functools
 import torch
 
 from . import _build
-from .cuda_mgs import _DTYPE_CODE, check_panel, panel_mgs_plain
+from .cuda_mgs import (_DTYPE_CODE, check_panel, panel_mgs_plain,
+                       plan_residency, smem_query)
 from .cuda_stencil import _check_kernel, _grid, _normal, _plan, stencil_sum
 
 __all__ = ["stencil_panel_mv", "stencil_panel_mv_plain", "fused_arnoldi",
@@ -76,23 +78,54 @@ def _lib():
         + stencil_args)
     lib.its_fused_arnoldi.restype = ctypes.c_int
     lib.its_fused_arnoldi.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
         + stencil_args)
+    lib.its_fused_arnoldi_smem.restype = ctypes.c_int
+    lib.its_fused_arnoldi_smem.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.its_fused_arnoldi_grid.restype = ctypes.c_int
-    lib.its_fused_arnoldi_grid.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.its_fused_arnoldi_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return lib
+
+
+@functools.lru_cache(maxsize=8)
+def _fused_smem(dtype_code, device_index):
+    """The dynamic shared memory a block of the fused kernel may take."""
+    return smem_query(_lib().its_fused_arnoldi_smem, "fused_arnoldi",
+                      dtype_code, device_index)
 
 
 @functools.lru_cache(maxsize=64)
 def _fused_grid(dtype_code, n, device_index):
-    """The cooperative grid of the fused kernel on this device."""
+    """The cooperative grid of the fused kernel on this device: one block
+    on each SM, as ``cuda_mgs._grid``."""
     grid = ctypes.c_int(0)
+    smem = _fused_smem(dtype_code, device_index)
     with torch.cuda.device(device_index):
-        err = _lib().its_fused_arnoldi_grid(dtype_code, n, ctypes.byref(grid))
+        err = _lib().its_fused_arnoldi_grid(dtype_code, n, smem,
+                                            ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(f"fused_arnoldi occupancy query failed (error "
                            f"{err})")
     return grid.value
+
+
+@functools.lru_cache(maxsize=8)
+def _row_masks(n, center, terms, coeffs, device):
+    """Each row's valid terms as the stencil kernels find them (a column in
+    [0, n), and the term's grid axis on the grid), as int16 bits in the sum
+    order of ``_plan``: the fused kernel reads them instead of computing
+    them.  Built once per operator on its device (2 bytes a row)."""
+    order = _plan(center, terms, coeffs, False, torch.float32).order
+    i = torch.arange(n, device=device)
+    masks = torch.zeros(n, dtype=torch.int32, device=device)
+    for b, (off, _, term) in enumerate(order):
+        ok = (i + off >= 0) & (i + off < n)
+        if term is not None:
+            stride, extent = term
+            p = (i // stride) % extent + off // stride
+            ok &= (p >= 0) & (p < extent)
+        masks |= ok.int() << b
+    return masks.to(torch.int16)
 
 
 def _stencil_args(center, terms, coeffs):
@@ -145,6 +178,9 @@ def fused_arnoldi(n, center, terms, coeffs, V, k, do):
     dev = V.device
     code = _DTYPE_CODE[V.dtype]
     grid = _fused_grid(code, n, dev.index)
+    plan = plan_residency(n, grid, V.element_size(),
+                          _fused_smem(code, dev.index))
+    masks = _row_masks(n, center, terms, coeffs, dev)
     y = torch.empty(n, dtype=torch.float32, device=dev)
     partials = torch.empty((m1 + 1) * grid, dtype=torch.float32, device=dev)
     h = torch.empty(m1, dtype=torch.float32, device=dev)
@@ -153,8 +189,9 @@ def fused_arnoldi(n, center, terms, coeffs, V, k, do):
     with torch.cuda.device(dev):
         err = _lib().its_fused_arnoldi(
             code, V.data_ptr(), y.data_ptr(), partials.data_ptr(),
-            h.data_ptr(), nrm.data_ptr(), k.data_ptr(), do.data_ptr(), n, m1,
-            grid, *_stencil_args(center, terms, coeffs), stream)
+            h.data_ptr(), nrm.data_ptr(), k.data_ptr(), do.data_ptr(),
+            masks.data_ptr(), n, m1, grid, *plan.args,
+            *_stencil_args(center, terms, coeffs), stream)
     if err != 0:
         raise RuntimeError(f"fused_arnoldi kernel launch failed (error {err})")
     fused_arnoldi.launches += 1

@@ -20,12 +20,18 @@ panel was a re-tiling artifact of the TPU and is not carried over.
 A CUDA tensor launches the kernel (counted on ``panel_mgs.launches``) or
 raises; a CPU tensor takes the plain version :func:`panel_mgs_plain`, whose
 sweep is the MGS of ``ops/orthogonalize.py`` masked at k.
+
+The kernel runs one block on each SM, and each block keeps its chunk of the
+working vector on chip for the whole sweep: :func:`plan_residency` splits
+the chunk between registers, shared memory and device memory (the fused
+Arnoldi kernel of ``ops/cuda_arnoldi.py`` takes the same plan).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -33,10 +39,73 @@ from . import _build
 from .cuda_stencil import _THREADS
 from .orthogonalize import mgs_rows
 
-__all__ = ["panel_mgs", "panel_mgs_plain", "check_panel", "PANEL_DTYPES"]
+__all__ = ["panel_mgs", "panel_mgs_plain", "check_panel", "plan_residency",
+           "Residency", "PANEL_DTYPES", "ROW_REGS"]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 PANEL_DTYPES = tuple(_DTYPE_CODE)
+
+# The register tier (entries a thread; kRowRegs in csrc/panel_mgs.cuh).
+ROW_REGS = 144
+# The row tiles a pass streams through shared memory (panel_mgs.cuh): 32
+# bytes of a row a thread, in a ring of STAGES tiles of two rows, each slot
+# a tile and one 16-byte piece.
+TILE_BYTES = 32
+STAGES = 4
+
+
+def tile_size(itemsize: int, threads: int = _THREADS) -> int:
+    """Entries of a row tile, for a panel of ``itemsize``-byte entries."""
+    return TILE_BYTES // itemsize * threads
+
+
+def ring_bytes(itemsize: int, threads: int = _THREADS) -> int:
+    """Shared memory of the ring of row tiles."""
+    return STAGES * 2 * (TILE_BYTES * threads + 16)
+
+
+class Residency(NamedTuple):
+    """Where a block of the sweep keeps its chunk of the working vector:
+    the first ``ROW_REGS * threads`` entries in registers, up to ``smem``
+    more in shared memory (a whole number of tiles) and the ``spill`` left
+    in device memory.  ``smem_bytes`` is the dynamic shared memory of a
+    block: the ring of row tiles and the shared tier."""
+    grid: int
+    chunk: int
+    smem: int
+    spill: int
+    smem_bytes: int
+
+    @property
+    def onchip_share(self) -> float:
+        """The share of a full block's chunk held on chip."""
+        return (self.chunk - self.spill) / self.chunk
+
+    @property
+    def args(self):
+        """The plan as the kernels take it: (chunk, smem)."""
+        return self.chunk, self.smem
+
+
+@functools.lru_cache(maxsize=256)
+def plan_residency(n: int, grid: int, itemsize: int, smem_limit: int,
+                   threads: int = _THREADS) -> Residency:
+    """The residency of the sweep over ``n`` entries on ``grid`` blocks of
+    ``threads``, for a panel of ``itemsize``-byte entries, where a block
+    may take ``smem_limit`` bytes of dynamic shared memory: chunk
+    c = ceil(n / grid); ROW_REGS entries a thread in registers; then shared
+    memory, in whole tiles, up to what the limit leaves beside the ring;
+    the rest spills."""
+    if n < 1 or grid < 1:
+        raise ValueError(f"plan_residency needs n >= 1 and grid >= 1, got "
+                         f"{n}, {grid}")
+    c = -(-n // grid)
+    tile = tile_size(itemsize, threads)
+    rest = max(0, c - ROW_REGS * threads)
+    ring = ring_bytes(itemsize, threads)
+    most = max(0, (smem_limit - ring) // 4 // tile * tile)
+    smem = min(-(-rest // tile) * tile, most)
+    return Residency(grid, c, smem, max(0, rest - smem), ring + 4 * smem)
 
 
 def panel_mgs_plain(V, w, k, do):
@@ -81,10 +150,9 @@ def check_panel(V, k, do=None):
 
 def _check_kernel(n):
     """The kernel's limit, checked before a launch (the plain version has
-    none): 32-bit row indices, past n by up to one grid of threads (a
-    cooperative grid holds at most 32 blocks on each of fewer than 2048
-    SMs)."""
-    if n + _THREADS * 32 * 2048 >= 2**31:
+    none): 32-bit row indices; a block indexes its chunk up to one tile
+    past its end."""
+    if n + tile_size(2) >= 2**31:
         raise ValueError(f"n = {n} is too large for 32-bit row indices")
 
 
@@ -93,19 +161,43 @@ def _lib():
     lib = _build.load("panel_mgs")
     lib.its_panel_mgs.restype = ctypes.c_int
     lib.its_panel_mgs.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    lib.its_panel_mgs_smem.restype = ctypes.c_int
+    lib.its_panel_mgs_smem.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.its_panel_mgs_grid.restype = ctypes.c_int
-    lib.its_panel_mgs_grid.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    lib.its_panel_mgs_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     return lib
+
+
+def smem_query(fn, name, dtype_code, device_index):
+    """The dynamic shared memory a block of a sweep kernel may take on the
+    device, as its library's ``*_smem`` entry ``fn`` reports it: the
+    device's limit a block less the kernel's static shared memory."""
+    nbytes = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        err = fn(dtype_code, ctypes.byref(nbytes))
+    if err != 0:
+        raise RuntimeError(f"{name} shared memory query failed (error {err})")
+    return nbytes.value
+
+
+@functools.lru_cache(maxsize=8)
+def _smem(dtype_code, device_index):
+    """The dynamic shared memory a block of the kernel may take."""
+    return smem_query(_lib().its_panel_mgs_smem, "panel_mgs", dtype_code,
+                      device_index)
 
 
 @functools.lru_cache(maxsize=64)
 def _grid(dtype_code, n, device_index):
-    """The cooperative grid the kernel takes on this device: as many blocks
-    as fit on the card at once, and no more than n needs."""
+    """The cooperative grid the kernel takes on this device: one block on
+    each SM, with the most dynamic shared memory a plan gives it, and no
+    more blocks than n needs."""
     grid = ctypes.c_int(0)
+    smem = _smem(dtype_code, device_index)
     with torch.cuda.device(device_index):
-        err = _lib().its_panel_mgs_grid(dtype_code, n, ctypes.byref(grid))
+        err = _lib().its_panel_mgs_grid(dtype_code, n, smem,
+                                        ctypes.byref(grid))
     if err != 0:
         raise RuntimeError(f"panel_mgs occupancy query failed (error {err})")
     return grid.value
@@ -125,6 +217,8 @@ def panel_mgs(V, w, k, do):
     _check_kernel(n)
     code = _DTYPE_CODE[V.dtype]
     grid = _grid(code, n, V.device.index)
+    plan = plan_residency(n, grid, V.element_size(),
+                          _smem(code, V.device.index))
     dev = V.device
     y = torch.empty(n, dtype=torch.float32, device=dev)
     partials = torch.empty((m1 + 1) * grid, dtype=torch.float32, device=dev)
@@ -135,7 +229,7 @@ def panel_mgs(V, w, k, do):
         err = _lib().its_panel_mgs(
             code, V.data_ptr(), w.data_ptr(), y.data_ptr(),
             partials.data_ptr(), h.data_ptr(), nrm.data_ptr(), k.data_ptr(),
-            do.data_ptr(), n, m1, grid, stream)
+            do.data_ptr(), n, m1, grid, *plan.args, stream)
     if err != 0:
         raise RuntimeError(f"panel_mgs kernel launch failed (error {err})")
     panel_mgs.launches += 1

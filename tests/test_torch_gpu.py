@@ -180,6 +180,81 @@ def test_cuda_fused_arnoldi_matches_plain(cuda, side, dtype):
     assert cuda_arnoldi.fused_arnoldi.launches == before + 2
 
 
+def _sweeps(St):
+    """The two sweep kernels and their plain versions as f(V, w, k, do)."""
+    args = (St.n, St.center, St.terms, St.coeffs)
+    return {"panel_mgs": (cuda_mgs.panel_mgs, cuda_mgs.panel_mgs_plain),
+            "fused_arnoldi": (
+                lambda V, w, k, do: cuda_arnoldi.fused_arnoldi(*args, V, k, do),
+                lambda V, w, k, do: cuda_arnoldi.fused_arnoldi_plain(
+                    *args, V, k, do))}
+
+
+def _small_grid(monkeypatch, grid):
+    """Launch both sweep kernels on `grid` blocks."""
+    monkeypatch.setattr(cuda_mgs, "_grid", lambda *a: grid)
+    monkeypatch.setattr(cuda_arnoldi, "_fused_grid", lambda *a: grid)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["panel_mgs", "fused_arnoldi"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sweeps_spill_tier_matches_plain(cuda, monkeypatch, name, dtype):
+    """Two blocks at side 67: each block's chunk (150,382 entries) fills its
+    registers and shared memory and keeps the rest in device memory (the
+    spill tier); against the plain versions at the tolerances above."""
+    _small_grid(monkeypatch, 2)
+    St = pits.laplacian(67, 3, device=cuda)
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    smem = cuda_mgs._smem(cuda_mgs._DTYPE_CODE[dtype],
+                          torch.cuda.current_device())
+    assert cuda_mgs.plan_residency(St.n, 2, itemsize, smem).spill > 0
+    kernel, plain = _sweeps(St)[name]
+    for do in (1, 0):
+        V, w, k = _panel(cuda, St.n, dtype, seed=do)
+        Vp = V.clone()
+        do_t = torch.tensor(do, dtype=torch.int32, device=cuda)
+        h, nrm = kernel(V, w, k, do_t)
+        hp, nrmp = plain(Vp, w, k, do_t)
+        torch.cuda.synchronize()
+        kk = int(k)
+        wn = float(torch.linalg.vector_norm(
+            w if name == "panel_mgs" else cuda_arnoldi.stencil_panel_mv_plain(
+                St.n, St.center, St.terms, St.coeffs, Vp, k)))
+        assert float((h - hp).abs().max()) <= 1e-5 * wn
+        assert abs(float(nrm) - float(nrmp)) <= 1e-5 * float(nrmp)
+        assert not h[kk + 1:].any()
+        assert torch.equal(V[: kk + 1], Vp[: kk + 1])
+        assert not V[kk + 2:].any()
+        if do:
+            assert _close(V[kk + 1], Vp[kk + 1],
+                          1e-6 if dtype == torch.float32 else 2**-7)
+        else:
+            assert not V[kk + 1].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [None, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_sweeps_reproducible(cuda, monkeypatch, grid, dtype):
+    """Two calls on the same inputs give the same bits of h, nrm and row
+    k + 1 (grid-wide sums in a fixed order), on the card's own grid and on
+    two blocks (the spill tier)."""
+    if grid is not None:
+        _small_grid(monkeypatch, grid)
+    St = pits.laplacian(67, 3, device=cuda)
+    V, w, k = _panel(cuda, St.n, dtype, m1=8, seed=3)
+    one = torch.ones((), dtype=torch.int32, device=cuda)
+    for name, (kernel, _) in _sweeps(St).items():
+        outs = []
+        for _ in range(2):
+            Va = V.clone()
+            h, nrm = kernel(Va, w, k, one)
+            outs.append((h, nrm, Va[int(k) + 1]))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(*outs)), name
+
+
 # ---- the distributed CGS2 sweeps (csrc/panel_ortho.cu) ----------------------
 # Tolerances: each part[j] a dot of a unit row with w summed in another
 # order, within 1e-5 of |w|; y within 1e-6 of max|y| (one FMA a row against
