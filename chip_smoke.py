@@ -10,9 +10,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
 1. Card: the ``nvidia-smi`` name and power limit, torch and CUDA versions.
 2. Build: every kernel under ``iterativesolvers_tpu_torch/csrc`` by ``nvcc``;
    ``ptxas -v``'s registers, stack frame and spills of the sweep kernels
-   (panel MGS, the fused Arnoldi step), none of which may spill.
+   (panel MGS, the fused Arnoldi step), none of which may spill or use a
+   stack, and of every instance of the DIA and stencil kernels, none of
+   which may spill.
 3. Kernel parity at 216^3 (10,077,696 rows): each kernel against its plain
-   PyTorch version on the card, on the same inputs.
+   PyTorch version on the card, on the same inputs; f32 ``stencil_apply``'s
+   y against ``dia_spmv``'s on f32, bf16 and int8 diagonals, bit for bit;
+   each kernel with a dot twice on the same inputs, the same bits.
 4. The main path: CG through ``cg(...)`` on the 216^3 Laplacian over the four
    operator paths of ``bench.py`` (matrix-free stencil; stored DIA with f32,
    bf16 and int8 diagonals).  Each run converges, agrees with the others and
@@ -43,8 +47,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
 10. The fused step against the two-kernel route, and bf16 against f32
     panels: per-iteration time of each, in turns on one card.
 11. Timing of every kernel beside its bound, its plain version and a
-    library call where one computes the same function; a ``torch.profiler``
-    trace of GMRES steps.
+    library call where one computes the same function (the DIA and stencil
+    kernels also with their device time, one call between CUDA events
+    behind a sleep kernel, and their wrapper's host time a call); a
+    ``torch.profiler`` trace of GMRES steps.
 12. Distributed: the two CGS2 sweeps (``panel_dots``, ``panel_update``)
     against their plain versions and timed at the D = 2 shard shape; then
     two rank processes of this script (``--dist-rank``, started here) on the
@@ -116,6 +122,40 @@ def time_ms(torch, fn, reps=20, batches=5):
         end.synchronize()
         samples.append(start.elapsed_time(end) / reps)
     return statistics.median(samples), samples
+
+
+# cycles of the sleep kernel that holds the stream while the host enqueues
+# one timed call (~1 ms on an H100: more than a wrapper's host time)
+BLOCKER_CYCLES = 2_000_000
+
+
+def kernel_timing(torch, fn, reps=20, host_reps=50):
+    """``{"ms", "device_ms", "host_us", "samples"}`` of one call of ``fn``:
+    ``ms`` and ``samples`` as :func:`time_ms` (wrapper and kernel: the host
+    may set the pace); ``device_ms`` the median of ``reps`` single calls,
+    each between two CUDA events recorded behind a sleep kernel, so that the
+    host has enqueued the call before the card reaches it (every kernel the
+    call launches included); ``host_us`` the host time of one call,
+    ``host_reps`` calls enqueued without a synchronisation."""
+    ms, samples = time_ms(torch, fn, reps)
+    pairs = []
+    for _ in range(reps):
+        torch.cuda._sleep(BLOCKER_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    device = statistics.median(a.elapsed_time(b) for a, b in pairs)
+    t0 = time.perf_counter()
+    for _ in range(host_reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return {"ms": ms, "device_ms": device, "host_us": host / host_reps * 1e6,
+            "samples": samples}
 
 
 def check(name, got, want, tol, kind="y"):
@@ -212,6 +252,29 @@ def sweep_resources(build):
            or r.get("stack", 1)]
     if bad:
         raise AssertionError(f"sweep kernels spill or use a stack: {bad}")
+    return out
+
+
+def spmv_resources(build):
+    """``ptxas -v`` of every instance of the DIA and stencil kernels (the
+    stencil kernel also in ``arnoldi.cu``, as ``stencil_panel_mv``):
+    {mangled name: resources}.  Raises if one is missing or spills."""
+    out = {}
+    for lib, kern, count in (("dia_spmv", "dia_kernel", 6),
+                             ("stencil", "stencil_kernel", 4),
+                             ("arnoldi", "stencil_kernel", 2)):
+        found = {name: res for name, res in build.kernel_resources(lib).items()
+                 if kern in name}
+        for name, res in found.items():
+            print(f"  ptxas {lib} {name}: {res}")
+        if len(found) != count:
+            raise AssertionError(f"{lib}: {len(found)} instances of {kern} in "
+                                 f"the ptxas report, expected {count}")
+        out.update({f"{lib}:{name}": res for name, res in found.items()})
+    bad = [k for k, r in out.items()
+           if r.get("spill_stores", 1) or r.get("spill_loads", 1)]
+    if bad:
+        raise AssertionError(f"DIA or stencil kernels spill: {bad}")
     return out
 
 
@@ -1143,6 +1206,7 @@ def main():
     libs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s, {sorted(libs)}")
     ptxas = sweep_resources(_build)
+    spmv_resources(_build)
 
     # ---- 3. kernel parity at 216^3 ----------------------------------------
     print("parity at 216^3:")
@@ -1157,7 +1221,8 @@ def main():
         for dt, tol in ((torch.float32, TOL_Y_F32), (torch.bfloat16, TOL_Y_BF16)):
             x = x32.to(dt)
             tag = f"stencil {label} {str(dt)[6:]}"
-            check(f"{tag} mv", St.mv(x), stencil_apply_plain(*args, x), tol)
+            e_mv = check(f"{tag} mv", St.mv(x), stencil_apply_plain(*args, x),
+                         tol)
             check(f"{tag} rmv", St.rmv(x),
                   stencil_apply_plain(*args, x, conj=True), tol)
             y, d = St.mv_dot(x)
@@ -1165,7 +1230,7 @@ def main():
             e = check(f"{tag} mv_dot y", y, yp, tol)
             check(f"{tag} mv_dot dot", d, dp, TOL_DOT, kind="dot")
             if label == "laplacian" and dt == torch.float32:
-                err["stencil"] = e
+                err["stencil"], err["stencil[no dot]"] = e, e_mv
     A = laplace_dia(SIDE, 3, dtype="float32")
     dias = {"f32": A, "bf16": its.compress_values(A, torch.bfloat16),
             "int8": its.compress_values(A, torch.int8)}
@@ -1179,6 +1244,32 @@ def main():
         yp, dp = dia_spmv_plain(Ad.diags, Ad.offsets, x32, x32)
         err[label] = check(f"dia_spmv_dot {label} y", y, yp, TOL_Y_F32)
         check(f"dia_spmv_dot {label} dot", d, dp, TOL_DOT, kind="dot")
+    # the stored and the matrix-free Laplacian: the same sum order, the same
+    # bits; and each kernel's dot the same bits on every run
+    St = its.laplacian(SIDE, 3)
+    y_st = St.mv(x32)
+    same = {f"dia_spmv {label}": (lambda Ad=Ad: Ad.mv(x32))
+            for label, Ad in dias.items()}
+    same.update({f"dia_spmv_dot {label} y": (lambda Ad=Ad: Ad.mv_dot(x32)[0])
+                 for label, Ad in dias.items()})
+    for name, fn in same.items():
+        ok = torch.equal(fn(), y_st)
+        print(f"  {name} against stencil_apply f32: "
+              f"{'the same bits' if ok else 'DIFFERENT bits'}")
+        if not ok:
+            raise AssertionError(f"{name} differs from stencil_apply's y")
+    twice = {f"dia_spmv_dot {label}": (lambda Ad=Ad: Ad.mv_dot(x32))
+             for label, Ad in dias.items()}
+    twice.update({f"stencil_apply {str(dt)[6:]} (dot)": (
+        lambda dt=dt: St.mv_dot(x32.to(dt)))
+        for dt in (torch.float32, torch.bfloat16)})
+    for name, fn in twice.items():
+        (ya, da), (yb, db) = fn(), fn()
+        ok = torch.equal(ya, yb) and torch.equal(da, db)
+        print(f"  {name}, two runs on the same inputs: "
+              f"{'the same bits' if ok else 'DIFFERENT bits'}")
+        if not ok:
+            raise AssertionError(f"{name}: not reproducible")
     torch.cuda.synchronize()
 
     # ---- 4. the main path: CG at 216^3 on the four operator paths ---------
@@ -1319,22 +1410,44 @@ def main():
     csr = laplace_csr(torch, A)
     library_ms = timed("torch.sparse CSR @ x", lambda: csr @ x32)
     nnz_off = sum(n - abs(o) for o in A.offsets if o != 0)
-    kernels = [{
-        "name": "stencil_apply",
-        "route": "cuda",
-        "source": "iterativesolvers_tpu_torch/csrc/stencil.cu",
-        "replaces": "iterativesolvers_tpu/ops/pallas_stencil.py:230",
-        "launches": runs["stencil"][2],
-        "max_abs_err": err["stencil"],
-        "ms": timed("stencil_apply", lambda: St.mv_dot(x32)),
-        "plain_ms": timed("stencil_apply plain", lambda: stencil_apply_plain(
-            St.n, St.center, St.terms, St.coeffs, x32, with_dot=True),
-            reps=5),
-        # read x, write y; one FMA per product (center included), the dot's
-        "bytes": 8 * n,
-        "flops": 2 * (n + nnz_off) + 2 * n,
-        "library_ms": library_ms,
-    }]
+
+    def dev_timed(label, fn):
+        """ms, device_ms and host_us of one call (``kernel_timing``); the
+        batch means go to the timing samples."""
+        t = kernel_timing(torch, fn)
+        samples[label] = t.pop("samples")
+        return t
+
+    # the main path's counts: CG's stencil_apply with the dot; GMRES's
+    # stencil routes apply the stencil without it once a cycle
+    no_dot = sum(gruns[r][2]["stencil_apply"]
+                 for r in ("stencil_bf16", "stencil_f32"))
+    nnz_ops = 2 * (n + nnz_off)
+    kernels = []
+    for name, fn, plain, extra_ops, launches, e in (
+            ("stencil_apply", lambda: St.mv_dot(x32),
+             lambda: stencil_apply_plain(St.n, St.center, St.terms, St.coeffs,
+                                         x32, with_dot=True),
+             2 * n, runs["stencil"][2], err["stencil"]),
+            ("stencil_apply[no dot]", lambda: St.mv(x32),
+             lambda: stencil_apply_plain(St.n, St.center, St.terms, St.coeffs,
+                                         x32), 0, no_dot,
+             err["stencil[no dot]"])):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "iterativesolvers_tpu_torch/csrc/stencil.cu",
+            "replaces": "iterativesolvers_tpu/ops/pallas_stencil.py:230",
+            "launches": launches,
+            "max_abs_err": e,
+            **dev_timed(name, fn),
+            "plain_ms": timed(f"{name} plain", plain, reps=5),
+            # read x, write y; one FMA per product (center included), the
+            # dot's
+            "bytes": 8 * n,
+            "flops": nnz_ops + extra_ops,
+            "library_ms": library_ms,
+        })
     for label in ("f32", "bf16", "int8"):
         Ad = dias[label]
         diag_bytes = sum(d.numel() * d.element_size() for d in Ad.diags)
@@ -1345,14 +1458,14 @@ def main():
             "replaces": "iterativesolvers_tpu/ops/pallas_spmv.py:149",
             "launches": runs[f"dia_{label}"][2],
             "max_abs_err": err[label],
-            "ms": timed(f"dia_spmv_dot {label}", lambda: Ad.mv_dot(x32)),
+            **dev_timed(f"dia_spmv_dot {label}", lambda: Ad.mv_dot(x32)),
             "plain_ms": timed(f"dia_spmv_dot {label} plain",
                               lambda: dia_spmv_plain(Ad.diags, Ad.offsets,
                                                      x32, x32), reps=5),
             # every diagonal, x (= u) once, y once; one FMA per in-range
             # product and the dot's FMA
             "bytes": diag_bytes + 8 * n,
-            "flops": 2 * (n + nnz_off) + 2 * n,
+            "flops": nnz_ops + 2 * n,
             "library_ms": library_ms,
         })
         # the same kernel without the dot: GMRES's step on a stored matrix
@@ -1363,12 +1476,12 @@ def main():
             "replaces": "iterativesolvers_tpu/ops/pallas_spmv.py:142",
             "launches": gruns[f"dia_{label}"][2]["dia_spmv"],
             "max_abs_err": err[f"dia_spmv {label}"],
-            "ms": timed(f"dia_spmv {label}", lambda: Ad.mv(x32)),
+            **dev_timed(f"dia_spmv {label}", lambda: Ad.mv(x32)),
             "plain_ms": timed(f"dia_spmv {label} plain",
                               lambda: dia_spmv_plain(Ad.diags, Ad.offsets,
                                                      x32), reps=5),
             "bytes": diag_bytes + 8 * n,
-            "flops": 2 * (n + nnz_off),
+            "flops": nnz_ops,
             "library_ms": library_ms,
         })
 
@@ -1382,7 +1495,6 @@ def main():
     # entry a row and 3 for the norm; the fused step reads rows 0..k (row k
     # among them) and writes row k+1, plus the stencil's FMAs; the panel
     # SpMV reads one row and writes f32 w
-    nnz_ops = 2 * (n + nnz_off)
     shape = {"panel_mgs": lambda es, k: ((4 + (k + 2) * es) * n,
                                          (4 * (k + 1) + 3) * n),
              "fused_arnoldi": lambda es, k: ((k + 2) * es * n,
@@ -1410,7 +1522,9 @@ def main():
         for name, (kernel, plain) in calls.items():
             b_ms, b_by = bound(*shape[name](es, 19))
             gtimes[name, label] = {
-                "ms": timed(f"{name} {label} k=19", lambda: kernel(k19)),
+                **({"ms": timed(f"{name} {label} k=19", lambda: kernel(k19))}
+                   if name != "stencil_panel_mv" else
+                   dev_timed(f"{name} {label} k=19", lambda: kernel(k19))),
                 "ms_k9": timed(f"{name} {label} k=9", lambda: kernel(k9)),
                 "plain_ms": timed(f"{name} {label} plain", plain, reps=3),
                 "bound_ms": b_ms, "bound_by": b_by,

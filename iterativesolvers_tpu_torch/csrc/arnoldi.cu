@@ -4,10 +4,12 @@
 // stencil_panel_mv replaces the Pallas TPU kernel `stencil_panel_mv`
 // (iterativesolvers_tpu/ops/pallas_arnoldi.py:560): w = A V[k] in f32, from
 // panel row k stored as f32 or bf16, k read from device memory.  It is the
-// stencil kernel of stencil.cu (stencil.cuh, the same sum order) with an f32
-// output and the input at the row's offset.  Bound on an H100 SXM
-// (3.35 TB/s) at n = 216^3: read one row, write w: 8n bytes (80.6 MB,
-// 24.1 us) from an f32 panel, 6n bytes (60.5 MB, 18.0 us) from bf16.
+// stencil kernel of stencil.cu (stencil.cuh's stencil_kernel: runs of 8
+// rows a thread, 16-byte loads and stores, the grid position by
+// multiply-high and shift, the same sum order) with an f32 output and the
+// input at the row's offset.  Bound on an H100 SXM (3.35 TB/s) at
+// n = 216^3: read one row, write w: 8n bytes (80.6 MB, 24.1 us) from an f32
+// panel, 6n bytes (60.5 MB, 18.0 us) from bf16.
 //
 // fused_arnoldi replaces the Pallas TPU kernel `fused_arnoldi`
 // (iterativesolvers_tpu/ops/pallas_arnoldi.py:385): in one cooperative
@@ -26,8 +28,9 @@
 // register tier is filled, so that its loads have the registers: the
 // register tier's share of w goes once through the scratch y, written and
 // read back by the same thread while L2 holds it.  With one block of
-// kThreads threads on an SM, too few to hide integer divisions, the
-// stencil reads each row's valid terms from a mask of two bytes a row,
+// kThreads threads on an SM, too few to hide the grid arithmetic of each
+// row (integer divisions in the first design), the stencil reads each
+// row's valid terms from a mask of two bytes a row,
 // built once per operator by the wrapper, as the TPU kernel read its int8
 // mask tiles: 2n bytes more than the bound's.  What the TPU design needed
 // and this one does not: the sliding VMEM windows with halo rows and the
@@ -39,23 +42,11 @@
 
 namespace its {
 
-template <typename TV>
-__global__ void __launch_bounds__(kThreads)
-panel_mv_kernel(const TV* __restrict__ V, const int* __restrict__ kp,
-                float* __restrict__ w, int n, int m1, StencilTerms t) {
-  const int k = max(0, min(*kp, m1 - 1));
-  const TV* x = V + static_cast<size_t>(k) * n;
-  const int step = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
-    w[i] = stencil_row(x, i, n, t);
-  }
-}
-
 // Row i of the stencil product, as stencil_row (stencil.cuh: the same terms
 // in the same order), from the row's valid terms as stencil_row would find
 // them, read from a mask (bit b: sum slot b) instead of computed: the
-// fused kernel runs few threads an SM, too few to hide stencil_row's
-// integer divisions.  Every slot's load is formed, from a clamped index,
+// fused kernel runs few threads an SM, too few to hide row_valid's grid
+// arithmetic.  Every slot's load is formed, from a clamped index,
 // so no load waits for the mask or stands behind a branch and the
 // compiler keeps all the row's loads in flight; an invalid slot adds
 // nothing, so the row adds the same values in the same order.
@@ -144,40 +135,50 @@ int launch_fused(void* V, void* y, void* partials, void* h, void* nrm,
       args, s);
 }
 
+template <typename TV>
+const void* panel_mv_kernel() {
+  return reinterpret_cast<const void*>(stencil_kernel<TV, float, false>);
+}
+
+const void* panel_mv_kernel(int dtype) {
+  if (dtype == 0) return panel_mv_kernel<float>();
+  if (dtype == 1) return panel_mv_kernel<__nv_bfloat16>();
+  return nullptr;
+}
+
 }  // namespace its
 
-// dtype: 0 = float32, 1 = bfloat16 (the panel V, (m1, n) row-major); w f32
-// (n,); k one int32 on the device; the terms as in stencil.cuh's
-// pack_terms.  Returns the CUDA error code of the launch (0 = success), or
-// -1 for bad arguments.
-extern "C" int its_stencil_panel_mv(int dtype, const void* V, const void* k,
-                                    void* w, int n, int m1, int grid,
-                                    int nterms, const int* off,
-                                    const int* step, const int* stride,
-                                    const int* extent, const int* bit,
-                                    int nsum, int center_bit,
-                                    const int* sum_off, const float* sum_coeff,
-                                    void* stream) {
+// Blocks of its_stencil_panel_mv's kernel for dtype that one SM holds at
+// once, written to *blocks; returns a CUDA error code, or -1 for bad
+// arguments.
+extern "C" int its_stencil_panel_mv_blocks_per_sm(int dtype, int* blocks) {
   using namespace its;
-  StencilTerms t;
-  if (n < 1 || m1 < 1 || grid < 1 ||
-      !pack_terms(&t, nterms, off, step, stride, extent, bit, nsum,
-                  center_bit, sum_off, sum_coeff)) {
+  const void* k = panel_mv_kernel(dtype);
+  return k == nullptr ? -1 : blocks_per_sm(k, blocks);
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (the panel V, (m1, n) row-major); w f32
+// (n,); k one int32 on the device; vec = 1 when V and w are 16-byte aligned
+// (a row k > 0 is checked on the device); `terms`: the StencilTerms that
+// stencil.cu's its_stencil_pack_terms packed (the same header, the same
+// layout).  Returns the CUDA error code of the launch (0 = success), or -1
+// for bad arguments.
+extern "C" int its_stencil_panel_mv(int dtype, const void* V, const void* k,
+                                    void* w, int n, int m1, int grid, int vec,
+                                    const void* terms, void* stream) {
+  using namespace its;
+  const void* kern = panel_mv_kernel(dtype);
+  if (kern == nullptr || n < 1 || m1 < 1 || grid < 1 || terms == nullptr) {
     return -1;
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* k_ = static_cast<const int*>(k);
-  float* w_ = static_cast<float*>(w);
-  if (dtype == 0) {
-    panel_mv_kernel<float><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(V), k_, w_, n, m1, t);
-  } else if (dtype == 1) {
-    panel_mv_kernel<__nv_bfloat16><<<grid, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(V), k_, w_, n, m1, t);
-  } else {
-    return -1;
-  }
-  return static_cast<int>(cudaGetLastError());
+  StencilTerms t = *static_cast<const StencilTerms*>(terms);
+  void* V_ = const_cast<void*>(V);
+  void* k_ = const_cast<void*>(k);
+  void* none = nullptr;
+  void* args[] = {&V_, &k_, &m1, &w, &none, &none, &none, &n, &vec, &t};
+  return static_cast<int>(cudaLaunchKernel(kern, dim3(grid), dim3(kThreads),
+                                           args, 0,
+                                           static_cast<cudaStream_t>(stream)));
 }
 
 // The dynamic shared memory a block of `its_fused_arnoldi` may take on the
@@ -214,25 +215,20 @@ extern "C" int its_fused_arnoldi_grid(int dtype, int n, int smem, int* grid) {
 // stencil_row finds them (bit b: sum slot b, as ops/cuda_arnoldi.py's
 // _row_masks builds them); `partials` holds (m1 + 1) * grid floats, grid
 // from its_fused_arnoldi_grid; m1 >= 2; the residency plan (c, S) as
-// its_panel_mgs takes it.  Writes panel row k + 1.  Returns the CUDA
+// its_panel_mgs takes it; `terms` as its_stencil_panel_mv takes them.
+// Writes panel row k + 1.  Returns the CUDA
 // error code of the launch (0 = success), or -1 for bad arguments.
 extern "C" int its_fused_arnoldi(int dtype, void* V, void* y, void* partials,
                                  void* h, void* nrm, const void* k,
                                  const void* dop, const void* masks, int n,
-                                 int m1, int grid, int c, int S, int nterms,
-                                 const int* off, const int* step,
-                                 const int* stride, const int* extent,
-                                 const int* bit, int nsum, int center_bit,
-                                 const int* sum_off, const float* sum_coeff,
-                                 void* stream) {
+                                 int m1, int grid, int c, int S,
+                                 const void* terms, void* stream) {
   using namespace its;
-  StencilTerms t;
   if (n < 1 || m1 < 2 || grid < 1 || c < 1 || S < 0 ||
-      static_cast<long long>(grid) * c < n ||
-      !pack_terms(&t, nterms, off, step, stride, extent, bit, nsum,
-                  center_bit, sum_off, sum_coeff)) {
+      static_cast<long long>(grid) * c < n || terms == nullptr) {
     return -1;
   }
+  const StencilTerms t = *static_cast<const StencilTerms*>(terms);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return launch_fused<float>(V, y, partials, h, nrm, k, dop, masks, n, m1,

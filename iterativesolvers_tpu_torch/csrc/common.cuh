@@ -1,11 +1,14 @@
-// Shared device helpers for the port's kernels: value loads in f32 and the
-// deterministic two-pass dot.
+// Shared device helpers for the port's kernels: value loads in f32, 16-byte
+// vector loads, division by a runtime constant without a divide, and the
+// deterministic dot.
 //
-// A dot across the whole vector is summed in two passes with no atomics:
-// each block of the main kernel writes one f32 partial, and one block of
-// `reduce_partials` sums the partials in a fixed order.  The result is the
-// same bits on every run for a given n and grid, so a CG solve takes the
-// same iteration count every run.
+// A dot across the whole vector is summed in a fixed order: each block of
+// the main kernel writes f32 partials, and the partials are summed in a
+// fixed order, either by the block that finishes last (`finish_dot`, in
+// the same launch) or by one block of `reduce_partials` (a second launch).
+// Which block sums does not change the order of the sum, so the result is
+// the same bits on every run, and a CG solve takes the same iteration count
+// every run.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -23,6 +26,10 @@ constexpr int kReduceThreads = 1024;
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
+
+// Elements of T in one 16-byte vector load or store.
+constexpr int kVecBytes = 16;
+template <typename T> constexpr int kVecOf = kVecBytes / static_cast<int>(sizeof(T));
 
 template <typename T> __device__ __forceinline__ T from_f32(float v);
 template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
@@ -45,6 +52,289 @@ __device__ __forceinline__ float block_sum(float v) {
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
   }
   return v;
+}
+
+// 16 bytes of kVecOf<T> values of T as floats: bf16 widens by a shift; int8
+// by the exact float trick 2^23 + (b + 128) - (2^23 + 128), a byte permute
+// and an add where a conversion would take the slower conversion unit.
+template <typename T>
+__device__ __forceinline__ void unpack_vec(uint4 v, float* out);
+
+template <>
+__device__ __forceinline__ void unpack_vec<float>(uint4 v, float* out) {
+  out[0] = __uint_as_float(v.x);
+  out[1] = __uint_as_float(v.y);
+  out[2] = __uint_as_float(v.z);
+  out[3] = __uint_as_float(v.w);
+}
+
+template <>
+__device__ __forceinline__ void unpack_vec<__nv_bfloat16>(uint4 v, float* out) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    out[2 * q] = __uint_as_float(w[q] << 16);
+    out[2 * q + 1] = __uint_as_float(w[q] & 0xffff0000u);
+  }
+}
+
+template <>
+__device__ __forceinline__ void unpack_vec<int8_t>(uint4 v, float* out) {
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const unsigned b = w[q] ^ 0x80808080u;   // each byte as b + 128
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      // bytes (b_k + 128, 0, 0, 0x4B): the float 2^23 + b_k + 128
+      out[4 * q + k] =
+          __uint_as_float(__byte_perm(b, 0x4Bu, 0x4550u | k)) - 8388736.0f;
+    }
+  }
+}
+
+// The 16 bytes at p (16-byte aligned).  kStream: a stream read once, loaded
+// with the evict-first hint (ld.global.cs), so that it does not push reused
+// data out of L2; else through the read-only path.
+template <bool kStream>
+__device__ __forceinline__ uint4 load16(const void* p) {
+  const uint4* q = static_cast<const uint4*>(p);
+  return kStream ? __ldcs(q) : __ldg(q);
+}
+
+// The 16 bytes at p as kVecOf<T> floats.
+template <typename T, bool kStream>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float* out) {
+  unpack_vec<T>(load16<kStream>(p), out);
+}
+
+// v as kVecOf<T> values of T, stored as one 16-byte vector at p (aligned).
+template <typename T>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float* v);
+
+template <>
+__device__ __forceinline__ void store_vec<float>(float* __restrict__ p,
+                                                 const float* v) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+template <>
+__device__ __forceinline__ void store_vec<__nv_bfloat16>(
+    __nv_bfloat16* __restrict__ p, const float* v) {
+  unsigned w[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const unsigned lo = __bfloat16_as_ushort(__float2bfloat16(v[2 * q]));
+    const unsigned hi = __bfloat16_as_ushort(__float2bfloat16(v[2 * q + 1]));
+    w[q] = lo | (hi << 16);
+  }
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// w[e] = x[g0 + S + e], e < R, from 16-byte loads: g0 a multiple of
+// kVecOf<T> with x + g0 16-byte aligned, and [g0, g0 + P V) inside x.  S is
+// a template argument, so the shift is a choice of registers.
+template <typename T, int R, int S>
+__device__ __forceinline__ void window_vec(const T* __restrict__ x, int g0,
+                                           float (&w)[R]) {
+  constexpr int V = kVecOf<T>;
+  constexpr int P = (R + S + V - 1) / V;
+  float buf[P * V];
+#pragma unroll
+  for (int p = 0; p < P; ++p) load_vec<T, false>(x + g0 + p * V, buf + p * V);
+#pragma unroll
+  for (int e = 0; e < R; ++e) w[e] = buf[e + S];
+}
+
+// window_vec with the shift s (0 <= s < kVecOf<T>) known at run time only;
+// s is the same across a warp, so the choice does not diverge.
+template <typename T, int R, int S = 0>
+__device__ __forceinline__ void window_vec_at(const T* __restrict__ x, int g0,
+                                              int s, float (&w)[R]) {
+  if constexpr (S + 1 < kVecOf<T>) {
+    if (s == S) {
+      window_vec<T, R, S>(x, g0, w);
+    } else {
+      window_vec_at<T, R, S + 1>(x, g0, s, w);
+    }
+  } else {
+    window_vec<T, R, S>(x, g0, w);
+  }
+}
+
+// w[e] = x[j0 + e] for the R rows of a run, x of length n and 16-byte
+// aligned.  Where the aligned vectors that cover the window lie inside x
+// (every run but those at the two ends of x), 16-byte loads, and returns
+// true.  Else one load a row from a clamped index, and returns false: the
+// caller then masks the rows whose j0 + e lies outside [0, n), which read
+// x[0] or x[n - 1] here.  No load stands behind a per-row branch.
+template <typename T, int R>
+__device__ __forceinline__ bool load_window(const T* __restrict__ x, int j0,
+                                            int n, float (&w)[R]) {
+  constexpr int V = kVecOf<T>;
+  const int s = j0 & (V - 1);
+  const int g0 = j0 - s;
+  if (g0 >= 0 && g0 + R + (s ? V : 0) <= n) {
+    window_vec_at<T, R>(x, g0, s, w);
+    return true;
+  }
+#pragma unroll
+  for (int e = 0; e < R; ++e) w[e] = to_f32(x[min(max(j0 + e, 0), n - 1)]);
+  return false;
+}
+
+// floor(i / d) for 0 <= i < 2^31 from the host's constants for d (mul, shr):
+// mul = ceil(2^(31 + l) / d), shr = l - 1, l = ceil(log2 d); mul = 0 for
+// d = 1 (the multiply-high and shift of CUTLASS's FastDivmod; replayed on
+// the host by ops/cuda_stencil.fast_divisor).
+__device__ __forceinline__ unsigned fast_div(unsigned i, unsigned mul,
+                                             unsigned shr) {
+  return mul ? (__umulhi(i, mul) >> shr) : i;
+}
+
+// The dot's order.  f32 CG at 216^3 takes 408 steps with this order and
+// 410 or 419 with others (torch.sum's; an f64 sum rounded once): its path
+// depends on the last bits of <u, Au>.  So the dot is summed in one order
+// fixed by n alone, the order of the first design's two passes, whatever
+// grid the launch has:
+//   - G = min(ceil(n / 256), 2048) virtual blocks of 256 virtual threads,
+//     S = 256 G; virtual thread g adds u[i] y[i] for i = g, g + S, g + 2S,
+//     ... in turn by fmaf from 0;
+//   - a virtual block sums its 256 threads as block_sum does: a shuffle-down
+//     tree in each warp of 32, then the same tree over the 8 warp sums;
+//   - the G block sums p_b: virtual thread t of 1024 takes
+//     (0 + p_t) + p_{t+1024}, and block_sum sums the 1024 (32 warps).
+// A kernel with the dot takes runs of R rows (R divides 256): the R virtual
+// threads of set m (m R .. m R + R - 1) add rows m R + e + k S, k = 0, 1,
+// ....  K = R / 4 neighbouring threads of a warp share set m (dot_share):
+// thread q of the group computes the runs k = j K + q, and at each step j
+// every thread of the group adds the group's K runs in k order (dot_step).
+// So a launch has S / 4 threads whatever R: ceil(G / 4) blocks.
+constexpr int kDotBlockCap = 2048;
+constexpr int kDotFinal = 1024;
+constexpr int kDotRowsPerThread = 4;   // a launch with the dot: S / 4 threads
+template <int R> constexpr int kDotShare = R / kDotRowsPerThread;
+
+__host__ __device__ __forceinline__ int dot_blocks(int n) {
+  return min((n + kThreads - 1) / kThreads, kDotBlockCap);
+}
+
+// arr[e] = v for a run index e known at run time only, arr kept in
+// registers.
+template <int R>
+__device__ __forceinline__ void set_at(float (&arr)[R], int e, float v) {
+#pragma unroll
+  for (int q = 0; q < R; ++q) arr[q] = q == e ? v : arr[q];
+}
+
+// One step of the dot for a group of K threads: this thread's run gave
+// products a[e] b[e] for its first `cnt` rows; every thread of the group
+// adds the group's K runs, thread 0's first, into local.  All 32 lanes of
+// the warp call it.
+template <int R, int K>
+__device__ __forceinline__ void dot_step(float (&local)[R], const float (&a)[R],
+                                         const float (&b)[R], int cnt) {
+  const int base = (threadIdx.x & 31) & ~(K - 1);
+#pragma unroll
+  for (int qq = 0; qq < K; ++qq) {
+    const int c = K > 1 ? __shfl_sync(0xffffffffu, cnt, base + qq) : cnt;
+#pragma unroll
+    for (int e = 0; e < R; ++e) {
+      const float ae = K > 1 ? __shfl_sync(0xffffffffu, a[e], base + qq) : a[e];
+      const float be = K > 1 ? __shfl_sync(0xffffffffu, b[e], base + qq) : b[e];
+      local[e] = e < c ? fmaf(ae, be, local[e]) : local[e];
+    }
+  }
+}
+
+// The shuffle-down tree of a warp of 32 virtual lanes held R to a group of
+// K threads (32 K / R consecutive lanes of a warp; virtual lane l is
+// register l % R of group l / R): each step adds lane l + o to lane l.  The
+// warp's sum ends in v[0] of its first lane; other values are left as the
+// tree leaves them.
+template <int R, int K>
+__device__ __forceinline__ void vwarp_tree(float (&v)[R]) {
+#pragma unroll
+  for (int s = 4; s >= 0; --s) {
+    const int o = 1 << s;
+    if (o >= R) {
+#pragma unroll
+      for (int e = 0; e < R; ++e) {
+        v[e] += __shfl_down_sync(0xffffffffu, v[e], K * (o / R));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < R; ++e) {
+        if (e < o) v[e] += v[(e + o) % R];
+      }
+    }
+  }
+}
+
+// Finish the dot: `local` holds this thread's group's R virtual threads
+// (set (blockIdx.x kThreads + threadIdx.x) / K).  Each block writes the
+// sums of its R / K virtual blocks to partials[] (those below G), and the
+// block that draws the last ticket sums the G partials as the final pass
+// above and sets the ticket back to 0 for the next launch.  Every thread of
+// the block calls it; blockDim.x is kThreads.
+template <int R, int K>
+__device__ __forceinline__ void finish_dot(float (&local)[R], float* partials,
+                                           unsigned* ticket, float* dot,
+                                           int n) {
+  static_assert(32 % R == 0 && R % K == 0 && (K & (K - 1)) == 0, "layout");
+  constexpr int kWarps = kThreads * R / (32 * K);   // virtual warps a block
+  constexpr int kBlocks = R / K;                    // virtual blocks a block
+  __shared__ float ws[kWarps > 32 ? kWarps : 32];
+  __shared__ bool last;
+  const int G = dot_blocks(n);
+  vwarp_tree<R, K>(local);
+  constexpr int kLanes = 32 * K / R;   // threads of one virtual warp
+  if (threadIdx.x % kLanes == 0) ws[threadIdx.x / kLanes] = local[0];
+  __syncthreads();
+  if (threadIdx.x < kBlocks) {
+    // block_sum's second stage on 8 warp sums: lanes 8..31 hold 0
+    const float* w = ws + 8 * threadIdx.x;
+    float c[4];
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      c[l] = ((w[l] + 0.0f) + 0.0f) + ((w[l + 4] + 0.0f) + 0.0f);
+    }
+    const float sum = (c[0] + c[2]) + (c[1] + c[3]);
+    const int b = blockIdx.x * kBlocks + threadIdx.x;
+    if (b < G) partials[b] = sum;
+    __threadfence();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!last) return;
+  // the final pass: virtual thread t = 4 threadIdx.x + e of 1024
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    float s = 0.0f;
+    for (int i = 4 * threadIdx.x + e; i < G; i += kDotFinal) s += __ldcg(partials + i);
+    v[e] = s;
+  }
+  vwarp_tree<4, 1>(v);
+  __syncthreads();
+  if (threadIdx.x % 8 == 0) ws[threadIdx.x / 8] = v[0];
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float x = ws[threadIdx.x];
+#pragma unroll
+    for (int s = 4; s >= 0; --s) x += __shfl_down_sync(0xffffffffu, x, 1 << s);
+    if (threadIdx.x == 0) {
+      *dot = x;
+      *ticket = 0u;
+    }
+  }
+}
+
+// Blocks of `kernel` (kThreads threads, no dynamic shared memory) that one
+// SM holds at once, written to *blocks; returns a CUDA error code.
+inline int blocks_per_sm(const void* kernel, int* blocks) {
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, kThreads, 0));
 }
 
 // Second pass of the dot: one block sums `m` partials in a fixed order.

@@ -1,31 +1,63 @@
 // DIA SpMV with an optional fused <u, Ax>, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels `dia_spmv` / `dia_spmv_dot`
-// (iterativesolvers_tpu/ops/pallas_spmv.py:53-153).  It computes
+// (iterativesolvers_tpu/ops/pallas_spmv.py:142,149).  It computes
 //     y[i] = sum_d diag_d[i] * x[i + off_d],   diag_d[i] = A[i, i + off_d],
-// where a column outside [0, n) reads 0, and with the dot also sum_i u[i] y[i]
-// in f32.  x, u and y are f32; the diagonals are f32, bf16 or int8 (the
-// streams compress_values makes), and each product is promoted to f32 before
-// it is summed, as DIAMatrix.mv promotes to result_type(diag, x).
+// where a column outside [0, n) adds nothing, and with the dot also
+// sum_i u[i] y[i] in f32, in the fixed order of common.cuh.  x, u and y
+// are f32;
+// the diagonals are f32, bf16 or int8 (the streams compress_values makes),
+// and each product is promoted to f32 before it is summed, as DIAMatrix.mv
+// promotes to result_type(diag, x).
+// Each row is an FMA chain from 0 over the diagonals in the order given
+// (ascending offsets for laplace_dia and to_dia): the stencil kernel's order,
+// so the stored and the matrix-free Laplacian give the same bits.
 //
 // Bound on an H100 SXM (3.35 TB/s): the kernel has to read every diagonal
 // once, x once (u = x in CG) and write y once.  At n = 216^3 with 7
 // diagonals: f32 362.8 MB (108.3 us), bf16 221.7 MB (66.2 us), int8
 // 151.2 MB (45.1 us).  The diagonals are the dominant stream, so narrowing
-// them is the lever; the shifted reads of x hit L1/L2.
+// them is the lever, and it pays only if the instructions a row shrink with
+// the bytes.
+//
+// Design.  Each thread takes a run of R consecutive rows, R = 16 bytes of
+// one diagonal: 4 rows for f32, 8 for bf16, 16 for int8.  A diagonal's run
+// is one 16-byte load with the evict-first hint, those of up to 8
+// diagonals issued before the first product waits for one (more diagonals
+// go in groups of 8, so that one register plan serves every nd); a stream
+// read once, so that x, 40 MB, keeps its place in the 50 MB L2 for its
+// seven reads.  bf16 widens by shifts and int8 by a byte permute and an
+// add.  x's window for
+// offset off is read as aligned 16-byte vectors: R / 4 of them where
+// off % 4 == 0 (+-216 and +-46,656 at 216^3), one more where it is not
+// (+-1), the shift a choice of registers; the extra vector hits L1.  Runs
+// whose window leaves [0, n) (the few at the ends of x) load one row at a
+// time from a clamped index, and a column outside [0, n) is dropped by a
+// select, not by a branch around its load.  y goes out as 16-byte stores.
+// Rows past the last whole run, and operands not 16-byte aligned, take the
+// same per-row loads inside the kernel.  When u is x (the wrapper compares
+// the pointers), the dot takes the x run that offset 0 loaded and reads no
+// u.  The dot is finished in the same launch: each block writes its
+// partials, and the block that finishes last sums them (common.cuh).  Its
+// order is fixed by n, the first design's order, whatever the grid: f32 CG
+// at 216^3 takes 408 steps with it and 410-419 with other orders.  So with
+// the dot R / 4 threads share a set of R virtual threads and walk runs
+// S = 256 min(ceil(n / 256), 2048) rows apart, on a grid of S / 4 threads.
 //
 // What the TPU design needed and this one does not: the halo/padding plan
-// (1024-lane aligned windows, padded diagonals).  Each thread reads its own
-// x[i + off] and masks the ragged edge from the index.  The TPU grid summed
-// the dot in SMEM across sequential steps; here each block writes an f32
-// partial and one block sums them in a fixed order (common.cuh), so the dot
-// is the same bits on every run.  One thread per row in a grid-stride loop,
-// coalesced loads, no vector loads yet.
+// (1024-lane aligned windows, padded diagonals); here the ragged edge is
+// masked from the index.  The TPU grid summed the dot in SMEM across
+// sequential steps; here blocks run in no order, and the fixed order of the
+// partials' sum keeps the dot the same bits on every run.
 #include "common.cuh"
 
 namespace its {
 
 constexpr int kMaxDiags = 16;
+// Diagonals whose loads a run issues together: a matrix with more takes
+// its diagonals in groups of kGroup, one after the other, so the registers
+// of one group's raw runs serve every nd.
+constexpr int kGroup = 8;
 
 struct DiaArgs {
   int nd;
@@ -33,58 +65,180 @@ struct DiaArgs {
   const void* diag[kMaxDiags];
 };
 
-template <typename D, bool kDot>
-__global__ void __launch_bounds__(kThreads)
-dia_kernel(DiaArgs a, const float* __restrict__ x, const float* __restrict__ u,
-           float* __restrict__ y, float* __restrict__ partials, int n) {
-  float local = 0.0f;
-  const int step = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += step) {
-    float acc = 0.0f;
+// Row i alone: one load a term from a clamped index, an out-of-range column
+// dropped by a select.
+template <typename D>
+__device__ __forceinline__ float dia_row(const DiaArgs& a,
+                                         const float* __restrict__ x, int i,
+                                         int n) {
+  float acc = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kMaxDiags; ++k) {
-      if (k < a.nd) {
-        const int j = i + a.off[k];
-        if (j >= 0 && j < n) {
-          const float d = to_f32(static_cast<const D*>(a.diag[k])[i]);
-          acc = fmaf(d, x[j], acc);
+  for (int k = 0; k < kMaxDiags; ++k) {
+    if (k < a.nd) {
+      const int j = i + a.off[k];
+      const float xv = x[min(max(j, 0), n - 1)];
+      const float d = to_f32(static_cast<const D*>(a.diag[k])[i]);
+      const float sum = fmaf(d, xv, acc);
+      acc = static_cast<unsigned>(j) < static_cast<unsigned>(n) ? sum : acc;
+    }
+  }
+  return acc;
+}
+
+// The run of R rows at r0: y stored; with kDot also the run's u values in
+// pu and y values in py (rows past n left as they are).
+template <typename D, bool kDot>
+__device__ __forceinline__ void dia_run(
+    const DiaArgs& a, const float* __restrict__ x, const float* __restrict__ u,
+    float* __restrict__ y, int n, int r0, int vec, int u_is_x,
+    float (&pu)[kVecOf<D>], float (&py)[kVecOf<D>]) {
+  constexpr int R = kVecOf<D>;
+  if (vec && r0 + R <= n) {
+    float acc[R];
+#pragma unroll
+    for (int e = 0; e < R; ++e) acc[e] = 0.0f;
+    if (kDot && u_is_x) window_vec<float, R, 0>(x, r0, pu);
+#pragma unroll
+    for (int k0 = 0; k0 < kMaxDiags; k0 += kGroup) {
+      if (k0 < a.nd) {
+        // the group's diagonal runs in flight at once, before the first FMA
+        // waits
+        uint4 raw[kGroup];
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          if (k0 + k < a.nd) {
+            raw[k] = load16<true>(static_cast<const D*>(a.diag[k0 + k]) + r0);
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          if (k0 + k < a.nd) {
+            float d[R], w[R];
+            unpack_vec<D>(raw[k], d);
+            const int off = a.off[k0 + k];
+            unsigned ok = ~0u;
+            if (kDot && u_is_x && off == 0) {
+#pragma unroll
+              for (int e = 0; e < R; ++e) w[e] = pu[e];
+            } else if (!load_window<float, R>(x, r0 + off, n, w)) {
+              ok = 0u;
+#pragma unroll
+              for (int e = 0; e < R; ++e) {
+                ok |= static_cast<unsigned>(
+                          static_cast<unsigned>(r0 + off + e) <
+                          static_cast<unsigned>(n)) << e;
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < R; ++e) {
+              const float sum = fmaf(d[e], w[e], acc[e]);
+              acc[e] = (ok >> e) & 1u ? sum : acc[e];
+            }
+          }
         }
       }
     }
-    y[i] = acc;
-    if (kDot) local = fmaf(u[i], acc, local);
+#pragma unroll
+    for (int p = 0; p < R; p += 4) store_vec<float>(y + r0 + p, acc + p);
+    if (kDot) {
+      if (!u_is_x) window_vec<float, R, 0>(u, r0, pu);
+#pragma unroll
+      for (int e = 0; e < R; ++e) py[e] = acc[e];
+    }
+  } else {
+    // the rare rows: the tail past the last whole run, unaligned operands
+#pragma unroll 1
+    for (int e = 0; e < R; ++e) {
+      const int i = r0 + e;
+      if (i < n) {
+        const float yi = dia_row<D>(a, x, i, n);
+        y[i] = yi;
+        if (kDot) {
+          set_at(pu, e, u[i]);
+          set_at(py, e, yi);
+        }
+      }
+    }
   }
-  if (kDot) {
-    const float s = block_sum(local);
-    if (threadIdx.x == 0) partials[blockIdx.x] = s;
+}
+
+template <typename D, bool kDot>
+__global__ void __launch_bounds__(kThreads)
+dia_kernel(DiaArgs a, const float* __restrict__ x, const float* __restrict__ u,
+           float* __restrict__ y, float* __restrict__ partials,
+           unsigned* __restrict__ ticket, float* __restrict__ dot, int n,
+           int vec, int u_is_x) {
+  constexpr int R = kVecOf<D>;
+  const int P = blockIdx.x * blockDim.x + threadIdx.x;
+  float pu[R], py[R];
+  if constexpr (!kDot) {
+    const int runs = n / R + (n % R != 0);
+    for (int run = P; run < runs; run += gridDim.x * blockDim.x) {
+      dia_run<D, false>(a, x, u, y, n, run * R, vec, u_is_x, pu, py);
+    }
+  } else {
+    // set m of R virtual threads, shared by K threads, runs S rows apart
+    // (common.cuh: the dot's order)
+    constexpr int K = kDotShare<R>;
+    const int S = dot_blocks(n) * kThreads;
+    const int m = P / K, q = P % K;
+    float local[R];
+#pragma unroll
+    for (int e = 0; e < R; ++e) local[e] = 0.0f;
+    for (int j = 0;; ++j) {
+      const int r0 = m * R + (j * K + q) * S;
+      const bool work = m < S / R && r0 < n;
+      if (!__any_sync(0xffffffffu, work)) break;
+#pragma unroll
+      for (int e = 0; e < R; ++e) pu[e] = py[e] = 0.0f;
+      if (work) dia_run<D, true>(a, x, u, y, n, r0, vec, u_is_x, pu, py);
+      dot_step<R, K>(local, pu, py, work ? min(R, n - r0) : 0);
+    }
+    finish_dot<R, K>(local, partials, ticket, dot, n);
   }
 }
 
 template <typename D>
-void launch(int with_dot, const DiaArgs& a, const void* x, const void* u,
-            void* y, void* partials, int n, int grid, cudaStream_t s) {
-  const float* xf = static_cast<const float*>(x);
-  const float* uf = static_cast<const float*>(u);
-  float* yf = static_cast<float*>(y);
-  float* pf = static_cast<float*>(partials);
-  if (with_dot) {
-    dia_kernel<D, true><<<grid, kThreads, 0, s>>>(a, xf, uf, yf, pf, n);
-  } else {
-    dia_kernel<D, false><<<grid, kThreads, 0, s>>>(a, xf, uf, yf, pf, n);
-  }
+const void* kernel_of(int with_dot) {
+  return with_dot ? reinterpret_cast<const void*>(dia_kernel<D, true>)
+                  : reinterpret_cast<const void*>(dia_kernel<D, false>);
+}
+
+const void* kernel_of(int diag_dtype, int with_dot, int nd) {
+  if (nd < 1 || nd > kMaxDiags) return nullptr;
+  if (diag_dtype == 0) return kernel_of<float>(with_dot);
+  if (diag_dtype == 1) return kernel_of<__nv_bfloat16>(with_dot);
+  if (diag_dtype == 2) return kernel_of<int8_t>(with_dot);
+  return nullptr;
 }
 
 }  // namespace its
 
+// Blocks of its_dia_spmv's kernel for (diag_dtype, with_dot, nd) that one
+// SM holds at once, written to *blocks; returns a CUDA error code, or -1
+// for bad arguments.  The wrapper's grid is this times the SM count, or
+// fewer where n needs fewer.
+extern "C" int its_dia_blocks_per_sm(int diag_dtype, int with_dot, int nd,
+                                     int* blocks) {
+  using namespace its;
+  const void* k = kernel_of(diag_dtype, with_dot, nd);
+  if (k == nullptr) return -1;
+  return blocks_per_sm(k, blocks);
+}
+
 // diag_dtype: 0 = float32, 1 = bfloat16, 2 = int8.  `diags` and `offs` are
-// host arrays of `nd` device pointers and offsets.  `partials` holds `grid`
-// floats; `dot` one float, written only when with_dot.  Returns the CUDA
-// error code of the launches (0 = success), or -1 for bad arguments.
+// host arrays of `nd` device pointers and offsets.  vec = 1 when x, u, y and
+// every diagonal are 16-byte aligned (else every row takes the per-row
+// loads); u_is_x = 1 when u is x.  With the dot: grid is
+// ceil(dot_blocks(n) / 4) (common.cuh), `partials` holds dot_blocks(n)
+// floats, `ticket` one unsigned that is 0 between launches (the kernel
+// leaves it 0), `dot` one float.  Returns the CUDA error code of the launch
+// (0 = success), or -1 for bad arguments.
 extern "C" int its_dia_spmv(int diag_dtype, int with_dot,
                             const void* const* diags, const int* offs, int nd,
                             const void* x, const void* u, void* y,
-                            void* partials, void* dot, int n, int grid,
-                            void* stream) {
+                            void* partials, void* ticket, void* dot, int n,
+                            int grid, int vec, int u_is_x, void* stream) {
   using namespace its;
   if (nd < 1 || nd > kMaxDiags || grid < 1 || n < 1) return -1;
   DiaArgs a = {};
@@ -93,19 +247,16 @@ extern "C" int its_dia_spmv(int diag_dtype, int with_dot,
     a.off[k] = offs[k];
     a.diag[k] = diags[k];
   }
+  const float* xf = static_cast<const float*>(x);
+  const float* uf = static_cast<const float*>(u);
+  float* yf = static_cast<float*>(y);
+  float* pf = static_cast<float*>(partials);
+  unsigned* tk = static_cast<unsigned*>(ticket);
+  float* df = static_cast<float*>(dot);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (diag_dtype == 0) {
-    launch<float>(with_dot, a, x, u, y, partials, n, grid, s);
-  } else if (diag_dtype == 1) {
-    launch<__nv_bfloat16>(with_dot, a, x, u, y, partials, n, grid, s);
-  } else if (diag_dtype == 2) {
-    launch<int8_t>(with_dot, a, x, u, y, partials, n, grid, s);
-  } else {
-    return -1;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || !with_dot) return static_cast<int>(err);
-  reduce_partials<<<1, kReduceThreads, 0, s>>>(
-      static_cast<const float*>(partials), grid, static_cast<float*>(dot));
-  return static_cast<int>(cudaGetLastError());
+  const void* k = kernel_of(diag_dtype, with_dot, nd);
+  if (k == nullptr) return -1;
+  void* args[] = {&a, &xf, &uf, &yf, &pf, &tk, &df, &n, &vec, &u_is_x};
+  return static_cast<int>(
+      cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, 0, s));
 }

@@ -33,7 +33,9 @@ import torch
 from . import _build
 from .cuda_mgs import (_DTYPE_CODE, check_panel, panel_mgs_plain,
                        plan_residency, smem_query)
-from .cuda_stencil import _check_kernel, _grid, _normal, _plan, stencil_sum
+from .cuda_stencil import (_check_kernel, _normal, _plan, aligned,
+                           launch_plan, on_device, packed_terms, raw_stream,
+                           stencil_sum)
 
 __all__ = ["stencil_panel_mv", "stencil_panel_mv_plain", "fused_arnoldi",
            "fused_arnoldi_plain"]
@@ -70,16 +72,17 @@ def _check(n, terms, V, k, do=None):
 @functools.lru_cache(maxsize=None)
 def _lib():
     lib = _build.load("arnoldi")
-    stencil_args = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
     lib.its_stencil_panel_mv.restype = ctypes.c_int
     lib.its_stencil_panel_mv.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-        + stencil_args)
+        [ctypes.c_int] + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p] * 2)
+    lib.its_stencil_panel_mv_blocks_per_sm.restype = ctypes.c_int
+    lib.its_stencil_panel_mv_blocks_per_sm.argtypes = [ctypes.c_int,
+                                                       ctypes.c_void_p]
     lib.its_fused_arnoldi.restype = ctypes.c_int
     lib.its_fused_arnoldi.argtypes = (
         [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
-        + stencil_args)
+        + [ctypes.c_void_p] * 2)
     lib.its_fused_arnoldi_smem.restype = ctypes.c_int
     lib.its_fused_arnoldi_smem.argtypes = [ctypes.c_int, ctypes.c_void_p]
     lib.its_fused_arnoldi_grid.restype = ctypes.c_int
@@ -128,13 +131,21 @@ def _row_masks(n, center, terms, coeffs, device):
     return masks.to(torch.int16)
 
 
-def _stencil_args(center, terms, coeffs):
-    (nterms, off, step, stride, extent, bit, nsum, center_bit, sum_off,
-     sum_coeff) = _plan(center, terms, coeffs, False, torch.float32).args
-    return (nterms, ctypes.addressof(off), ctypes.addressof(step),
-            ctypes.addressof(stride), ctypes.addressof(extent),
-            ctypes.addressof(bit), nsum, center_bit,
-            ctypes.addressof(sum_off), ctypes.addressof(sum_coeff))
+@functools.lru_cache(maxsize=64)
+def _fused_terms(center, terms, coeffs):
+    """The terms packed for the fused kernel (``cuda_stencil.packed_terms``)."""
+    return packed_terms(_plan(center, terms, coeffs, False, torch.float32))
+
+
+@functools.lru_cache(maxsize=64)
+def _panel_mv_launch(n, center, terms, coeffs, dtype, device):
+    """The panel SpMV's launch plan: the stencil kernel's
+    (``cuda_stencil.launch_plan``) with an f32 output."""
+    _check_kernel(n, terms)
+    return launch_plan(_plan(center, terms, coeffs, False, torch.float32), n,
+                       False, device, 0,
+                       _lib().its_stencil_panel_mv_blocks_per_sm,
+                       _DTYPE_CODE[dtype])
 
 
 def _cuda(V, n, terms, name):
@@ -150,13 +161,16 @@ def stencil_panel_mv(n, center, terms, coeffs, V, k):
     _check(n, terms, V, k)
     if V.device.type == "cpu":
         return stencil_panel_mv_plain(n, center, terms, coeffs, V, k)
-    _cuda(V, n, terms, "stencil_panel_mv")
+    if V.device.type != "cuda":
+        raise ValueError(f"stencil_panel_mv kernel runs on CUDA tensors, got "
+                         f"{V.device}")
+    launch = _panel_mv_launch(n, center, terms, coeffs, V.dtype, V.device)
     w = torch.empty(n, dtype=torch.float32, device=V.device)
-    stream = torch.cuda.current_stream(V.device).cuda_stream
-    with torch.cuda.device(V.device):
+    stream = raw_stream(V.device)
+    with on_device(V.device):
         err = _lib().its_stencil_panel_mv(
             _DTYPE_CODE[V.dtype], V.data_ptr(), k.data_ptr(), w.data_ptr(),
-            n, V.shape[0], _grid(n), *_stencil_args(center, terms, coeffs),
+            n, V.shape[0], launch.grid, int(aligned(V, w)), launch.terms,
             stream)
     if err != 0:
         raise RuntimeError(f"stencil_panel_mv kernel launch failed (error "
@@ -191,7 +205,7 @@ def fused_arnoldi(n, center, terms, coeffs, V, k, do):
             code, V.data_ptr(), y.data_ptr(), partials.data_ptr(),
             h.data_ptr(), nrm.data_ptr(), k.data_ptr(), do.data_ptr(),
             masks.data_ptr(), n, m1, grid, *plan.args,
-            *_stencil_args(center, terms, coeffs), stream)
+            ctypes.addressof(_fused_terms(center, terms, coeffs)), stream)
     if err != 0:
         raise RuntimeError(f"fused_arnoldi kernel launch failed (error {err})")
     fused_arnoldi.launches += 1

@@ -15,6 +15,12 @@ promoted to f32 before it is summed.
 A CUDA tensor launches the kernel or raises (also past the kernel's limits:
 at most ``MAX_DIAGS`` diagonals, 32-bit row indices); a CPU tensor takes the
 plain version :func:`dia_spmv_plain`, which has no such limits.
+
+The kernel takes runs of ``run_rows(diag dtype)`` rows a thread (16 bytes
+of each diagonal), and finishes the dot in the same launch on a ticket
+(``cuda_stencil.dot_ticket``) and partial sums kept per shape, device and
+stream, so that launches on concurrent streams share neither.  When u is x
+it reads no u.
 """
 
 from __future__ import annotations
@@ -25,19 +31,16 @@ import functools
 import torch
 
 from . import _build
+from .cuda_stencil import (VEC_BYTES, aligned, blocks_per_sm, dot_grid,
+                           dot_ticket, grid_for, max_rows, on_device,
+                           raw_stream, run_rows)
 
 __all__ = ["dia_spmv", "dia_spmv_dot", "dia_spmv_plain", "MAX_DIAGS",
            "DIAG_DTYPES"]
 
 MAX_DIAGS = 16
-_THREADS = 256
-_MAX_BLOCKS = 2048
 _DIAG_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 DIAG_DTYPES = tuple(_DIAG_CODE)
-
-
-def _grid(n: int) -> int:
-    return max(1, min(-(-n // _THREADS), _MAX_BLOCKS))
 
 
 def dia_spmv_plain(diags, offsets, x, u=None):
@@ -68,16 +71,19 @@ def _check(diags, offsets, x, u):
         raise ValueError(
             f"x must be a contiguous 1-D f32 tensor, got {x.dtype} "
             f"{tuple(x.shape)}")
-    if u is not None and (u.shape != x.shape or u.dtype != x.dtype
-                          or u.device != x.device or not u.is_contiguous()):
+    dev = x.get_device()
+    if u is not None and u is not x and (
+            u.shape != x.shape or u.dtype != x.dtype
+            or u.get_device() != dev or not u.is_contiguous()):
         raise ValueError("u must match x in shape, dtype and device")
     if not diags or len(diags) != len(offsets):
         raise ValueError(
             f"need one diagonal per offset, at least one; got {len(diags)} "
             f"diagonals and {len(offsets)} offsets")
+    dt = diags[0].dtype
     for d in diags:
-        if (d.shape != (n,) or d.dtype != diags[0].dtype
-                or d.device != x.device or not d.is_contiguous()):
+        if (d.shape != (n,) or d.dtype != dt or d.get_device() != dev
+                or not d.is_contiguous()):
             raise ValueError(
                 "diagonals must be contiguous, of x's length and device, "
                 "and of one dtype")
@@ -86,6 +92,7 @@ def _check(diags, offsets, x, u):
                         f"{diags[0].dtype}")
 
 
+@functools.lru_cache(maxsize=64)
 def _check_kernel(n, offsets):
     """The kernel's limits, checked before a launch (the plain version has
     none)."""
@@ -93,40 +100,73 @@ def _check_kernel(n, offsets):
         raise ValueError(
             f"at most {MAX_DIAGS} diagonals, got {len(offsets)}")
     span = max(abs(int(o)) for o in offsets)
-    if n + span + _THREADS * _MAX_BLOCKS >= 2**31:
+    if n > max_rows(span):
         raise ValueError(f"n = {n} is too large for 32-bit row indices")
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = _build.load("dia_spmv").its_dia_spmv
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                    ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    return fn
+def _lib():
+    lib = _build.load("dia_spmv")
+    lib.its_dia_spmv.restype = ctypes.c_int
+    lib.its_dia_spmv.argtypes = (
+        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+        + [ctypes.c_void_p])
+    lib.its_dia_blocks_per_sm.restype = ctypes.c_int
+    lib.its_dia_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    return lib
+
+
+@functools.lru_cache(maxsize=64)
+def _grid(dtype, with_dot, nd, n, device, stream):
+    """The grid and, with the dot, the grid of its fixed order, and the
+    partials and ticket of ``stream``, the current stream (made on it)."""
+    if not with_dot:
+        bps = blocks_per_sm(_lib().its_dia_blocks_per_sm, _DIAG_CODE[dtype],
+                            0, nd, device=device)
+        return grid_for(bps, device, n, run_rows(dtype)), None, None
+    grid, G = dot_grid(n)
+    partials = torch.empty(G, dtype=torch.float32, device=device)
+    return grid, partials, dot_ticket(device, stream).data_ptr()
+
+
+@functools.lru_cache(maxsize=64)
+def _diag_args(ptrs, offsets):
+    """The diagonals' pointers and offsets as C arrays (kept alive by the
+    cache), by address; and whether every pointer is 16-byte aligned."""
+    nd = len(ptrs)
+    arrays = ((ctypes.c_void_p * nd)(*ptrs),
+              (ctypes.c_int * nd)(*[int(o) for o in offsets]))
+    return (ctypes.addressof(arrays[0]), ctypes.addressof(arrays[1]),
+            all(p % VEC_BYTES == 0 for p in ptrs), arrays)
 
 
 def _launch(diags, offsets, x, u):
     if x.device.type != "cuda":
         raise ValueError(f"DIA kernel runs on CUDA tensors, got {x.device}")
     n, nd = x.shape[0], len(diags)
-    _check_kernel(n, offsets)
-    ptrs = (ctypes.c_void_p * nd)(*[d.data_ptr() for d in diags])
-    offs = (ctypes.c_int * nd)(*[int(o) for o in offsets])
-    grid = _grid(n)
+    _check_kernel(n, tuple(offsets))
+    dev = x.device
+    dptr, optr, diags_aligned, _ = _diag_args(
+        tuple(d.data_ptr() for d in diags), tuple(offsets))
     with_dot = u is not None
+    stream = raw_stream(dev)
+    grid, partials, ticket = _grid(diags[0].dtype, with_dot, nd, n, dev,
+                                   stream if with_dot else 0)
     y = torch.empty_like(x)
-    partials = torch.empty(grid if with_dot else 1, dtype=torch.float32,
-                           device=x.device)
-    dot = torch.empty((), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = _kernel_fn()(
-            _DIAG_CODE[diags[0].dtype], int(with_dot), ctypes.addressof(ptrs),
-            ctypes.addressof(offs), nd, x.data_ptr(),
-            (u if with_dot else x).data_ptr(), y.data_ptr(),
-            partials.data_ptr(), dot.data_ptr(), n, grid, stream)
+    if with_dot:
+        dot = torch.empty((), dtype=torch.float32, device=dev)
+        red = (partials.data_ptr(), ticket, dot.data_ptr())
+    else:
+        dot, red = None, (None, None, None)
+    u = x if u is None else u
+    vec = diags_aligned and aligned(x, u, y)
+    with on_device(dev):
+        err = _lib().its_dia_spmv(
+            _DIAG_CODE[diags[0].dtype], int(with_dot), dptr, optr, nd,
+            x.data_ptr(), u.data_ptr(), y.data_ptr(), *red, n, grid,
+            int(vec), int(u.data_ptr() == x.data_ptr()), stream)
     if err != 0:
         raise RuntimeError(f"DIA kernel launch failed (error {err})")
     return y, dot

@@ -22,6 +22,18 @@ in both forms (see ``csrc/stencil.cu``).  The TPU plan had no kernel for
 n < 2048 or for a block period too large for VMEM; this kernel takes every
 n >= 1.
 
+The kernel takes runs of ``STENCIL_RUN`` rows a thread, with 16-byte loads
+and stores, and finds the grid positions by a multiply-high and a shift: the constants of
+:func:`fast_divisor`, computed here in the cached plan.  Its dot is summed
+in an order fixed by n (``csrc/common.cuh``; f32 CG's path depends on it),
+finished in the same launch by the block that finishes last, which counts
+on a ticket: one int32 per device and stream (:func:`dot_ticket`), 0
+between launches.  What does not change from call to call (the grid, the
+terms packed for the C call, the blocks' partial sums) is kept per stencil,
+n, dtype, device and, with the dot, stream (:func:`launch_plan`), so that a
+call costs the host little beside the kernel, and launches on concurrent
+streams share no ticket and no partials.
+
 A CUDA tensor launches the kernel or raises (also past the kernel's limits:
 at most ``MAX_TERMS`` terms, 32-bit row indices); a CPU tensor takes the
 plain version :func:`stencil_apply_plain`, which has no such limits.
@@ -29,6 +41,7 @@ plain version :func:`stencil_apply_plain`, which has no such limits.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
@@ -37,22 +50,90 @@ import torch
 
 from . import _build
 
-__all__ = ["stencil_apply", "stencil_apply_plain", "stencil_sum", "MAX_TERMS"]
+__all__ = ["stencil_apply", "stencil_apply_plain", "stencil_sum", "MAX_TERMS",
+           "VEC_BYTES", "STENCIL_RUN", "run_rows", "fast_divisor", "dot_ticket",
+           "dot_grid", "grid_for"]
 
 MAX_TERMS = 8
 _THREADS = 256
-_MAX_BLOCKS = 2048
+# bytes of one vector load or store (csrc/common.cuh kVecBytes)
+VEC_BYTES = 16
+# rows a thread of the stencil kernel takes (csrc/stencil.cuh kStencilRun)
+STENCIL_RUN = 8
+# the kernels' indices are 32-bit: rows, windows (a run and one vector past
+# it) and the grid-stride loop's run index stay below 2^31 for
+# n + span + INDEX_SLACK < 2^31 (a grid of at most 2^16 blocks)
+INDEX_SLACK = 2**24
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _grid(n: int) -> int:
-    return max(1, min(-(-n // _THREADS), _MAX_BLOCKS))
+def run_rows(dtype) -> int:
+    """Elements of ``dtype`` in one 16-byte vector (4 for f32, 8 for bf16,
+    16 for int8): the rows a thread of the DIA kernel takes for diagonals of
+    ``dtype``."""
+    return VEC_BYTES // torch.empty((), dtype=dtype).element_size()
+
+
+def fast_divisor(d: int):
+    """``(mul, shr)`` with ``floor(i / d) = (i * mul) >> (32 + shr)`` for
+    every ``0 <= i < 2**31`` (``mul = 0`` for ``d = 1``: the quotient is i),
+    as ``csrc/common.cuh``'s ``fast_div`` computes it with a multiply-high
+    and a shift: ``l = ceil(log2 d)``, ``mul = ceil(2**(31 + l) / d)``,
+    ``shr = l - 1`` (Granlund and Montgomery; CUTLASS's FastDivmod).  A
+    divisor of 2**31 or more gives the quotient 0."""
+    if d < 1:
+        raise ValueError(f"divisor {d} < 1")
+    if d == 1:
+        return 0, 0
+    if d >= 2**31:
+        return 1, 31
+    lg = (d - 1).bit_length()
+    return -(-(1 << (31 + lg)) // d), lg - 1
+
+
+@functools.lru_cache(maxsize=None)
+def dot_ticket(device, stream: int) -> torch.Tensor:
+    """The counter of the kernels' in-launch dot on ``device``'s stream
+    ``stream`` (a raw handle, :func:`raw_stream`): blocks draw tickets from
+    it and the last one sets it back to 0.  One per device and stream, so
+    that launches that may overlap draw from tickets of their own; kept for
+    the process, since the launch plans hold its address."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+# the dot's fixed order (csrc/common.cuh): at most DOT_BLOCK_CAP virtual
+# blocks of _THREADS virtual threads, DOT_ROWS_PER_THREAD of them (a run of
+# R rows shared by R / 4 threads) to a thread of the launch
+DOT_BLOCK_CAP = 2048
+DOT_ROWS_PER_THREAD = 4
+
+
+def dot_grid(n: int):
+    """``(grid, G)`` of a launch with the dot: G virtual blocks (the
+    partials it sums), ``G = min(ceil(n / 256), 2048)``, and a grid of
+    ``256 G / 4`` threads."""
+    G = min(-(-n // _THREADS), DOT_BLOCK_CAP)
+    return -(-G // DOT_ROWS_PER_THREAD), G
+
+
+def grid_for(blocks_per_sm: int, device, n: int, rows: int) -> int:
+    """Blocks of ``_THREADS`` threads for ``n`` rows in runs of ``rows``:
+    as many as the SMs hold at once (``blocks_per_sm`` each), or fewer where
+    n needs fewer; a grid-stride loop covers the rest."""
+    runs = -(-n // rows)
+    return max(1, min(-(-runs // _THREADS),
+                      max(1, blocks_per_sm) * _sm_count(device)))
 
 
 class _Plan(NamedTuple):
     """The sum in the order it is added: ``(off, coeff, term)`` with
     ``term = (stride, extent)`` for an off-diagonal term and None for the
-    center; and the kernel's arguments (ctypes arrays)."""
+    center; and the kernel's arguments (ints and ctypes arrays)."""
 
     order: tuple
     args: tuple
@@ -77,12 +158,16 @@ def _plan(center, terms, coeffs, conj, dtype) -> _Plan:
     k = len(masked)
     IntK, IntS, FloatS = (ctypes.c_int * max(k, 1), ctypes.c_int * (k + 1),
                           ctypes.c_float * (k + 1))
+    # fast_div constants of each term's stride and extent: smul, sshr,
+    # emul, eshr
+    magic = [v for j in masked for d in order[j][2] for v in fast_divisor(d)]
     args = (
         k,
         IntK(*[order[j][0] for j in masked]),
         IntK(*[order[j][0] // order[j][2][0] for j in masked]),
         IntK(*[order[j][2][0] for j in masked]),
         IntK(*[order[j][2][1] for j in masked]),
+        (ctypes.c_uint * max(4 * k, 1))(*magic),
         IntK(*masked),
         k + 1,
         next(j for j, t in enumerate(order) if t[2] is None),
@@ -137,16 +222,25 @@ def stencil_apply_plain(n, center, terms, coeffs, x, *, conj=False,
     return y
 
 
-def _check(n, terms, x):
-    """The function's contract, on every device."""
+def _check_x(n, x):
+    """The function's contract, on every device (with _check_terms)."""
     if x.ndim != 1 or x.shape[0] != n:
         raise ValueError(f"x must have shape ({n},), got {tuple(x.shape)}")
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"stencil kernel takes f32 or bf16 x, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
+
+
+def _check_terms(terms):
     if any(s <= 0 or e <= 0 for (_, s, e) in terms):
         raise ValueError("stencil strides and extents must be positive")
+
+
+def max_rows(span: int) -> int:
+    """The largest n the stencil and DIA kernels take with offsets up to
+    ``span``: 32-bit indices (``INDEX_SLACK``)."""
+    return 2**31 - 1 - INDEX_SLACK - span
 
 
 def _check_kernel(n, terms):
@@ -154,49 +248,148 @@ def _check_kernel(n, terms):
     none)."""
     if len(terms) > MAX_TERMS:
         raise ValueError(f"at most {MAX_TERMS} stencil terms, got {len(terms)}")
+    if any(max(s, e) >= 2**31 for (_, s, e) in terms):
+        raise ValueError("stencil strides and extents must be below 2^31")
     span = max((abs(o) for (o, _, _) in terms), default=0)
-    if n + span + _THREADS * _MAX_BLOCKS >= 2**31:
+    if n > max_rows(span):
         raise ValueError(f"n = {n} is too large for 32-bit row indices")
 
 
+# the plan's arguments of its_stencil_pack_terms (stencil.cuh pack_terms):
+# nterms, off, step, stride, extent, magic, bit, nsum, center_bit, sum_off,
+# sum_coeff
+_TERMS_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    fn = _build.load("stencil").its_stencil_apply
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3)
-    return fn
+def _lib():
+    lib = _build.load("stencil")
+    lib.its_stencil_apply.restype = ctypes.c_int
+    lib.its_stencil_apply.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 2)
+    lib.its_stencil_terms_bytes.restype = ctypes.c_int
+    lib.its_stencil_terms_bytes.argtypes = []
+    lib.its_stencil_pack_terms.restype = ctypes.c_int
+    lib.its_stencil_pack_terms.argtypes = [ctypes.c_void_p] + _TERMS_ARGTYPES
+    lib.its_stencil_blocks_per_sm.restype = ctypes.c_int
+    lib.its_stencil_blocks_per_sm.argtypes = [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    return lib
+
+
+def raw_stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, without building a
+    Stream object (a wrapper's host time counts beside a ~40 µs kernel)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def on_device(device):
+    """The context in which a C call launches on ``device``: none where it
+    is the current device already (the common case, and the cheap one)."""
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def blocks_per_sm(fn, *args, device) -> int:
+    """``fn(*args, &blocks)`` of a kernel library on ``device``: the blocks
+    of that kernel one SM holds at once."""
+    blocks = ctypes.c_int(0)
+    with on_device(device):
+        err = fn(*args, ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed (error {err})")
+    return blocks.value
+
+
+def packed_terms(plan: _Plan):
+    """The plan's terms packed as the kernels' ``StencilTerms`` (a host
+    buffer the C calls copy), once per stencil, so that a launch passes one
+    pointer."""
+    lib = _lib()
+    buf = ctypes.create_string_buffer(lib.its_stencil_terms_bytes())
+    args = [a if isinstance(a, int) else ctypes.addressof(a) for a in plan.args]
+    if lib.its_stencil_pack_terms(buf, *args) != 0:
+        raise ValueError("stencil terms the kernel does not take")
+    return buf
+
+
+class Launch(NamedTuple):
+    """What a stencil launch needs that does not change from call to call:
+    the grid, the packed terms (``buf``, by address in ``terms``), and with
+    the dot the blocks' partials and the device's ticket."""
+
+    grid: int
+    terms: int
+    partials: object
+    ticket: int
+    buf: object
+
+
+def launch_plan(plan, n, with_dot, device, stream, blocks_fn, *blocks_args):
+    """The Launch of ``plan`` for n rows on ``device``: with the dot the
+    grid its fixed order takes (:func:`dot_grid`) and the partials and
+    ticket of ``stream``, the current stream (made on it); else as many
+    blocks as the SMs hold, from the kernel's occupancy query ``blocks_fn(
+    *blocks_args, &blocks)``."""
+    if with_dot:
+        grid, G = dot_grid(n)
+        partials = torch.empty(G, dtype=torch.float32, device=device)
+    else:
+        grid = grid_for(blocks_per_sm(blocks_fn, *blocks_args, device=device),
+                        device, n, STENCIL_RUN)
+        partials = None
+    buf = packed_terms(plan)
+    ticket = dot_ticket(device, stream).data_ptr() if with_dot else None
+    return Launch(grid, ctypes.addressof(buf), partials, ticket, buf)
+
+
+@functools.lru_cache(maxsize=64)
+def _launch(n, center, terms, coeffs, conj, dtype, with_dot, device, stream):
+    _check_terms(terms)
+    _check_kernel(n, terms)
+    return launch_plan(_plan(center, terms, coeffs, conj, dtype), n, with_dot,
+                       device, stream, _lib().its_stencil_blocks_per_sm,
+                       _DTYPE_CODE[dtype], int(with_dot))
+
+
+def aligned(*tensors) -> bool:
+    """Every tensor starts on a 16-byte boundary (the kernels' vector path;
+    else they take their per-row loads)."""
+    return all(t.data_ptr() % VEC_BYTES == 0 for t in tensors)
 
 
 def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False):
     """y = A x (and ``<x, Ax>`` in f32 with ``with_dot``) for the stencil
     ``(center, terms, coeffs)``; see the module docstring."""
     n = int(n)
-    terms, coeffs = _normal(terms, coeffs)
-    _check(n, terms, x)
+    if not (type(terms) is tuple and type(coeffs) is tuple
+            and all(type(t) is tuple for t in terms)):
+        terms, coeffs = _normal(terms, coeffs)
+    _check_x(n, x)
     if x.device.type == "cpu":
+        _check_terms(terms)
         return stencil_apply_plain(n, center, terms, coeffs, x, conj=conj,
                                    with_dot=with_dot)
     if x.device.type != "cuda":
         raise ValueError(f"stencil kernel runs on CUDA tensors, got {x.device}")
-    _check_kernel(n, terms)
-    (nterms, off, step, stride, extent, bit, nsum, center_bit, sum_off,
-     sum_coeff) = _plan(center, terms, coeffs, bool(conj), x.dtype).args
-    grid = _grid(n)
+    dev = x.device
+    stream = raw_stream(dev)
+    # the plan without the dot holds nothing of a stream's
+    launch = _launch(n, center, terms, coeffs, bool(conj), x.dtype,
+                     bool(with_dot), dev, stream if with_dot else 0)
     y = torch.empty_like(x)
-    partials = torch.empty(grid if with_dot else 1, dtype=torch.float32,
-                           device=x.device)
-    dot = torch.empty((), dtype=torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        err = _kernel_fn()(
+    if with_dot:
+        dot = torch.empty((), dtype=torch.float32, device=dev)
+        ptrs = (launch.partials.data_ptr(), launch.ticket, dot.data_ptr())
+    else:
+        ptrs = (None, None, None)
+    with on_device(dev):
+        err = _lib().its_stencil_apply(
             _DTYPE_CODE[x.dtype], int(with_dot), x.data_ptr(), y.data_ptr(),
-            partials.data_ptr(), dot.data_ptr(), n, grid, nterms,
-            ctypes.addressof(off), ctypes.addressof(step),
-            ctypes.addressof(stride), ctypes.addressof(extent),
-            ctypes.addressof(bit), nsum, center_bit,
-            ctypes.addressof(sum_off), ctypes.addressof(sum_coeff), stream)
+            *ptrs, n, launch.grid, int(aligned(x, y)), launch.terms, stream)
     if err != 0:
         raise RuntimeError(f"stencil kernel launch failed (error {err})")
     stencil_apply.launches += 1

@@ -166,6 +166,7 @@ def _imports(path):
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = sorted((ROOT / "iterativesolvers_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    files += sorted((ROOT / "tools").glob("*.py"))
     assert len(files) > 15
     bad = []
     for f in files:

@@ -68,6 +68,138 @@ def test_cuda_dia_matches_plain(cuda, dtype):
     assert cuda_spmv.dia_spmv_dot.launches == before + 1
 
 
+def _stencils(cuda):
+    """Stencils at the edges of the run design: a 2-D Laplacian; n not a
+    multiple of any run (4, 8 or 16 rows); offsets not multiples of 4 and
+    beyond a run, and terms that share no (stride, extent) group."""
+    return {
+        "laplacian 2-D 67^2": pits.laplacian(67, 2, device=cuda),
+        "laplacian 3-D 16^3 (n a multiple of every run)": pits.laplacian(
+            16, 3, device=cuda),
+        "general n=1003": pits.StencilOperator(
+            1003, 4.5, ((3, 1, 17), (-5, 1, 17), (34, 17, 59), (-35, 17, 59),
+                        (1, 1, 1003), (-2, 1, 1003), (118, 1, 1003)),
+            (-1.25, 0.5, -0.75, 2.0, -1.0, 0.25, 3.0), device=cuda),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["laplacian 2-D 67^2",
+                                  "laplacian 3-D 16^3 (n a multiple of every "
+                                  "run)", "general n=1003"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [0, 1])
+def test_cuda_stencil_edges_match_plain(cuda, name, dtype, shift):
+    """stencil_apply with and without the dot, A and A^T, against its plain
+    version; shift = 1 hands the kernel an x that starts one element past a
+    16-byte boundary (a view), which it takes with its per-row loads; the
+    dot twice on the same inputs gives the same bits."""
+    St = _stencils(cuda)[name]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    buf = torch.randn(St.n + shift, generator=g, device=cuda).to(dtype)
+    x = buf[shift:]
+    assert (x.data_ptr() % 16 == 0) == (shift == 0)
+    args = (St.n, St.center, St.terms, St.coeffs)
+    tol = 1e-6 if dtype == torch.float32 else 2e-2
+    for conj in (False, True):
+        yp, dp = cuda_stencil.stencil_apply_plain(*args, x, conj=conj,
+                                                  with_dot=True)
+        scale = float(yp.float().abs().max())
+        y = cuda_stencil.stencil_apply(*args, x, conj=conj)
+        y1, d1 = cuda_stencil.stencil_apply(*args, x, conj=conj,
+                                            with_dot=True)
+        y2, d2 = cuda_stencil.stencil_apply(*args, x, conj=conj,
+                                            with_dot=True)
+        torch.cuda.synchronize()
+        assert float((y.float() - yp.float()).abs().max()) <= tol * scale
+        assert torch.equal(y, y1) and torch.equal(y1, y2)
+        assert abs(float(d1) - float(dp)) <= 1e-5 * abs(float(dp)) + 1e-6
+        assert torch.equal(d1, d2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("n", [4096, 1000, 997])
+@pytest.mark.parametrize("offsets", [(-131, -7, -3, 0, 2, 5, 13, 64),
+                                     (-300, -131, -7, -3, -1, 0, 1, 2, 5, 13,
+                                      64)])
+def test_cuda_dia_edges_match_plain(cuda, dtype, n, offsets):
+    """dia_spmv and dia_spmv_dot on offsets that are not multiples of 4 and
+    reach past a run, n a multiple of 16 or not, 8 diagonals or more than 8;
+    u = x (the kernel reads no u) and
+    u != x; a diagonal view one element past a 16-byte boundary; the dot
+    twice on the same inputs gives the same bits."""
+    rng = np.random.default_rng(n)
+    vals = rng.integers(-9, 10, (len(offsets), n + 1)).astype(np.float32)
+    buf = [torch.from_numpy(v).to(cuda).to(dtype) for v in vals]
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.randn(n, generator=g, device=cuda)
+    u = torch.randn(n, generator=g, device=cuda)
+    for shift in (0, 1):
+        diags = [b[shift:shift + n] for b in buf]
+        assert (diags[0].data_ptr() % 16 == 0) == (shift == 0)
+        yp, dp = cuda_spmv.dia_spmv_plain(diags, offsets, x, x)
+        _, dup = cuda_spmv.dia_spmv_plain(diags, offsets, x, u)
+        y = cuda_spmv.dia_spmv(diags, offsets, x)
+        y1, d1 = cuda_spmv.dia_spmv_dot(diags, offsets, x, x)
+        y2, d2 = cuda_spmv.dia_spmv_dot(diags, offsets, x, x)
+        yu, du = cuda_spmv.dia_spmv_dot(diags, offsets, x, u)
+        torch.cuda.synchronize()
+        assert float((y - yp).abs().max()) <= 1e-6 * float(yp.abs().max())
+        assert torch.equal(y, y1) and torch.equal(y1, y2) and torch.equal(y, yu)
+        assert abs(float(d1) - float(dp)) <= 1e-5 * abs(float(dp))
+        assert abs(float(du) - float(dup)) <= 1e-5 * float(
+            (u * yp).abs().sum())
+        assert torch.equal(d1, d2)
+
+
+@pytest.mark.gpu
+def test_cuda_stencil_and_dia_give_the_same_bits(cuda):
+    """On laplace_dia(67, 3) f32 stencil_apply's y equals dia_spmv's y on
+    f32, bf16 and int8 diagonals bit for bit: both add the products in
+    ascending offset order from 0 with one FMA each."""
+    St = pits.laplacian(67, 3, device=cuda)
+    A = pfix.laplace_dia(67, 3, dtype=np.float32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(St.n, generator=g, device=cuda)
+    y = St.mv(x)
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        Ad = pits.compress_values(A, dtype)
+        assert Ad.dtype == dtype
+        assert torch.equal(y, Ad.mv(x)), dtype
+        assert torch.equal(y, Ad.mv_dot(x)[0]), dtype
+
+
+@pytest.mark.gpu
+def test_cuda_dots_on_two_streams_at_once(cuda):
+    """mv_dot of the stencil and of an int8 DIA matrix enqueued on two
+    streams behind a sleep kernel each, so that the launches of the two
+    streams run at once: each stream's launches draw on a ticket and
+    partials of their own, and every y and dot equals the one launch on the
+    default stream, bit for bit."""
+    St = pits.laplacian(67, 3, device=cuda)
+    A = pits.compress_values(pfix.laplace_dia(67, 3, dtype=np.float32,
+                                              device=cuda), torch.int8)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(St.n, generator=g, device=cuda)
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    for op in (St, A):
+        want_y, want_d = op.mv_dot(x)
+        torch.cuda.synchronize()
+        outs = ([], [])
+        for s in streams:
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(20_000_000)
+        for _ in range(10):
+            for s, out in zip(streams, outs):
+                with torch.cuda.stream(s):
+                    out.append(op.mv_dot(x))
+        torch.cuda.synchronize()
+        for out in outs:
+            for y, d in out:
+                assert torch.equal(y, want_y) and torch.equal(d, want_d)
+
+
 @pytest.mark.gpu
 def test_cuda_operators_past_the_kernel_limits_raise(cuda):
     """An operator sends a 1-D f32 CUDA x to its kernel whatever its size;
@@ -137,9 +269,12 @@ def test_cuda_panel_mgs_matches_plain(cuda, side, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("side", [1, 5, 67])
+@pytest.mark.parametrize("side", [1, 5, 16, 67])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_stencil_panel_mv_matches_plain(cuda, side, dtype):
+    """Panel row k = 2 (k = 0 at side 1): at side 16 the row starts on a
+    16-byte boundary and takes the kernel's vector loads, at odd sides
+    it does not and takes its per-row loads."""
     St = pits.advection_diffusion_stencil(side, device=cuda)
     V, _, k = _panel(cuda, St.n, dtype, seed=side)
     args = (St.n, St.center, St.terms, St.coeffs)
