@@ -22,7 +22,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
    bf16 and int8 diagonals).  Each run converges, agrees with the others and
    with an f64 solve, reaches the true residual of the same f32 solve through
    the plain version (no kernel), and launched its kernel once per CG step,
-   masked steps included.
+   masked steps included.  Then the spread of sound orders of CG's dot (the
+   kernel's, torch.sum's, an f64 sum) on b = 1 and two seeded b, each within
+   the limits set from it, and a control (a dot without one block's rows)
+   that the limits must reject.
 5. Timing with CUDA events: CG per-iteration time on each path (504- minus
    248-iteration solves, as ``bench.py``), and each kernel beside its byte
    bound, its plain version and ``torch.sparse`` CSR SpMV of the same matrix.
@@ -58,7 +61,19 @@ Phases, in order; any failed check raises and the script exits non-zero:
     stencil with its launch counts, its witness (the sweeps' plain
     versions), its step time and a trace; converging GMRES(10) on the
     shifted Laplacian (f32 and bf16 panels) and CG, each against its witness
-    and the single-card solves of phases 4 and 9.
+    and the single-card solves of phases 4 and 9; and pipelined CG on the
+    shifted Laplacian, one allreduce a step (CG's three counted beside it),
+    against the same solve on one card.
+13. The Krylov solvers at 216^3 through their public calls: MINRES (on the
+    stencil and the int8 DIA matrix), QMR and BiCGStab(2) on the Laplacian,
+    held to the JAX package's own f32 runs; pipelined CG (stencil and int8
+    DIA), IDR(8) and Chebyshev (Gershgorin bounds) on the shifted
+    Laplacian; powm on the Laplacian against its analytic lambda_max; and
+    the runs that f32 leaves rounding-bound in both packages, recorded:
+    pipelined CG and IDR(8) on the Laplacian, QMR, BiCGStab(2) and IDR(8)
+    on the advection-diffusion stencil.  Each with its launches (one kernel a
+    product), true residual, kernel-free witness, time a step and the
+    card's busy share.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It imports no JAX and nothing of the JAX package.
@@ -89,10 +104,17 @@ CHUNK = 256
 TRUE_RES_F32 = 1e-2
 TRUE_RES_F64 = 1e-3
 PLAIN_RES_FACTOR = 1.1
-# |x - x64| / |x64| of every f32 solution against the f64 solve: the
-# solutions are far closer than their residuals suggest (about 1.5e-6 with
-# the kernels and 3.2e-6 through the plain version on an H100)
-X_F64_REL = 1e-5
+# |x - x64| / |x64| of every f32 solution against the f64 solve, set from
+# the spread of sound summation orders of CG's dot (phase 4, PERF.md): on an
+# H100, f32 CG at 216^3 ends 1.48e-6 (the first design's order), 6.8e-6
+# (the kernels' free grid), 1.30e-5 (an f64 sum) and 2.67e-5 (torch.sum)
+# from x64, and the JAX package's own f32 CG (CPU) 2.84e-5: twice the
+# largest.  Its steps follow the last bits of the dot and of the stencil's
+# sum: 408-419 over those orders (JAX 409), 474 on the bf16 DIA path's own
+# grid, 476 with the stencil summed center first; paths, orders and
+# witnesses agree within 1.5 times that width (68 steps).
+X_F64_REL = 6e-5
+CG_STEP_SPREAD = 100
 # f32 y: FMA contraction in the kernel changes the rounding against the plain
 # version; a dot is summed in another order; bf16 keeps 8 mantissa bits and
 # rounds at other points.
@@ -194,6 +216,112 @@ def device_ms(torch, prof, name):
     if not by_kernel:
         raise AssertionError(f"the trace of {name} holds no device time")
     return by_kernel
+
+
+# ---- the dot's rounding: the spread of sound orders (phase 4) ---------------
+# f32 CG at 216^3 follows the last bits of <u, Au>: the same y with another
+# sound summation order takes other steps and ends elsewhere within f32's
+# reach.  Phase 4 runs f32 CG with the stencil's y and each of these dots, on
+# b = 1 and on normal b from torch.Generator seeds SPREAD_B_SEEDS, each
+# against the f64 solve of its b; and a control whose dot drops the rows of
+# one block of the kernel's grid, which the limits must reject.
+SPREAD_B_SEEDS = (1, 2)
+SOUND_ORDERS = ("kernel", "torch.sum", "f64 sum")
+# a solve that has not converged by then has failed (the sound ones take
+# ~410 steps)
+SPREAD_MAXITER = 1000
+
+
+def dot_orders(torch, St, grid):
+    """name -> dot(u, y) of the spread: None for the kernel's own (the
+    stencil's ``mv_dot``), torch.sum's, an f64 sum rounded once, and the
+    control: torch.sum without the rows of block ``grid // 2`` of the
+    stencil kernel's grid-stride loop (thread P of ``grid`` blocks of 256
+    takes runs P, P + 256 grid, ... of STENCIL_RUN rows)."""
+    from iterativesolvers_tpu_torch.ops.cuda_stencil import STENCIL_RUN
+
+    run = torch.arange(St.n, device="cuda") // STENCIL_RUN
+    keep = ((run % (256 * grid)) // 256 != grid // 2).float()
+    return {"kernel": None,
+            "torch.sum": lambda u, y: torch.sum(u * y),
+            "f64 sum": lambda u, y: torch.sum(u.double() * y.double()).float(),
+            "control (one block dropped)": lambda u, y: torch.sum(u * y * keep)}
+
+
+def dot_order_spread(torch, its, St, A64, grid):
+    """f32 CG (reltol RELTOL) on the stencil ``St`` with each of
+    :func:`dot_orders`, for each b: steps, the true relative residual and
+    ``|x - x64| / |x64|`` against the f64 solve (the DIA matrix ``A64``, the
+    plain path) of the same b.  Returns {(order, b): row}."""
+    n = St.n
+    rhs = {"b = 1": torch.ones(n, device="cuda")}
+    for seed in SPREAD_B_SEEDS:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        rhs[f"normal b, seed {seed}"] = torch.randn(n, generator=g,
+                                                    device="cuda")
+
+    class Dotted(its.FunctionOperator):
+        """The stencil's y (the kernel without its dot) and another dot."""
+
+        def __init__(self, dot):
+            super().__init__(St.mv, St.shape, torch.float32)
+            self._dot = dot
+
+        def mv_dot(self, x):
+            y = St.mv(x)
+            return y, self._dot(x, y)
+
+    ops = {name: St if dot is None else Dotted(dot)
+           for name, dot in dot_orders(torch, St, grid).items()}
+    table = {}
+    print(f"f32 CG at {SIDE}^3 with other dot orders (steps, true relative "
+          f"residual, |x - x64| / |x64|):")
+    for bname, bv in rhs.items():
+        b64 = bv.double()
+        x64 = its.cg(A64, b64, reltol=RELTOL, chunk=CHUNK,
+                     maxiter=SPREAD_MAXITER)
+        for oname, op in ops.items():
+            x, h = its.cg(op, bv, reltol=RELTOL, log=True, chunk=CHUNK,
+                          maxiter=SPREAD_MAXITER)
+            r = b64 - A64.mv(x.double())
+            row = {"iters": h.iters, "converged": h.isconverged,
+                   "true_rel_residual": float(torch.linalg.vector_norm(r)
+                                              / torch.linalg.vector_norm(b64)),
+                   "x_rel_diff_f64": float(
+                       torch.linalg.vector_norm(x.double() - x64)
+                       / torch.linalg.vector_norm(x64))}
+            print(f"  {oname}, {bname}: {row['iters']} steps, "
+                  f"{row['true_rel_residual']:.4e}, {row['x_rel_diff_f64']:.4e}"
+                  f"{'' if h.isconverged else ' (not converged)'}")
+            table[oname, bname] = row
+        del x64
+    return table
+
+
+def check_spread(table):
+    """Phase 4's limits on the spread: every sound order converges within
+    CG_STEP_SPREAD steps of the kernel's on its b, to X_F64_REL of x64 and
+    TRUE_RES_F32; the control must fail one of them.  Returns the table by
+    "order / b" for the JSON line."""
+    bad, control = [], {}
+    for (order, bname), row in table.items():
+        k = table["kernel", bname]
+        fails = [what for what, ok in (
+            ("converged", row["converged"]),
+            ("steps", abs(row["iters"] - k["iters"]) <= CG_STEP_SPREAD),
+            ("x", row["x_rel_diff_f64"] <= X_F64_REL),
+            ("true residual", row["true_rel_residual"] <= TRUE_RES_F32))
+            if not ok]
+        if order in SOUND_ORDERS:
+            bad += [f"{order}, {bname}: {f}" for f in fails]
+        else:
+            control[bname] = fails
+    print(f"  the control fails the limits by: {control}")
+    if bad:
+        raise AssertionError(f"a sound order fails the limits: {bad}")
+    if not all(control.values()):
+        raise AssertionError(f"the control passes the limits: {control}")
+    return {f"{o} / {b}": row for (o, b), row in table.items()}
 
 
 # ---- GMRES (phases 7-11) ---------------------------------------------------
@@ -994,12 +1122,34 @@ def dist_solves(torch, mesh):
             "witness_iters": hw.iters, "witness_converged": hw.isconverged}
         keep(f"converging_{label}", x)
         keep(f"converging_{label}_witness", xw)
-    # CG to reltol 1e-5, its mv_dot the halo stencil's
-    (x, h), counts = counted(lambda: its.cg(op, b, reltol=RELTOL, log=True,
-                                            chunk=CHUNK))
-    res["cg"] = {"iters": h.iters, "converged": h.isconverged,
-                 "launches": counts, "steps": chunked_steps(h.iters, CHUNK)}
-    keep("cg", x)
+    def reduced(fn):
+        """fn() with the mesh's allreduces counted: (its result, count)."""
+        calls = [0]
+        orig = mesh.all_reduce
+
+        def count(t):
+            calls[0] += 1
+            return orig(t)
+
+        mesh.all_reduce = count
+        try:
+            out = fn()
+        finally:
+            del mesh.all_reduce      # the class's method again
+        return out, calls[0]
+
+    # CG on the Laplacian and pipelined CG on the shifted Laplacian (f32
+    # pipelined CG does not converge on the Laplacian, phase 13) to reltol
+    # 1e-5, with their allreduces counted
+    for name, solver, A in (("cg", its.cg, op),
+                            ("pipelined_cg", its.pipelined_cg, Sh)):
+        ((x, h), counts), red = reduced(lambda: counted(lambda: solver(
+            A, b, reltol=RELTOL, log=True, chunk=CHUNK,
+            maxiter=KRYLOV_MAXITER)))
+        res[name] = {"iters": h.iters, "converged": h.isconverged,
+                     "launches": counts, "allreduces": red,
+                     "steps": chunked_steps(h.iters, CHUNK)}
+        keep(name, x)
     return res, xs
 
 
@@ -1067,7 +1217,8 @@ def check_ranks(torch, its, ranks, xs, secs, true_res, rel_diff, refs):
                 and g["launches"] == want and gw["launches"] == want_w):
             raise AssertionError(f"rank {r['rank']}: {g}, {gw}, expected "
                                  f"launches {want} / {want_w}")
-        for key in ("gmres_500", "converging_f32", "converging_bf16", "cg"):
+        for key in ("gmres_500", "converging_f32", "converging_bf16", "cg",
+                    "pipelined_cg"):
             if r[key]["iters"] != r0[key]["iters"]:
                 raise AssertionError(f"ranks disagree on {key}")
     out = {"ranks": DIST_RANKS, "backend": "gloo", "ranks_s": secs,
@@ -1136,8 +1287,282 @@ def check_ranks(torch, its, ranks, xs, secs, true_res, rel_diff, refs):
         raise AssertionError(f"distributed CG launches {c['launches']}")
     out["cg"] = dict(c, true_rel_residual=res, single_card_iters=h1.iters,
                      x_rel_diff_single_card=d1, x_rel_diff_f64=d64)
+    # pipelined CG on the shifted Laplacian: one allreduce a step (CG
+    # three), against the same solve on one card
+    p = r0["pipelined_cg"]
+    x1, h1 = its.pipelined_cg(
+        its.StencilOperator(n, 7.0, St.terms, St.coeffs, device=dev),
+        torch.ones(n, device=dev), reltol=RELTOL, maxiter=KRYLOV_MAXITER,
+        log=True, chunk=CHUNK)
+    res = shifted_res(xs["pipelined_cg"])
+    d1 = rel_diff(xs["pipelined_cg"], x1)
+    print(f"  pipelined CG: {p['iters']} steps (single card {h1.iters}), "
+          f"true relative residual {res:.3e}, |x - x_1| / |x_1| {d1:.3e}, "
+          f"allreduces {p['allreduces']} for {p['steps']} steps (CG "
+          f"{c['allreduces']} for {c['steps']}), launches {p['launches']}")
+    if not (p["converged"] and res <= SHIFTED_TRUE_RES
+            and abs(p["iters"] - h1.iters) <= CG_STEP_SPREAD
+            and d1 <= WITNESS_KRYLOV_X_REL):
+        raise AssertionError(f"distributed pipelined CG: {p}")
+    if not (p["allreduces"] == 1 + p["steps"]
+            and c["allreduces"] == 1 + 3 * c["steps"]
+            and p["launches"]["stencil_apply"] == 1 + p["steps"]):
+        raise AssertionError(f"allreduces or launches: CG {c}, pipelined {p}")
+    out["pipelined_cg"] = dict(p, true_rel_residual=res,
+                               single_card_iters=h1.iters,
+                               x_rel_diff_single_card=d1)
     print(json.dumps({"distributed": out}))
     return out, r0
+
+
+# ---- the Krylov solvers at 216^3 (phase 13) ----------------------------------
+# Held runs converge to reltol RELTOL within KRYLOV_MAXITER steps (4
+# KRYLOV_MAXITER products for BiCGStab(2)) and are held to their true
+# residual, their distance from x64 and their witness (the same solver on
+# the kernels' plain versions: steps within CG_STEP_SPREAD).  The limits of
+# the Laplacian runs (b = 1) come from the JAX package's own f32 runs of the
+# same solvers on the CPU (jax_reference/krylov_f32_216.py, PERF.md): twice
+# its true relative residual and four times its |x - x64| / |x64|, the
+# witness within that of x.  On the shifted Laplacian (condition 13, x of
+# b's size) the true residual reaches 10 reltol and the witness 1e-4.
+# Recorded runs are f32 solves that are rounding-bound in both packages
+# (pipelined CG and IDR(8) on the Laplacian; QMR, BiCGStab(2) and IDR(8) on
+# the advection-diffusion stencil at the fixture's beta = 1000, capped at
+# KRYLOV_CAP steps: run_chunked's warm-up phases, none masked): held to
+# their launches and a finite x, their true residual and witness printed
+# beside the JAX package's own.
+KRYLOV_MAXITER = 1000
+KRYLOV_CAP = 248
+POWM_STEPS = 248
+# solver: (true relative residual, |x - x64| / |x64|) of the JAX package's
+# own f32 solve of the 216^3 Laplacian with b = 1
+JAX_LAPLACIAN_F32 = {"minres": (2.264e-2, 1.688e-4),
+                     "qmr": (2.390e-2, 1.601e-4),
+                     "bicgstabl": (3.798e-3, 6.265e-5)}
+SHIFTED_TRUE_RES = 1e-4
+WITNESS_KRYLOV_X_REL = 1e-4
+# powm's Rayleigh quotient lies below lambda_max (f32 rounding: 1e-5) and
+# above lambda_max less POWM_GAP_FACTOR times the gap the power method
+# leaves after its steps from a start with equal weights on every
+# eigenvector (powm_expected)
+POWM_GAP_FACTOR = 3.0
+
+
+def advection_rhs(torch, N):
+    """The fixture's b of advection_diffusion(N) (utils/fixtures.py):
+    exp(xyz) sin(pi x) sin(pi y) sin(pi z) on the interior points, x
+    fastest, made on the card in f64 and rounded to f32."""
+    xs = torch.linspace(0.0, 1.0, N + 2, dtype=torch.float64,
+                        device="cuda")[1:N + 1]
+    X, Y, Z = torch.meshgrid(xs, xs, xs, indexing="ij")
+    F = (torch.exp(X * Y * Z) * torch.sin(torch.pi * X)
+         * torch.sin(torch.pi * Y) * torch.sin(torch.pi * Z))
+    return F.permute(2, 1, 0).reshape(-1).float()
+
+
+def powm_expected(side, steps):
+    """lambda_max of the side^3 Laplacian (6 + 6 cos(pi / (side + 1))) and
+    the Rayleigh quotient of its power method's last step after ``steps``
+    steps from a start with equal weight on every eigenvector (the mean
+    weight of a normal start): sum l^(2s-1) / sum l^(2s-2) over the
+    eigenvalues l = mu_i + mu_j + mu_k, mu_i = 2 - 2 cos(i pi / (side + 1))."""
+    import numpy as np
+
+    mu = 2 - 2 * np.cos(np.arange(1, side + 1) * np.pi / (side + 1))
+    lmax = 6 + 6 * np.cos(np.pi / (side + 1))
+    lam = (mu[:, None, None] + mu[None, :, None]
+           + mu[None, None, :]).ravel() / lmax
+    w = lam ** (2 * steps - 2)
+    return lmax, float(lmax * (w * lam).sum() / w.sum())
+
+
+def krylov_cases(torch, its, St, Ad):
+    """Phase 13's runs: name -> (solve(op) -> (x, h), operator, b, the f64
+    operator of the true residual, kernel, launches(steps run), kind:
+    "laplacian" (held, against x64), "shifted" (held), "recorded" or
+    "powm").  One kernel launch a product, masked steps included."""
+    n = St.n
+    b1 = torch.ones(n, device="cuda")
+    A64 = its.StencilOperator(n, St.center, St.terms, St.coeffs,
+                              dtype=torch.float64)
+    Sh = its.StencilOperator(n, 7.0, St.terms, St.coeffs)
+    Sh64 = its.StencilOperator(n, 7.0, St.terms, St.coeffs,
+                               dtype=torch.float64)
+    ShD = its.compress_values(Sh.to_dia(), torch.int8)
+    Adv = its.advection_diffusion_stencil(SIDE)
+    Adv64 = its.advection_diffusion_stencil(SIDE, dtype=torch.float64)
+    b_adv = advection_rhs(torch, SIDE)
+    lmin, lmax = its.gershgorin_bounds(Sh)
+    if (lmin, lmax) != (1.0, 13.0) or ShD.dtype != torch.int8:
+        raise AssertionError(f"shifted Laplacian: bounds {lmin, lmax}, "
+                             f"DIA {ShD.dtype}")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    x0 = torch.randn(n, generator=g, device="cuda")
+    x0 /= torch.linalg.vector_norm(x0)
+
+    def powm(op):
+        lam, x, h = its.powm(op, x0=x0, tol=0.0, maxiter=POWM_STEPS - 1,
+                             log=True)
+        h.lam = float(lam)
+        return x, h
+
+    conv = dict(reltol=RELTOL, maxiter=KRYLOV_MAXITER, log=True)
+    bicg = dict(reltol=RELTOL, max_mv_products=4 * KRYLOV_MAXITER, log=True)
+    one, two, four = (lambda s: s), (lambda s: 2 * s), (lambda s: 4 * s)
+    return {
+        "minres stencil": (lambda op: its.minres(op, b1, **conv), St, b1,
+                           A64, "stencil_apply", one, "laplacian"),
+        "minres int8 DIA": (lambda op: its.minres(op, b1, **conv), Ad, b1,
+                            A64, "dia_spmv", one, "laplacian"),
+        "qmr stencil": (lambda op: its.qmr(op, b1, **conv), St, b1, A64,
+                        "stencil_apply", two, "laplacian"),
+        "bicgstabl(2) stencil": (lambda op: its.bicgstabl(op, b1, 2, **bicg),
+                                 St, b1, A64, "stencil_apply", four,
+                                 "laplacian"),
+        "idrs(8) shifted stencil": (
+            lambda op: its.idrs(op, b1, s=8, **conv), Sh, b1, Sh64,
+            "stencil_apply", one, "shifted"),
+        "pipelined_cg shifted stencil": (
+            lambda op: its.pipelined_cg(op, b1, **conv), Sh, b1, Sh64,
+            "stencil_apply", lambda s: 1 + s, "shifted"),
+        "pipelined_cg shifted int8 DIA": (
+            lambda op: its.pipelined_cg(op, b1, **conv), ShD, b1, Sh64,
+            "dia_spmv", lambda s: 1 + s, "shifted"),
+        "chebyshev shifted stencil": (
+            lambda op: its.chebyshev(op, b1, lmin, lmax, **conv), Sh, b1,
+            Sh64, "stencil_apply", one, "shifted"),
+        "pipelined_cg stencil": (
+            lambda op: its.pipelined_cg(op, b1, **conv), St, b1, A64,
+            "stencil_apply", lambda s: 1 + s, "recorded"),
+        "idrs(8) stencil": (lambda op: its.idrs(op, b1, s=8, **conv), St, b1,
+                            A64, "stencil_apply", one, "recorded"),
+        "qmr advection stencil": (
+            lambda op: its.qmr(op, b_adv, maxiter=KRYLOV_CAP, log=True), Adv,
+            b_adv, Adv64, "stencil_apply", two, "recorded"),
+        "bicgstabl(2) advection stencil": (
+            lambda op: its.bicgstabl(op, b_adv, 2,
+                                     max_mv_products=4 * KRYLOV_CAP,
+                                     log=True), Adv, b_adv, Adv64,
+            "stencil_apply", four, "recorded"),
+        "idrs(8) advection stencil": (
+            lambda op: its.idrs(op, b_adv, s=8, maxiter=KRYLOV_CAP,
+                                log=True), Adv, b_adv, Adv64,
+            "stencil_apply", one, "recorded"),
+        "powm stencil": (powm, St, None, None, "stencil_apply", one, "powm"),
+    }
+
+
+def krylov_phase(torch, its, St, Ad, x64, counters):
+    """Phase 13: the runs of :func:`krylov_cases` through the solvers'
+    public calls: launches, true residual (f64), distance from x64 (f64 CG,
+    phase 4) on the Laplacian, witness, us per step (l-cycle for BiCGStab;
+    CUDA events around the solve) and, for the held runs, the card's busy
+    share from a trace of the same solve."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iterativesolvers_tpu_torch.ops.cuda_spmv import dia_spmv_plain
+    from iterativesolvers_tpu_torch.ops.cuda_stencil import stencil_apply_plain
+    from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+    def plain(op):
+        """``op`` with its kernel routed off: the kernel's plain version."""
+        if isinstance(op, its.StencilOperator):
+            a = (op.n, op.center, op.terms, op.coeffs)
+            return its.FunctionOperator(
+                lambda v: stencil_apply_plain(*a, v), op.shape, op.dtype,
+                rmatvec=lambda v: stencil_apply_plain(*a, v, conj=True))
+        return its.FunctionOperator(
+            lambda v: dia_spmv_plain(op.diags, op.offsets, v), op.shape,
+            torch.float32)
+
+    def rel(x, ref):
+        return float(torch.linalg.vector_norm(x.double() - ref.double())
+                     / torch.linalg.vector_norm(ref.double()))
+
+    out, bad = {}, []
+    print(f"the Krylov solvers at {SIDE}^3:")
+    cases = krylov_cases(torch, its, St, Ad)
+    for name, (solve, op, rhs, op64, kernel, launches, kind) in cases.items():
+        for f in counters:
+            f.launches = 0
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        x, h = solve(op)
+        end.record()
+        end.synchronize()
+        wall = start.elapsed_time(end)
+        ran = chunked_steps(h.iters)
+        counts = {f.__name__: f.launches for f in counters}
+        want = {f.__name__: launches(ran) if f.__name__ == kernel else 0
+                for f in counters}
+        for f in counters:
+            f.launches = 0
+        xw, hw = solve(plain(op))
+        torch.cuda.synchronize()
+        if any(f.launches for f in counters):
+            raise AssertionError(f"{name}: the witness launched a kernel")
+        dw = rel(x, xw)
+        row = {"kind": kind, "iters": h.iters, "converged": h.isconverged,
+               "mvps": h.mvps, "mtvps": h.mtvps, "launches": counts[kernel],
+               "expected_launches": want[kernel], "steps_run": ran,
+               "wall_ms": wall, "us_per_step": wall / ran * 1e3,
+               "witness_iters": hw.iters, "witness_x_rel_diff": dw}
+        ok = counts == want and bool(torch.isfinite(x).all())
+        if kind != "recorded":
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                solve(op)
+                torch.cuda.synchronize()
+            by_kernel = device_ms(torch, prof, name)
+            busy = sum(by_kernel.values())
+            row.update(device_busy_ms=busy, busy_share=busy / wall,
+                       top_device_ms=dict(sorted(by_kernel.items(),
+                                                 key=lambda kv: -kv[1])[:5]))
+            ok = ok and abs(h.iters - hw.iters) <= CG_STEP_SPREAD
+        if kind == "powm":
+            lmax_, expect = powm_expected(SIDE, h.iters)
+            row.update(rayleigh_quotient=h.lam, lambda_max=lmax_,
+                       expected_quotient=expect, witness_quotient=hw.lam)
+            ok = ok and dw <= WITNESS_KRYLOV_X_REL and (
+                lmax_ - POWM_GAP_FACTOR * (lmax_ - expect)
+                <= h.lam <= lmax_ * (1 + 1e-5))
+            what = (f"Rayleigh quotient {h.lam:.6f} (lambda_max "
+                    f"{lmax_:.6f}, expected after {h.iters} steps "
+                    f"{expect:.6f})")
+        else:
+            b64 = rhs.double()
+            res, res_w = (float(torch.linalg.vector_norm(
+                b64 - op64.mv(v.double())) / torch.linalg.vector_norm(b64))
+                for v in (x, xw))
+            row.update(true_rel_residual=res, witness_true_rel_residual=res_w)
+            what = f"true relative residual {res:.4e} (witness {res_w:.4e})"
+            if kind == "laplacian":
+                jres, jx = JAX_LAPLACIAN_F32[name.split()[0].split("(")[0]]
+                d64, dw64 = rel(x, x64), rel(xw, x64)
+                row.update(x_rel_diff_f64=d64, witness_x_rel_diff_f64=dw64,
+                           limits={"true_rel_residual": 2 * jres,
+                                   "x_rel_diff": 4 * jx})
+                what += (f", |x - x64| / |x64| {d64:.3e} (witness "
+                         f"{dw64:.3e}; limits {2 * jres:.3e}, {4 * jx:.3e})")
+                ok = ok and h.isconverged and max(res, res_w) <= 2 * jres \
+                    and max(d64, dw64, dw) <= 4 * jx
+            elif kind == "shifted":
+                ok = ok and h.isconverged and max(res, res_w) <= \
+                    SHIFTED_TRUE_RES and dw <= WITNESS_KRYLOV_X_REL
+        print(f"  {name}: {h}, {what}, launches {counts} ({ran} steps run), "
+              f"{row['us_per_step']:.1f} us a step"
+              + (f", busy {row['busy_share']:.3f}" if "busy_share" in row
+                 else "")
+              + f"; witness {hw.iters} steps, |x - x_w| / |x_w| {dw:.3e}")
+        if not ok:
+            bad.append(name)
+        out[name] = row
+        del x, xw
+    print(json.dumps({"krylov": out}))
+    if bad:
+        raise AssertionError(f"Krylov runs off their limits: {bad}")
+    return out
 
 
 def panel_ortho_entries(ptimes, perr, r0):
@@ -1180,7 +1605,7 @@ def main():
 
     import iterativesolvers_tpu_torch as its
     from iterativesolvers_tpu_torch.ops import (_build, cuda_arnoldi, cuda_mgs,
-                                               cuda_panel_ortho)
+                                               cuda_panel_ortho, cuda_stencil)
     from iterativesolvers_tpu_torch.ops.cuda_spmv import (
         dia_spmv, dia_spmv_dot, dia_spmv_plain)
     from iterativesolvers_tpu_torch.ops.cuda_stencil import (
@@ -1346,8 +1771,13 @@ def main():
         diff = rel_diff(x, x_st)
         print(f"  {name} vs stencil: iters {h.iters} vs {h_st.iters}, "
               f"relative solution difference {diff:.3e}")
-        if abs(h.iters - h_st.iters) > 2 or not diff <= 1e-4:
+        if abs(h.iters - h_st.iters) > CG_STEP_SPREAD or not diff <= 1e-4:
             raise AssertionError(f"{name} disagrees with the stencil path")
+    # the spread of sound dot orders, and the control the limits reject
+    grid = cuda_stencil._launch(St.n, St.center, St.terms, St.coeffs, False,
+                                torch.float32, True, x32.device,
+                                cuda_stencil.raw_stream(x32.device)).grid
+    spread = check_spread(dot_order_spread(torch, its, St, A64, grid))
 
     # ---- 5. timing --------------------------------------------------------
     samples = {}
@@ -1370,6 +1800,7 @@ def main():
         "cg_us_per_iter": per_iter, "timed_iters": 504 - 248,
         "cg_to_reltol": {k: {"iters": h.iters, "s": secs[k]}
                          for k, (_, h, _) in runs.items()},
+        "dot_order_spread": spread,
         "n": n, "device": kind}))
 
     # ---- 6. trace: where the time of a CG step goes ------------------------
@@ -1586,6 +2017,19 @@ def main():
         {"converging": conv_x,
          "cg": (runs["stencil"][0], runs["stencil"][1], res_pl, x64)})
     kernels += panel_ortho_entries(ptimes, perr, r0)
+
+    # ---- 13. the Krylov solvers at 216^3 -------------------------------------
+    t0 = time.perf_counter()
+    krylov = krylov_phase(torch, its, St, dias["int8"], x64, counters)
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        # phase 13's launches of the stencil kernel (no dot) and of the int8
+        # DIA kernel, by run, beside the earlier phases' count
+        if k["name"] in ("stencil_apply[no dot]", "dia_spmv[int8 diagonals]"):
+            dia = k["name"].startswith("dia")
+            k["krylov_launches"] = {name: r["launches"]
+                                    for name, r in krylov.items()
+                                    if ("DIA" in name) == dia}
 
     for k in kernels:
         if "bytes" in k:

@@ -10,8 +10,11 @@ CUDA tensors; a CPU tensor takes the kernel's plain PyTorch version.
 
 Ported so far: CG and restarted GMRES (with the bf16-panel GMRES-IR mode)
 on the stencil and DIA operators, and the Givens, Hessenberg and
-orthogonalization ops GMRES uses; and the row-sharded halo operators and
-GMRES's sharded-panel CGS2 route over ``torch.distributed``
+orthogonalization ops GMRES uses; MINRES, QMR, BiCGStab(l), IDR(s),
+Chebyshev (with ``gershgorin_bounds`` / ``power_bound``), pipelined CG and
+the power method (``powm``, ``invpowm``); the identity, diagonal, dense and
+function preconditioners; and the row-sharded halo operators and GMRES's
+sharded-panel CGS2 route over ``torch.distributed``
 (``iterativesolvers_tpu_torch.parallel``, one process per rank).
 """
 
@@ -23,6 +26,7 @@ from .operators.linear_operator import (
     as_operator,
 )
 from .operators.preconditioners import (
+    DensePreconditioner,
     DiagonalPreconditioner,
     FunctionPreconditioner,
     IdentityPreconditioner,
@@ -39,11 +43,19 @@ from .operators.sparse import (
     compress_values,
     values_representable,
 )
+from .solvers.bicgstabl import bicgstabl, bicgstabl_iterator
 from .solvers.cg import cg, cg_iterator
+from .solvers.chebyshev import chebyshev, chebyshev_iterator
 from .solvers.gmres import gmres, gmres_iterator
+from .solvers.idrs import idrs, idrs_iterator
+from .solvers.minres import minres, minres_iterator
+from .solvers.pipelined import pipelined_cg
+from .solvers.qmr import qmr, qmr_iterator
+from .solvers.simple import invpowm, powm, powm_iterator
 from .ops.givens import givens
 from .ops.hessenberg import hessenberg_lstsq
 from .ops.orthogonalize import ORTH_METHODS, orthogonalize_and_normalize
 from .utils.dtypes import zerox
 from .utils.history import ConvergenceHistory
+from .utils.spectral import gershgorin_bounds, power_bound
 from . import parallel

@@ -7,8 +7,8 @@
 // fixed order, either by the block that finishes last (`finish_dot`, in
 // the same launch) or by one block of `reduce_partials` (a second launch).
 // Which block sums does not change the order of the sum, so the result is
-// the same bits on every run, and a CG solve takes the same iteration count
-// every run.
+// the same bits on every run of the same grid, and a CG solve takes the
+// same iteration count every run.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -191,33 +191,6 @@ __device__ __forceinline__ unsigned fast_div(unsigned i, unsigned mul,
   return mul ? (__umulhi(i, mul) >> shr) : i;
 }
 
-// The dot's order.  f32 CG at 216^3 takes 408 steps with this order and
-// 410 or 419 with others (torch.sum's; an f64 sum rounded once): its path
-// depends on the last bits of <u, Au>.  So the dot is summed in one order
-// fixed by n alone, the order of the first design's two passes, whatever
-// grid the launch has:
-//   - G = min(ceil(n / 256), 2048) virtual blocks of 256 virtual threads,
-//     S = 256 G; virtual thread g adds u[i] y[i] for i = g, g + S, g + 2S,
-//     ... in turn by fmaf from 0;
-//   - a virtual block sums its 256 threads as block_sum does: a shuffle-down
-//     tree in each warp of 32, then the same tree over the 8 warp sums;
-//   - the G block sums p_b: virtual thread t of 1024 takes
-//     (0 + p_t) + p_{t+1024}, and block_sum sums the 1024 (32 warps).
-// A kernel with the dot takes runs of R rows (R divides 256): the R virtual
-// threads of set m (m R .. m R + R - 1) add rows m R + e + k S, k = 0, 1,
-// ....  K = R / 4 neighbouring threads of a warp share set m (dot_share):
-// thread q of the group computes the runs k = j K + q, and at each step j
-// every thread of the group adds the group's K runs in k order (dot_step).
-// So a launch has S / 4 threads whatever R: ceil(G / 4) blocks.
-constexpr int kDotBlockCap = 2048;
-constexpr int kDotFinal = 1024;
-constexpr int kDotRowsPerThread = 4;   // a launch with the dot: S / 4 threads
-template <int R> constexpr int kDotShare = R / kDotRowsPerThread;
-
-__host__ __device__ __forceinline__ int dot_blocks(int n) {
-  return min((n + kThreads - 1) / kThreads, kDotBlockCap);
-}
-
 // arr[e] = v for a run index e known at run time only, arr kept in
 // registers.
 template <int R>
@@ -226,107 +199,31 @@ __device__ __forceinline__ void set_at(float (&arr)[R], int e, float v) {
   for (int q = 0; q < R; ++q) arr[q] = q == e ? v : arr[q];
 }
 
-// One step of the dot for a group of K threads: this thread's run gave
-// products a[e] b[e] for its first `cnt` rows; every thread of the group
-// adds the group's K runs, thread 0's first, into local.  All 32 lanes of
-// the warp call it.
-template <int R, int K>
-__device__ __forceinline__ void dot_step(float (&local)[R], const float (&a)[R],
-                                         const float (&b)[R], int cnt) {
-  const int base = (threadIdx.x & 31) & ~(K - 1);
-#pragma unroll
-  for (int qq = 0; qq < K; ++qq) {
-    const int c = K > 1 ? __shfl_sync(0xffffffffu, cnt, base + qq) : cnt;
-#pragma unroll
-    for (int e = 0; e < R; ++e) {
-      const float ae = K > 1 ? __shfl_sync(0xffffffffu, a[e], base + qq) : a[e];
-      const float be = K > 1 ? __shfl_sync(0xffffffffu, b[e], base + qq) : b[e];
-      local[e] = e < c ? fmaf(ae, be, local[e]) : local[e];
-    }
-  }
-}
-
-// The shuffle-down tree of a warp of 32 virtual lanes held R to a group of
-// K threads (32 K / R consecutive lanes of a warp; virtual lane l is
-// register l % R of group l / R): each step adds lane l + o to lane l.  The
-// warp's sum ends in v[0] of its first lane; other values are left as the
-// tree leaves them.
-template <int R, int K>
-__device__ __forceinline__ void vwarp_tree(float (&v)[R]) {
-#pragma unroll
-  for (int s = 4; s >= 0; --s) {
-    const int o = 1 << s;
-    if (o >= R) {
-#pragma unroll
-      for (int e = 0; e < R; ++e) {
-        v[e] += __shfl_down_sync(0xffffffffu, v[e], K * (o / R));
-      }
-    } else {
-#pragma unroll
-      for (int e = 0; e < R; ++e) {
-        if (e < o) v[e] += v[(e + o) % R];
-      }
-    }
-  }
-}
-
-// Finish the dot: `local` holds this thread's group's R virtual threads
-// (set (blockIdx.x kThreads + threadIdx.x) / K).  Each block writes the
-// sums of its R / K virtual blocks to partials[] (those below G), and the
-// block that draws the last ticket sums the G partials as the final pass
-// above and sets the ticket back to 0 for the next launch.  Every thread of
-// the block calls it; blockDim.x is kThreads.
-template <int R, int K>
-__device__ __forceinline__ void finish_dot(float (&local)[R], float* partials,
-                                           unsigned* ticket, float* dot,
-                                           int n) {
-  static_assert(32 % R == 0 && R % K == 0 && (K & (K - 1)) == 0, "layout");
-  constexpr int kWarps = kThreads * R / (32 * K);   // virtual warps a block
-  constexpr int kBlocks = R / K;                    // virtual blocks a block
-  __shared__ float ws[kWarps > 32 ? kWarps : 32];
+// Finish the in-launch dot.  `local` is this thread's sum of its rows'
+// products, added by fmaf from 0 in the order of its grid-stride loop.
+// Each block writes the block_sum of its threads to partials[blockIdx.x];
+// the block that draws the last ticket sums the gridDim.x partials (thread
+// t adds partials t, t + blockDim.x, ... from 0, then block_sum), writes
+// *dot and sets the ticket back to 0 for the next launch.  The order
+// depends on n and the grid alone, so a launch on the same inputs and grid
+// gives the same bits on every run.  Every thread of the block calls it.
+__device__ __forceinline__ void finish_dot(float local, float* partials,
+                                           unsigned* ticket, float* dot) {
   __shared__ bool last;
-  const int G = dot_blocks(n);
-  vwarp_tree<R, K>(local);
-  constexpr int kLanes = 32 * K / R;   // threads of one virtual warp
-  if (threadIdx.x % kLanes == 0) ws[threadIdx.x / kLanes] = local[0];
-  __syncthreads();
-  if (threadIdx.x < kBlocks) {
-    // block_sum's second stage on 8 warp sums: lanes 8..31 hold 0
-    const float* w = ws + 8 * threadIdx.x;
-    float c[4];
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      c[l] = ((w[l] + 0.0f) + 0.0f) + ((w[l + 4] + 0.0f) + 0.0f);
-    }
-    const float sum = (c[0] + c[2]) + (c[1] + c[3]);
-    const int b = blockIdx.x * kBlocks + threadIdx.x;
-    if (b < G) partials[b] = sum;
+  const float s = block_sum(local);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = s;
     __threadfence();
+    last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   }
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   __syncthreads();
   if (!last) return;
-  // the final pass: virtual thread t = 4 threadIdx.x + e of 1024
-  float v[4];
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    float s = 0.0f;
-    for (int i = 4 * threadIdx.x + e; i < G; i += kDotFinal) s += __ldcg(partials + i);
-    v[e] = s;
-  }
-  vwarp_tree<4, 1>(v);
-  __syncthreads();
-  if (threadIdx.x % 8 == 0) ws[threadIdx.x / 8] = v[0];
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    float x = ws[threadIdx.x];
-#pragma unroll
-    for (int s = 4; s >= 0; --s) x += __shfl_down_sync(0xffffffffu, x, 1 << s);
-    if (threadIdx.x == 0) {
-      *dot = x;
-      *ticket = 0u;
-    }
+  float v = 0.0f;
+  for (int i = threadIdx.x; i < gridDim.x; i += blockDim.x) v += __ldcg(partials + i);
+  v = block_sum(v);
+  if (threadIdx.x == 0) {
+    *dot = v;
+    *ticket = 0u;
   }
 }
 

@@ -35,14 +35,14 @@
 // time from a clamped index, and a column outside [0, n) is dropped by a
 // select, not by a branch around its load.  y goes out as 16-byte stores.
 // Rows past the last whole run, and operands not 16-byte aligned, take the
-// same per-row loads inside the kernel.  When u is x (the wrapper compares
-// the pointers), the dot takes the x run that offset 0 loaded and reads no
-// u.  The dot is finished in the same launch: each block writes its
-// partials, and the block that finishes last sums them (common.cuh).  Its
-// order is fixed by n, the first design's order, whatever the grid: f32 CG
-// at 216^3 takes 408 steps with it and 410-419 with other orders.  So with
-// the dot R / 4 threads share a set of R virtual threads and walk runs
-// S = 256 min(ceil(n / 256), 2048) rows apart, on a grid of S / 4 threads.
+// same per-row loads inside the kernel.  With the dot, the run of u is
+// read after the products (when u is x, as in CG, the center run again,
+// from L1), so that the loop holds the registers it holds without the dot.
+// The dot is finished in the same launch: each thread adds its rows'
+// products in the order of its grid-stride loop, each block writes its
+// partial, and the block that finishes last sums them (common.cuh's
+// finish_dot), in an order fixed by n and the grid; the grid is as many
+// blocks as the SMs hold, with the dot as without it.
 //
 // What the TPU design needed and this one does not: the halo/padding plan
 // (1024-lane aligned windows, padded diagonals); here the ragged edge is
@@ -90,14 +90,13 @@ __device__ __forceinline__ float dia_row(const DiaArgs& a,
 template <typename D, bool kDot>
 __device__ __forceinline__ void dia_run(
     const DiaArgs& a, const float* __restrict__ x, const float* __restrict__ u,
-    float* __restrict__ y, int n, int r0, int vec, int u_is_x,
+    float* __restrict__ y, int n, int r0, int vec,
     float (&pu)[kVecOf<D>], float (&py)[kVecOf<D>]) {
   constexpr int R = kVecOf<D>;
   if (vec && r0 + R <= n) {
     float acc[R];
 #pragma unroll
     for (int e = 0; e < R; ++e) acc[e] = 0.0f;
-    if (kDot && u_is_x) window_vec<float, R, 0>(x, r0, pu);
 #pragma unroll
     for (int k0 = 0; k0 < kMaxDiags; k0 += kGroup) {
       if (k0 < a.nd) {
@@ -117,10 +116,7 @@ __device__ __forceinline__ void dia_run(
             unpack_vec<D>(raw[k], d);
             const int off = a.off[k0 + k];
             unsigned ok = ~0u;
-            if (kDot && u_is_x && off == 0) {
-#pragma unroll
-              for (int e = 0; e < R; ++e) w[e] = pu[e];
-            } else if (!load_window<float, R>(x, r0 + off, n, w)) {
+            if (!load_window<float, R>(x, r0 + off, n, w)) {
               ok = 0u;
 #pragma unroll
               for (int e = 0; e < R; ++e) {
@@ -141,7 +137,10 @@ __device__ __forceinline__ void dia_run(
 #pragma unroll
     for (int p = 0; p < R; p += 4) store_vec<float>(y + r0 + p, acc + p);
     if (kDot) {
-      if (!u_is_x) window_vec<float, R, 0>(u, r0, pu);
+      // u's run after the products: when u is x, the center run again,
+      // from L1, so that the main loop holds no more registers than
+      // without the dot
+      window_vec<float, R, 0>(u, r0, pu);
 #pragma unroll
       for (int e = 0; e < R; ++e) py[e] = acc[e];
     }
@@ -167,35 +166,23 @@ __global__ void __launch_bounds__(kThreads)
 dia_kernel(DiaArgs a, const float* __restrict__ x, const float* __restrict__ u,
            float* __restrict__ y, float* __restrict__ partials,
            unsigned* __restrict__ ticket, float* __restrict__ dot, int n,
-           int vec, int u_is_x) {
+           int vec) {
   constexpr int R = kVecOf<D>;
-  const int P = blockIdx.x * blockDim.x + threadIdx.x;
   float pu[R], py[R];
-  if constexpr (!kDot) {
-    const int runs = n / R + (n % R != 0);
-    for (int run = P; run < runs; run += gridDim.x * blockDim.x) {
-      dia_run<D, false>(a, x, u, y, n, run * R, vec, u_is_x, pu, py);
-    }
-  } else {
-    // set m of R virtual threads, shared by K threads, runs S rows apart
-    // (common.cuh: the dot's order)
-    constexpr int K = kDotShare<R>;
-    const int S = dot_blocks(n) * kThreads;
-    const int m = P / K, q = P % K;
-    float local[R];
+  float local = 0.0f;
+  const int runs = n / R + (n % R != 0);
+  for (int run = blockIdx.x * blockDim.x + threadIdx.x; run < runs;
+       run += gridDim.x * blockDim.x) {
+    dia_run<D, kDot>(a, x, u, y, n, run * R, vec, pu, py);
+    if constexpr (kDot) {
+      const int cnt = min(R, n - run * R);
 #pragma unroll
-    for (int e = 0; e < R; ++e) local[e] = 0.0f;
-    for (int j = 0;; ++j) {
-      const int r0 = m * R + (j * K + q) * S;
-      const bool work = m < S / R && r0 < n;
-      if (!__any_sync(0xffffffffu, work)) break;
-#pragma unroll
-      for (int e = 0; e < R; ++e) pu[e] = py[e] = 0.0f;
-      if (work) dia_run<D, true>(a, x, u, y, n, r0, vec, u_is_x, pu, py);
-      dot_step<R, K>(local, pu, py, work ? min(R, n - r0) : 0);
+      for (int e = 0; e < R; ++e) {
+        local = e < cnt ? fmaf(pu[e], py[e], local) : local;
+      }
     }
-    finish_dot<R, K>(local, partials, ticket, dot, n);
   }
+  if constexpr (kDot) finish_dot(local, partials, ticket, dot);
 }
 
 template <typename D>
@@ -229,8 +216,7 @@ extern "C" int its_dia_blocks_per_sm(int diag_dtype, int with_dot, int nd,
 // diag_dtype: 0 = float32, 1 = bfloat16, 2 = int8.  `diags` and `offs` are
 // host arrays of `nd` device pointers and offsets.  vec = 1 when x, u, y and
 // every diagonal are 16-byte aligned (else every row takes the per-row
-// loads); u_is_x = 1 when u is x.  With the dot: grid is
-// ceil(dot_blocks(n) / 4) (common.cuh), `partials` holds dot_blocks(n)
+// loads).  With the dot: `partials` holds `grid`
 // floats, `ticket` one unsigned that is 0 between launches (the kernel
 // leaves it 0), `dot` one float.  Returns the CUDA error code of the launch
 // (0 = success), or -1 for bad arguments.
@@ -238,7 +224,7 @@ extern "C" int its_dia_spmv(int diag_dtype, int with_dot,
                             const void* const* diags, const int* offs, int nd,
                             const void* x, const void* u, void* y,
                             void* partials, void* ticket, void* dot, int n,
-                            int grid, int vec, int u_is_x, void* stream) {
+                            int grid, int vec, void* stream) {
   using namespace its;
   if (nd < 1 || nd > kMaxDiags || grid < 1 || n < 1) return -1;
   DiaArgs a = {};
@@ -256,7 +242,7 @@ extern "C" int its_dia_spmv(int diag_dtype, int with_dot,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* k = kernel_of(diag_dtype, with_dot, nd);
   if (k == nullptr) return -1;
-  void* args[] = {&a, &xf, &uf, &yf, &pf, &tk, &df, &n, &vec, &u_is_x};
+  void* args[] = {&a, &xf, &uf, &yf, &pf, &tk, &df, &n, &vec};
   return static_cast<int>(
       cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args, 0, s));
 }

@@ -29,8 +29,9 @@
 // whole run, and an x that is not 16-byte aligned take one load a row from a
 // clamped index, in the same launch.  The dot is finished in the same
 // launch: the block that finishes last sums the blocks' partials
-// (common.cuh's finish_dot) in an order fixed by n, the first design's:
-// the same bits as before and on every run (f32 CG's path depends on them).
+// (common.cuh's finish_dot) in an order fixed by n and the grid, the same
+// bits on every run.  The grid is as many blocks as the SMs hold, with
+// the dot as without it.
 //
 // Sum order (stencil.cuh): ascending offsets, the DIA kernel's order.  (The
 // TPU kernel adds the center first: for a Laplacian the partial sums then
@@ -94,8 +95,7 @@ extern "C" int its_stencil_pack_terms(void* out, int nterms, const int* off,
 
 // dtype: 0 = float32, 1 = bfloat16 (x and y).  vec = 1 when x and y are
 // 16-byte aligned.  `terms`: the StencilTerms its_stencil_pack_terms
-// packed.  With the dot: grid is ceil(dot_blocks(n) / kStencilRun),
-// `partials` holds dot_blocks(n) floats, `ticket` one
+// packed.  With the dot: `partials` holds `grid` floats, `ticket` one
 // unsigned that is 0 between launches (the kernel leaves it 0), `dot` one
 // float.  Returns the CUDA error code of the launch (0 = success), or -1
 // for bad arguments.

@@ -205,9 +205,10 @@ __device__ __forceinline__ void stencil_run(const TI* __restrict__ x,
 // *kp (clamped to [0, m1)) of the (m1, n) panel `base`, read on the device.
 // vec = 1 when base and y are 16-byte aligned; a panel row must be too
 // (checked here, since k is on the device), else every row takes the
-// per-row loads.  Runs of kStencilRun rows a thread.  With kDot also
-// <x, y> in f32 from the y stored, in the fixed order of common.cuh (a grid
-// of S / 4 threads), finished in the same launch (finish_dot).
+// per-row loads.  Runs of kStencilRun rows a thread, in a grid-stride
+// loop.  With kDot also <x, y> in f32 from the y stored: each thread adds
+// its rows' products in the order of its loop, and the launch finishes the
+// sum (common.cuh's finish_dot).
 template <typename TI, typename TO, bool kDot>
 // (kThreads, 1): registers up to 255 a thread; with (kThreads) alone ptxas
 // held the bf16 instance with the dot to 48 registers and spilled 12 bytes
@@ -220,33 +221,21 @@ stencil_kernel(const TI* __restrict__ base, const int* __restrict__ kp, int m1,
   const TI* x = base;
   if (kp != nullptr) x += static_cast<size_t>(max(0, min(*kp, m1 - 1))) * n;
   const bool vx = vec && (reinterpret_cast<uintptr_t>(x) & 15u) == 0;
-  const int P = blockIdx.x * blockDim.x + threadIdx.x;
   float px[R], py[R];
-  if constexpr (!kDot) {
-    const int runs = n / R + (n % R != 0);
-    for (int run = P; run < runs; run += gridDim.x * blockDim.x) {
-      stencil_run<TI, TO, R, false>(x, y, n, run * R, vx, t, px, py);
-    }
-  } else {
-    // set m of R virtual threads, shared by K threads, runs S rows apart
-    // (common.cuh: the dot's order)
-    constexpr int K = kDotShare<R>;
-    const int S = dot_blocks(n) * kThreads;
-    const int m = P / K, q = P % K;
-    float local[R];
+  float local = 0.0f;
+  const int runs = n / R + (n % R != 0);
+  for (int run = blockIdx.x * blockDim.x + threadIdx.x; run < runs;
+       run += gridDim.x * blockDim.x) {
+    stencil_run<TI, TO, R, kDot>(x, y, n, run * R, vx, t, px, py);
+    if constexpr (kDot) {
+      const int cnt = min(R, n - run * R);
 #pragma unroll
-    for (int e = 0; e < R; ++e) local[e] = 0.0f;
-    for (int j = 0;; ++j) {
-      const int r0 = m * R + (j * K + q) * S;
-      const bool work = m < S / R && r0 < n;
-      if (!__any_sync(0xffffffffu, work)) break;
-#pragma unroll
-      for (int e = 0; e < R; ++e) px[e] = py[e] = 0.0f;
-      if (work) stencil_run<TI, TO, R, true>(x, y, n, r0, vx, t, px, py);
-      dot_step<R, K>(local, px, py, work ? min(R, n - r0) : 0);
+      for (int e = 0; e < R; ++e) {
+        local = e < cnt ? fmaf(px[e], py[e], local) : local;
+      }
     }
-    finish_dot<R, K>(local, partials, ticket, dot, n);
   }
+  if constexpr (kDot) finish_dot(local, partials, ticket, dot);
 }
 
 // Fill `t` from the host arrays of ops/cuda_stencil.py's plan: the `nterms`

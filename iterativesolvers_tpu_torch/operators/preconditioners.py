@@ -1,5 +1,6 @@
 """Preconditioner protocol (port of the first part of
-``iterativesolvers_tpu/operators/preconditioners.py``).
+``iterativesolvers_tpu/operators/preconditioners.py``: the identity,
+diagonal, dense and function preconditioners).
 
 Reference contract (docs/src/preconditioning.md:5-10): a preconditioner must
 support ``ldiv!(y, P, x)`` — i.e. apply P^{-1}.  Here the protocol is a single
@@ -18,6 +19,7 @@ __all__ = [
     "Preconditioner",
     "IdentityPreconditioner",
     "DiagonalPreconditioner",
+    "DensePreconditioner",
     "FunctionPreconditioner",
     "as_preconditioner",
     "is_identity",
@@ -47,6 +49,27 @@ class DiagonalPreconditioner(Preconditioner):
         return x / self.diag
 
 
+class DensePreconditioner(Preconditioner):
+    """Dense P, LU-factorized once at construction on ``device``
+    (``torch.linalg.lu_factor``); ``ldiv`` is two triangular solves
+    (``lu_solve``) in ``promote(P, x)``.  Matches the reference tests' use of
+    exact factorizations as preconditioners (test/cg.jl:43-47)."""
+
+    def __init__(self, mat=None, *, lu_and_piv=None, device="cuda"):
+        if lu_and_piv is None:
+            lu_and_piv = torch.linalg.lu_factor(
+                torch.as_tensor(mat, device=device))
+        self.lu_and_piv = lu_and_piv
+
+    def ldiv(self, x):
+        LU, piv = self.lu_and_piv
+        dt = torch.promote_types(LU.dtype, x.dtype)
+        b = x.to(dt)
+        out = torch.linalg.lu_solve(LU.to(dt), piv,
+                                    b[:, None] if b.ndim == 1 else b)
+        return out[:, 0] if x.ndim == 1 else out
+
+
 class FunctionPreconditioner(Preconditioner):
     """Matrix-free preconditioner from a callable x -> P^{-1} x."""
 
@@ -60,7 +83,8 @@ class FunctionPreconditioner(Preconditioner):
 
 def as_preconditioner(P, device="cuda") -> Preconditioner:
     """Coerce ``None`` / a preconditioner / a callable / a 1-D array of the
-    diagonal to a :class:`Preconditioner`; a 1-D array goes to ``device``."""
+    diagonal / a 2-D matrix (LU-factorized, :class:`DensePreconditioner`) to
+    a :class:`Preconditioner`; an array goes to ``device``."""
     if P is None:
         return IdentityPreconditioner()
     if isinstance(P, Preconditioner):
@@ -71,9 +95,7 @@ def as_preconditioner(P, device="cuda") -> Preconditioner:
     if arr.ndim == 1:
         return DiagonalPreconditioner(arr, device=device)
     if arr.ndim == 2:
-        raise NotImplementedError(
-            "a dense preconditioner (DensePreconditioner) is not ported yet; "
-            "it comes with a later slice of the port")
+        return DensePreconditioner(arr, device=device)
     raise ValueError(f"cannot interpret preconditioner of type {type(P)}")
 
 

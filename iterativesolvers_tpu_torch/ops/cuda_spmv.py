@@ -19,8 +19,7 @@ plain version :func:`dia_spmv_plain`, which has no such limits.
 The kernel takes runs of ``run_rows(diag dtype)`` rows a thread (16 bytes
 of each diagonal), and finishes the dot in the same launch on a ticket
 (``cuda_stencil.dot_ticket``) and partial sums kept per shape, device and
-stream, so that launches on concurrent streams share neither.  When u is x
-it reads no u.
+stream, so that launches on concurrent streams share neither.
 """
 
 from __future__ import annotations
@@ -31,8 +30,8 @@ import functools
 import torch
 
 from . import _build
-from .cuda_stencil import (VEC_BYTES, aligned, blocks_per_sm, dot_grid,
-                           dot_ticket, grid_for, max_rows, on_device,
+from .cuda_stencil import (VEC_BYTES, aligned, blocks_per_sm, dot_ticket,
+                           grid_for, max_rows, on_device,
                            raw_stream, run_rows)
 
 __all__ = ["dia_spmv", "dia_spmv_dot", "dia_spmv_plain", "MAX_DIAGS",
@@ -110,7 +109,7 @@ def _lib():
     lib.its_dia_spmv.restype = ctypes.c_int
     lib.its_dia_spmv.argtypes = (
         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+         ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
         + [ctypes.c_void_p])
     lib.its_dia_blocks_per_sm.restype = ctypes.c_int
     lib.its_dia_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
@@ -120,14 +119,15 @@ def _lib():
 
 @functools.lru_cache(maxsize=64)
 def _grid(dtype, with_dot, nd, n, device, stream):
-    """The grid and, with the dot, the grid of its fixed order, and the
-    partials and ticket of ``stream``, the current stream (made on it)."""
+    """The grid (as many blocks as the SMs hold, with the dot as without
+    it) and with the dot the partials and ticket of ``stream``, the current
+    stream (made on it)."""
+    bps = blocks_per_sm(_lib().its_dia_blocks_per_sm, _DIAG_CODE[dtype],
+                        int(with_dot), nd, device=device)
+    grid = grid_for(bps, device, n, run_rows(dtype))
     if not with_dot:
-        bps = blocks_per_sm(_lib().its_dia_blocks_per_sm, _DIAG_CODE[dtype],
-                            0, nd, device=device)
-        return grid_for(bps, device, n, run_rows(dtype)), None, None
-    grid, G = dot_grid(n)
-    partials = torch.empty(G, dtype=torch.float32, device=device)
+        return grid, None, None
+    partials = torch.empty(grid, dtype=torch.float32, device=device)
     return grid, partials, dot_ticket(device, stream).data_ptr()
 
 
@@ -166,7 +166,7 @@ def _launch(diags, offsets, x, u):
         err = _lib().its_dia_spmv(
             _DIAG_CODE[diags[0].dtype], int(with_dot), dptr, optr, nd,
             x.data_ptr(), u.data_ptr(), y.data_ptr(), *red, n, grid,
-            int(vec), int(u.data_ptr() == x.data_ptr()), stream)
+            int(vec), stream)
     if err != 0:
         raise RuntimeError(f"DIA kernel launch failed (error {err})")
     return y, dot

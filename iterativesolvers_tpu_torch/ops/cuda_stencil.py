@@ -25,10 +25,10 @@ n >= 1.
 The kernel takes runs of ``STENCIL_RUN`` rows a thread, with 16-byte loads
 and stores, and finds the grid positions by a multiply-high and a shift: the constants of
 :func:`fast_divisor`, computed here in the cached plan.  Its dot is summed
-in an order fixed by n (``csrc/common.cuh``; f32 CG's path depends on it),
-finished in the same launch by the block that finishes last, which counts
-on a ticket: one int32 per device and stream (:func:`dot_ticket`), 0
-between launches.  What does not change from call to call (the grid, the
+in an order fixed by n and the grid (``csrc/common.cuh``; the grid is
+chosen as without the dot), and finished in the same launch by the block
+that finishes last, which counts on a ticket: one int32 per device and stream
+(:func:`dot_ticket`), 0 between launches.  What does not change from call to call (the grid, the
 terms packed for the C call, the blocks' partial sums) is kept per stencil,
 n, dtype, device and, with the dot, stream (:func:`launch_plan`), so that a
 call costs the host little beside the kernel, and launches on concurrent
@@ -52,7 +52,7 @@ from . import _build
 
 __all__ = ["stencil_apply", "stencil_apply_plain", "stencil_sum", "MAX_TERMS",
            "VEC_BYTES", "STENCIL_RUN", "run_rows", "fast_divisor", "dot_ticket",
-           "dot_grid", "grid_for"]
+           "grid_for"]
 
 MAX_TERMS = 8
 _THREADS = 256
@@ -104,21 +104,6 @@ def dot_ticket(device, stream: int) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-# the dot's fixed order (csrc/common.cuh): at most DOT_BLOCK_CAP virtual
-# blocks of _THREADS virtual threads, DOT_ROWS_PER_THREAD of them (a run of
-# R rows shared by R / 4 threads) to a thread of the launch
-DOT_BLOCK_CAP = 2048
-DOT_ROWS_PER_THREAD = 4
-
-
-def dot_grid(n: int):
-    """``(grid, G)`` of a launch with the dot: G virtual blocks (the
-    partials it sums), ``G = min(ceil(n / 256), 2048)``, and a grid of
-    ``256 G / 4`` threads."""
-    G = min(-(-n // _THREADS), DOT_BLOCK_CAP)
-    return -(-G // DOT_ROWS_PER_THREAD), G
 
 
 def grid_for(blocks_per_sm: int, device, n: int, rows: int) -> int:
@@ -329,18 +314,15 @@ class Launch(NamedTuple):
 
 
 def launch_plan(plan, n, with_dot, device, stream, blocks_fn, *blocks_args):
-    """The Launch of ``plan`` for n rows on ``device``: with the dot the
-    grid its fixed order takes (:func:`dot_grid`) and the partials and
-    ticket of ``stream``, the current stream (made on it); else as many
-    blocks as the SMs hold, from the kernel's occupancy query ``blocks_fn(
-    *blocks_args, &blocks)``."""
-    if with_dot:
-        grid, G = dot_grid(n)
-        partials = torch.empty(G, dtype=torch.float32, device=device)
-    else:
-        grid = grid_for(blocks_per_sm(blocks_fn, *blocks_args, device=device),
-                        device, n, STENCIL_RUN)
-        partials = None
+    """The Launch of ``plan`` for n rows on ``device``: as many blocks as
+    the SMs hold, from the kernel's occupancy query ``blocks_fn(
+    *blocks_args, &blocks)``, with the dot as without it; with the dot also
+    the blocks' partials and the ticket of ``stream``, the current stream
+    (made on it)."""
+    grid = grid_for(blocks_per_sm(blocks_fn, *blocks_args, device=device),
+                    device, n, STENCIL_RUN)
+    partials = (torch.empty(grid, dtype=torch.float32, device=device)
+                if with_dot else None)
     buf = packed_terms(plan)
     ticket = dot_ticket(device, stream).data_ptr() if with_dot else None
     return Launch(grid, ctypes.addressof(buf), partials, ticket, buf)

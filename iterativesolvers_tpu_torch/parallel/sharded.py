@@ -18,7 +18,7 @@ Ported: ``row_mesh``, ``shard_vector``, ``replicate``, ``HaloDIAOperator``,
 ``HaloStencilOperator``, and ``gather_vector`` (the counterpart of
 ``np.asarray`` on a sharded JAX array).  Not yet: ``mv_rows``,
 ``RowShardedELLOperator``, ``DenseMeshOperator``, ``slice_mesh``,
-``shard_dia`` / ``shard_ell`` (ROADMAP.md, Queue A item 11).
+``shard_dia`` / ``shard_ell`` (ROADMAP.md, Queue A item 8).
 """
 
 from __future__ import annotations

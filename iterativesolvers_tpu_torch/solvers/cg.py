@@ -23,12 +23,10 @@ from typing import NamedTuple
 
 import torch
 
-from ..operators.linear_operator import as_operator
-from ..operators.preconditioners import as_preconditioner
 from ..utils.dtypes import real_dtype, solve_dtype
-from .common import (SolveResult, SolverIterator, make_history, norm,
-                     resolve_tols, run_chunked, tolerance, vdot,
-                     with_highest_precision)
+from .common import (SolveResult, SolverIterator, log_at, make_history,
+                     norm, prepare, print_resnorms, run_chunked, tolerance,
+                     vdot, with_highest_precision)
 
 __all__ = ["cg", "cg_iterator", "CGState"]
 
@@ -85,9 +83,7 @@ def _cg_step(op, Pl, state: CGState, live, log_in_place=False) -> CGState:
     x = torch.addcmul(state.x, alpha, u)
     r = torch.addcmul(state.r, alpha, c, value=-1)
     residual = torch.where(live, norm(r, op.mesh), state.residual)
-    log = state.resnorm_log if log_in_place else state.resnorm_log.clone()
-    slot = state.k.clamp(max=log.shape[0] - 1).reshape(1)
-    log.index_put_((slot,), torch.where(live, residual, log.index_select(0, slot)))
+    log = log_at(state.resnorm_log, state.k, residual, live, log_in_place)
     return CGState(
         x=x,
         r=r,
@@ -124,23 +120,6 @@ def _cg_solve(op, b, x0, Pl, reltol, abstol, maxiter, initially_zero,
     )
 
 
-def _prepare(A, b, x0, Pl, abstol, reltol, maxiter):
-    op = as_operator(A, b)
-    dev = op.device
-    Pl = as_preconditioner(Pl, device=dev)
-    b = torch.as_tensor(b, device=dev)
-    maxiter = int(maxiter if maxiter is not None else op.shape[1])
-    dtype = solve_dtype(op.dtype, b.dtype)
-    initially_zero = x0 is None
-    if x0 is None:
-        # b's rows: all n on one device, this rank's block on a mesh
-        x0 = torch.zeros(b.shape[0], dtype=dtype, device=dev)
-    else:
-        x0 = torch.as_tensor(x0, device=dev)
-    reltol_, abstol_ = resolve_tols(dtype, reltol, abstol, device=dev)
-    return op, b, x0, Pl, reltol_, abstol_, maxiter, initially_zero
-
-
 def cg(
     A,
     b,
@@ -166,14 +145,12 @@ def cg(
     identical at any value.  ``verbose`` prints the residual of every
     iteration after the solve.
     """
-    op, b, x0, Pl, reltol_, abstol_, maxiter, initially_zero = _prepare(
+    op, b, x0, Pl, reltol_, abstol_, maxiter, initially_zero = prepare(
         A, b, x0, Pl, abstol, reltol, maxiter)
     res = _cg_solve(op, b, x0, Pl, reltol_, abstol_, maxiter, initially_zero,
                     chunk=int(chunk))
     if verbose:
-        buf, nvalid = res.log["resnorm"]
-        for i, v in enumerate(buf[: int(nvalid)].tolist()):
-            print(f"{i + 1:3d}\t{v:.2e}")
+        print_resnorms(res)
     if not log:
         return res.x
     history = make_history(
@@ -198,7 +175,7 @@ def cg_iterator(
     residual norm each step; ``.state`` is inspectable/replaceable between
     steps and serves as a checkpoint (a step never writes the tensors of the
     state it was given)."""
-    op, b, x0, Pl, reltol_, abstol_, maxiter, initially_zero = _prepare(
+    op, b, x0, Pl, reltol_, abstol_, maxiter, initially_zero = prepare(
         A, b, x0, Pl, abstol, reltol, maxiter)
     with torch.no_grad():
         state0 = _cg_init(op, b, x0, reltol_, abstol_, maxiter, initially_zero)

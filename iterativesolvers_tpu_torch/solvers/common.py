@@ -23,7 +23,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from ..utils.dtypes import default_reltol, real_dtype
+from ..utils.dtypes import as_dtype, default_reltol, real_dtype
 from ..utils.history import ConvergenceHistory
 
 __all__ = [
@@ -33,9 +33,16 @@ __all__ = [
     "norm",
     "vdot",
     "safe_inv",
+    "random_like",
     "SolverIterator",
     "resolve_tols",
+    "Problem",
+    "prepare",
     "make_history",
+    "print_resnorms",
+    "live_print",
+    "select",
+    "log_at",
     "run_chunked",
     "chunked_steps",
 ]
@@ -66,6 +73,28 @@ def safe_inv(x):
     return torch.where(x > 0, 1.0 / torch.where(x > 0, x, 1.0), 0.0)
 
 
+def random_like(generator, shape, dtype, mesh=None):
+    """Uniform random block of ``shape`` drawn from ``generator`` (a
+    ``torch.Generator``) on its device; complex dtypes get independent
+    uniform real and imaginary parts (the analogue of the reference's
+    ``rand(T, n)`` shadow residuals / shadow spaces, src/bicgstabl.jl:38,
+    src/idrs.jl:132).  With a ``mesh`` the last axis of ``shape`` is the
+    global n: the whole block is drawn on every rank and this rank's rows
+    returned, so a row-sharded solve draws the vectors of the one-device
+    solve."""
+    dev = generator.device
+    rdt = real_dtype(dtype)
+    out = torch.rand(shape, generator=generator, dtype=rdt, device=dev)
+    if as_dtype(dtype).is_complex:
+        im = torch.rand(shape, generator=generator, dtype=rdt, device=dev)
+        out = torch.complex(out, im).to(dtype)
+    if mesh is not None:
+        nloc = -(-shape[-1] // mesh.size)
+        lo = min(mesh.rank * nloc, shape[-1])
+        out = out[..., lo:lo + nloc].contiguous()
+    return out
+
+
 def tolerance(resnorm0, reltol, abstol):
     """max(reltol*|r0|, abstol) — src/cg.jl:141."""
     return torch.maximum(reltol * resnorm0, abstol)
@@ -81,6 +110,44 @@ def resolve_tols(dtype, reltol: Optional[float], abstol: Optional[float],
     rt = real_dtype(dtype)
     return (torch.tensor(float(reltol), dtype=rt, device=device),
             torch.tensor(float(abstol), dtype=rt, device=device))
+
+
+class Problem(NamedTuple):
+    """A solve's inputs on the operator's device (:func:`prepare`)."""
+
+    op: Any
+    b: Any
+    x0: Any
+    Pl: Any
+    reltol: Any             # 0-d tensors of the real solve dtype
+    abstol: Any
+    maxiter: int
+    initially_zero: bool
+
+
+def prepare(A, b, x0=None, Pl=None, abstol=None, reltol=None, maxiter=None):
+    """The common set-up of a solver call: the operator (``as_operator``)
+    and preconditioner on the operator's device, ``b`` and ``x0`` moved
+    there (``x0 = 0`` of ``b``'s rows and the solve dtype when None: all n
+    on one device, this rank's block on a mesh), ``maxiter`` defaulting to
+    the operator's n, and the tolerances (:func:`resolve_tols`)."""
+    from ..operators.linear_operator import as_operator
+    from ..operators.preconditioners import as_preconditioner
+    from ..utils.dtypes import solve_dtype
+
+    op = as_operator(A, b)
+    dev = op.device
+    Pl = as_preconditioner(Pl, device=dev)
+    b = torch.as_tensor(b, device=dev)
+    maxiter = int(maxiter if maxiter is not None else op.shape[1])
+    dtype = solve_dtype(op.dtype, b.dtype)
+    initially_zero = x0 is None
+    if x0 is None:
+        x0 = torch.zeros(b.shape[0], dtype=dtype, device=dev)
+    else:
+        x0 = torch.as_tensor(x0, device=dev)
+    reltol_, abstol_ = resolve_tols(dtype, reltol, abstol, device=dev)
+    return Problem(op, b, x0, Pl, reltol_, abstol_, maxiter, initially_zero)
 
 
 class SolveResult(NamedTuple):
@@ -116,6 +183,59 @@ def make_history(
     for key, (buf, nvalid) in res.log.items():
         h.set_series(key, buf.detach().cpu().numpy(), int(nvalid))
     return h
+
+
+def print_resnorms(res: SolveResult, key: str = "resnorm") -> None:
+    """Host-side per-iteration residual printout after the solve (the
+    reference prints live via @printf, src/cg.jl:234)."""
+    buf, nvalid = res.log[key]
+    for i, v in enumerate(buf[: int(nvalid)].tolist()):
+        print(f"{i + 1:3d}\t{v:.2e}")
+
+
+def live_print(log_of):
+    """``verbose=True``'s printout as a :func:`run_chunked` ``on_phase``
+    hook: after each phase it prints the residuals logged since its last
+    call, numbered from 1.  ``log_of(state)`` gives ``(buffer, nvalid)``.
+    The JAX package prints each step inside its compiled loop; here the
+    lines of a phase come at the phase's end, with one host read a phase
+    beside ``run_chunked``'s own, none a step."""
+    printed = [0]
+
+    def hook(state):
+        buf, nvalid = log_of(state)
+        k = int(nvalid)
+        for i, v in enumerate(buf[printed[0]:k].tolist(), printed[0]):
+            print(f"{i + 1:3d}\t{v:.2e}")
+        printed[0] = max(printed[0], k)
+
+    return hook
+
+
+def select(live, new, old, keep=("resnorm_log",)):
+    """The state ``new`` where the 0-d bool tensor ``live`` is true, else
+    ``old``, field by field (the masked step of :func:`run_chunked`, as the
+    JAX package's ``guarded`` selects every leaf); ``new`` itself when
+    ``live`` is None (the iterator's unmasked step).  Fields named in
+    ``keep`` come from ``new`` as they are: the residual log, which the
+    step writes with :func:`log_at` under the same mask."""
+    if live is None:
+        return new
+    return type(new)(*(a if f in keep else torch.where(live, a, b)
+                       for f, a, b in zip(new._fields, new, old)))
+
+
+def log_at(log, k, value, live=None, in_place=False):
+    """``log`` with ``value`` at slot ``k`` (a 0-d int tensor, clamped to
+    the buffer) where ``live`` (a 0-d bool tensor; None: always).  A copy
+    unless ``in_place``: a solve's own loop, which holds no earlier state,
+    writes in place, to avoid a copy of the whole buffer a step."""
+    log = log if in_place else log.clone()
+    slot = k.clamp(min=0, max=log.shape[0] - 1).reshape(1)
+    if live is not None:
+        value = torch.where(live, value, log.index_select(0, slot)[0])
+    log.index_put_((slot,), value.reshape(1).to(log.dtype))
+    return log
 
 
 class SolverIterator:
@@ -214,7 +334,7 @@ def chunked_steps(iters: int, chunk: int = 256) -> int:
         done += c
 
 
-def run_chunked(step, done, state, chunk: int = 256):
+def run_chunked(step, done, state, chunk: int = 256, on_phase=None):
     """Drive ``state = step(state, live)`` until ``done(state)``, reading the
     data-dependent exit back to the host only once per phase: every read
     waits for the device, so a check per step would idle the card between
@@ -232,14 +352,19 @@ def run_chunked(step, done, state, chunk: int = 256):
     Phases follow the warm-up ladder 8, 16, 32, 64, 128 (those below
     ``chunk``), then ``chunk``: a solve converging at iteration ~10 should
     not run a full steady-state chunk of masked steps.  ``chunk <= 1``
-    checks ``done`` on the host before every step.
+    checks ``done`` on the host before every step.  ``on_phase(state)``,
+    if given, runs after each phase (``verbose``'s :func:`live_print`).
     """
     if chunk <= 1:
         while not bool(done(state)):
             state = step(state, ~done(state))
+            if on_phase is not None:
+                on_phase(state)
         return state
     for c in _phases(chunk):
         if bool(done(state)):
             return state
         for _ in range(c):
             state = step(state, ~done(state))
+        if on_phase is not None:
+            on_phase(state)

@@ -145,7 +145,7 @@ def _dist_panel_setup(op, n, dtype, orth_method, warn: bool = False,
 
     Where the JAX package falls back to GSPMD orthogonalization ('dgks',
     complex dtypes) the port raises NotImplementedError: that fallback needs
-    a mesh-aware ``ops/orthogonalize.py`` (ROADMAP.md, Queue A item 11), and
+    a mesh-aware ``ops/orthogonalize.py`` (ROADMAP.md, Queue A item 8), and
     orthogonalizing rank-local blocks as if they were whole vectors would be
     wrong.  ``warn=True`` (set once by ``gmres()``) warns where an EXPLICIT
     'mgs'/'cgs' is upgraded to distributed CGS2 (the solver's own default
@@ -164,7 +164,7 @@ def _dist_panel_setup(op, n, dtype, orth_method, warn: bool = False,
             f"gmres on a {D}-device mesh operator: {on_mesh_but}; the JAX "
             "package falls back to GSPMD orthogonalization (m scalar "
             "allreduces per Arnoldi step), which the port does not have yet "
-            "(ROADMAP.md, Queue A item 11)")
+            "(ROADMAP.md, Queue A item 8)")
     if warn and explicit and orth_method in ("mgs", "cgs"):
         warnings.warn(
             f"gmres on a {D}-device mesh operator: orth_method="

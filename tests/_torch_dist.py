@@ -152,6 +152,23 @@ def cg(c, a, mesh):
     return _solve(c, a, mesh, pits.cg)
 
 
+def pipecg(c, a, mesh):
+    """pipelined_cg, with the mesh's allreduces counted."""
+    calls = [0]
+    orig = mesh.all_reduce
+
+    def count(t):
+        calls[0] += 1
+        return orig(t)
+
+    mesh.all_reduce = count
+    try:
+        out = _solve(c, a, mesh, pits.pipelined_cg)
+    finally:
+        del mesh.all_reduce          # the class's method again
+    return {**out, "allreduces": np.array(calls[0])}
+
+
 def setup(c, a, mesh):
     """The sharded-panel dispatch for each (dtype, orth_method): "dist",
     "none", or "raise: <message>"."""
@@ -169,7 +186,7 @@ def setup(c, a, mesh):
 
 
 CASES = {"halo_ops": halo_ops, "interior": interior, "panel": panel,
-         "gmres": gmres, "cg": cg, "setup": setup}
+         "gmres": gmres, "cg": cg, "pipecg": pipecg, "setup": setup}
 
 
 MESHES = {"gloo": ("gloo", lambda r: "cpu"),

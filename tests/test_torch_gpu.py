@@ -126,8 +126,7 @@ def test_cuda_stencil_edges_match_plain(cuda, name, dtype, shift):
 def test_cuda_dia_edges_match_plain(cuda, dtype, n, offsets):
     """dia_spmv and dia_spmv_dot on offsets that are not multiples of 4 and
     reach past a run, n a multiple of 16 or not, 8 diagonals or more than 8;
-    u = x (the kernel reads no u) and
-    u != x; a diagonal view one element past a 16-byte boundary; the dot
+    u = x and u != x; a diagonal view one element past a 16-byte boundary; the dot
     twice on the same inputs gives the same bits."""
     rng = np.random.default_rng(n)
     vals = rng.integers(-9, 10, (len(offsets), n + 1)).astype(np.float32)
@@ -482,3 +481,39 @@ def test_cuda_ranks_match_one_card(cuda, tmp_path, backend):
     assert calls == 20 * (int(got["gmres/restarts"]) + 1)
     assert int(got["gmres/calls/panel_dots"]) == 2 * calls
     assert int(got["gmres/calls/panel_update"]) == 2 * calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["stencil", "dia_f32", "dia_bf16",
+                                  "dia_int8"])
+def test_cuda_grid_dot_is_repeatable_within_its_bound(cuda, case):
+    """The in-launch dot on the free grid (as many blocks as the SMs hold):
+    the same bits on two runs of the same inputs, and within the
+    rounding bound of its depth of the f64 dot (a thread's chain of L
+    products, two 5-level trees a block_sum, the last block's chain over the
+    partials: m additions, |error| <= 1.01 m 2^-24 sum |u_i y_i|)."""
+    St = pits.laplacian(67, 3, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    x = torch.randn(St.n, generator=g, device=cuda)
+    stream = cuda_stencil.raw_stream(x.device)
+    if case == "stencil":
+        op, R = St, cuda_stencil.STENCIL_RUN
+        grid = cuda_stencil._launch(St.n, St.center, St.terms, St.coeffs,
+                                    False, torch.float32, True, x.device,
+                                    stream).grid
+    else:
+        dtype = {"dia_f32": torch.float32, "dia_bf16": torch.bfloat16,
+                 "dia_int8": torch.int8}[case]
+        op = pits.compress_values(pfix.laplace_dia(67, 3, dtype=np.float32,
+                                                   device=cuda), dtype)
+        assert op.dtype == dtype
+        R = cuda_stencil.run_rows(dtype)
+        grid = cuda_spmv._grid(dtype, True, len(op.diags), St.n, x.device,
+                               stream)[0]
+    (y1, d1), (y2, d2) = op.mv_dot(x), op.mv_dot(x)
+    assert torch.equal(y1, y2) and torch.equal(d1, d2)
+    prods = x.double() * y1.double()
+    L = -(-(-(-St.n // R)) // (grid * 256)) * R
+    m = L + 10 + -(-grid // 256) + 10
+    bound = 1.01 * m * 2.0**-24 * float(prods.abs().sum())
+    assert abs(float(d1) - float(prods.sum())) <= bound

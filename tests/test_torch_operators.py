@@ -233,8 +233,12 @@ def test_preconditioners_match_jax(rng):
     assert isinstance(F, pits.FunctionPreconditioner)
     assert torch.equal(F(to_torch(r)), 3 * to_torch(r))
     assert pprec.as_preconditioner(D) is D
-    with pytest.raises(NotImplementedError, match="DensePreconditioner"):
-        pprec.as_preconditioner(torch.eye(3))
+    M = np.diag(d) + 0.1 * rng.random((8, 8))
+    P = pprec.as_preconditioner(to_torch(M), device=CPU)
+    assert isinstance(P, pits.DensePreconditioner)
+    _close(P.ldiv(to_torch(r)),
+           jits.as_preconditioner(jnp.asarray(M)).ldiv(jnp.asarray(r)),
+           np.float64)
 
 
 def test_operators_default_to_the_card():

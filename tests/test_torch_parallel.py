@@ -115,6 +115,11 @@ CG = {  # name: (operator, dtype, keywords)
     "dia_f64": ("laplace_dia(16,2)", F64, dict(reltol=1e-10, maxiter=600)),
 }
 
+PIPECG = {  # name: (operator, dtype, keywords), on D = 2 ranks
+    "stencil_f64": ("laplacian(16,2)", F64, dict(reltol=1e-9, maxiter=600)),
+    "stencil_f32": ("laplacian(16,2)", F32, dict(reltol=1e-5, maxiter=600)),
+}
+
 GATES = [("float64", "mgs"), ("float32", "cgs2"), ("float32", "cgs"),
          ("float64", "dgks"), ("complex128", "mgs")]
 
@@ -159,6 +164,12 @@ def _cases(D):
             A, spec, arrays = _operator(opname, dt)
             out.append(({"name": f"cg/{name}", "kind": "cg", "op": spec,
                          "kw": kw}, {**arrays, "b": np.ones(A.shape[0], dt)}))
+    if D == 2:
+        for name, (opname, dt, kw) in PIPECG.items():
+            A, spec, arrays = _operator(opname, dt)
+            out.append(({"name": f"pipecg/{name}", "kind": "pipecg",
+                         "op": spec, "kw": kw},
+                        {**arrays, "b": np.ones(A.shape[0], dt)}))
     if D in (2, 4):
         for name in STENCILS:
             for dt in (F64, F32):
@@ -406,6 +417,47 @@ def test_cg_dist_matches_jax(port, name):
     else:
         assert abs(int(got["iters"]) - h.iters) <= 2
         assert rel(got["x"], np.asarray(x)) <= 1e-4
+
+
+@pytest.mark.parametrize("name", list(PIPECG))
+def test_pipelined_cg_dist_matches_single_process(port, name):
+    """Pipelined CG on 2 ranks reduces its step's three dots in ONE
+    allreduce (one more for the first norm; masked steps of run_chunked
+    included), and matches the JAX package's and the port's single-process
+    pipelined CG: f64 equal steps, x within 1e-10 and the lagged residual
+    series as tests/test_torch_krylov.py holds it (1e-8 relative above
+    1e-6 |r0|, 1e-14 |r0| down to 1e-12 |r0|: each recurrence carries a
+    rounding of ~eps |r0|); f32 within 2 steps and 1e-4."""
+    from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+    import iterativesolvers_tpu_torch as pits
+    from _torch_port import port_stencil, to_numpy
+
+    opname, dtype, kw = PIPECG[name]
+    ranks = port(2)
+    got = _out(ranks, f"pipecg/{name}")
+    steps = chunked_steps(int(got["iters"]))
+    assert int(got["allreduces"]) == 1 + steps
+    for r in ranks[1:]:
+        assert int(r[f"pipecg/{name}/allreduces"]) == 1 + steps
+    St = jits.laplacian(16, 2, dtype=dtype)
+    b = np.ones(St.n, dtype)
+    xj, hj = jits.pipelined_cg(St, b, log=True, **kw)
+    xp, hp = pits.pipelined_cg(port_stencil(St), b, log=True, **kw)
+    assert bool(got["converged"]) and hj.isconverged and hp.isconverged
+    for x, h in ((np.asarray(xj), hj), (to_numpy(xp), hp)):
+        if dtype == F64:
+            assert int(got["iters"]) == h.iters
+            rj, r0 = np.asarray(h["resnorm"]), float(np.linalg.norm(b))
+            big, mid = rj > 1e-6 * r0, rj > 1e-12 * r0
+            np.testing.assert_allclose(got["resnorm"][big], rj[big],
+                                       rtol=1e-8)
+            np.testing.assert_allclose(got["resnorm"][mid], rj[mid], rtol=0,
+                                       atol=1e-14 * r0)
+            assert rel(got["x"], x) <= 1e-10
+        else:
+            assert abs(int(got["iters"]) - h.iters) <= 2
+            assert rel(got["x"], x) <= 1e-4
 
 
 def test_ranks_hold_the_same_replicated_state(port):

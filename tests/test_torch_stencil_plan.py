@@ -114,9 +114,6 @@ def test_constants_match_the_kernels():
     common = (_build.CSRC / "common.cuh").read_text()
     assert _const(common, "kVecBytes") == cuda_stencil.VEC_BYTES
     assert _const(common, "kThreads") == cuda_stencil._THREADS
-    assert _const(common, "kDotBlockCap") == cuda_stencil.DOT_BLOCK_CAP
-    assert (_const(common, "kDotRowsPerThread")
-            == cuda_stencil.DOT_ROWS_PER_THREAD)
     stencil = (_build.CSRC / "stencil.cuh").read_text()
     assert _const(stencil, "kMaxTerms") == cuda_stencil.MAX_TERMS
     assert _const(stencil, "kStencilRun") == cuda_stencil.STENCIL_RUN
@@ -358,12 +355,7 @@ def test_dia_run_replay_gives_the_plain_product(dtype, vec, n, offsets):
     np.testing.assert_array_equal(y, want.numpy())
 
 
-# ---- the dot's fixed order (csrc/common.cuh finish_dot) ---------------------
-
-
-def _fma32(a, b, c):
-    """fmaf emulated on f32 arrays (the same emulation on both sides)."""
-    return (a.astype(np.float64) * b + c).astype(np.float32)
+# ---- the in-launch dot (csrc/common.cuh finish_dot) -------------------------
 
 
 def _shfl_tree(v):
@@ -375,94 +367,70 @@ def _shfl_tree(v):
     return v[..., 0]
 
 
-def _two_pass_dot(u, y):
-    """The first design's dot: G blocks of 256 threads in a grid-stride
-    loop, block_sum, then reduce_partials with 1024 threads."""
+def _block_sum(v):
+    """block_sum over the last axis (256 threads): each warp's tree, then
+    the tree over the 8 warp sums (lanes 8..31 hold 0)."""
+    warps = _shfl_tree(v.reshape(v.shape[:-1] + (8, 32)))
+    pad = np.zeros(warps.shape[:-1] + (24,), np.float32)
+    return _shfl_tree(np.concatenate([warps, pad], axis=-1))
+
+
+def _grid_dot(u, y, grid, R):
+    """The kernels' dot on ``grid`` blocks of 256 threads, replayed: thread
+    P takes runs P, P + T, ... (T = 256 grid) of R rows and adds their
+    products by fmaf from 0 in that order; each block's block_sum is its
+    partial; the last block's thread t adds partials t, t + 256, ... and
+    block_sum gives the dot.  Returns the dot and how often each row was
+    added."""
     n = u.shape[0]
-    G = min(-(-n // 256), 2048)
-    S = 256 * G
-    local = np.zeros(S, np.float32)
-    for k in range(0, n, S):
-        m = min(S, n - k)
-        local[:m] = _fma32(u[k:k + m], y[k:k + m], local[:m])
-    warps = _shfl_tree(local.reshape(G, 8, 32))
-    partials = _shfl_tree(np.concatenate(
-        [warps, np.zeros((G, 24), np.float32)], axis=1))
-    s = np.zeros(1024, np.float32)
-    for i in range(0, G, 1024):
-        m = min(1024, G - i)
-        s[:m] = (s[:m] + partials[i:i + m]).astype(np.float32)
-    return _shfl_tree(_shfl_tree(s.reshape(32, 32)))
+    T = grid * 256
+    runs = -(-n // R)
+    local = np.zeros(T, np.float32)
+    seen = np.zeros(n, np.int64)
+    for first in range(0, runs, T):
+        P = np.arange(min(T, runs - first))
+        for e in range(R):
+            rows = (first + P) * R + e
+            ok = rows < n
+            p, r = P[ok], rows[ok]
+            # fmaf: the f32 product is exact in f64, one rounding after
+            local[p] = (u[r].astype(np.float64) * y[r] + local[p]).astype(
+                np.float32)
+            seen[r] += 1
+    partials = _block_sum(local.reshape(grid, 256))
+    t = np.zeros(256, np.float32)
+    for i in range(0, grid, 256):
+        m = min(256, grid - i)
+        t[:m] = (t[:m] + partials[i:i + m]).astype(np.float32)
+    return _block_sum(t), seen
 
 
-def _vwarp_tree(v, K=1):
-    """common.cuh's vwarp_tree on (warps, 32, R): R virtual lanes to a group
-    of K lanes; a lane past the warp's end reads itself."""
-    R = v.shape[-1]
-    v = v.copy()
-    for o in (16, 8, 4, 2, 1):
-        if o >= R:
-            d = K * (o // R)
-            partner = np.concatenate([v[:, d:], v[:, 32 - d:]], axis=1)
-            v = (v + partner).astype(np.float32)
-        else:
-            v[..., :o] = (v[..., :o] + v[..., o:2 * o]).astype(np.float32)
-    return v
-
-
-def _run_dot(u, y, R):
-    """The kernels' dot (common.cuh): K = R / 4 threads share a set of R
-    virtual threads, thread q of the group computing the runs k = j K + q
-    and every thread of the group adding the group's runs in k order
-    (dot_step), on a grid of ceil(G / 4) blocks; vwarp_tree, a block's R / K
-    virtual blocks from its warp sums, then the last block's final pass
-    (finish_dot)."""
-    n = u.shape[0]
-    K = R // cuda_stencil.DOT_ROWS_PER_THREAD
-    grid, G = cuda_stencil.dot_grid(n)
-    S = 256 * G
-    P = grid * 256
-    sets = np.zeros((P // K, R), np.float32)
-    for m in range(min(S // R, P // K)):
-        for j in range(0, n, S * K):
-            for qq in range(K):
-                r0 = m * R + j + qq * S
-                rows = r0 + np.arange(R)
-                ok = rows < n
-                sets[m, ok] = _fma32(u[rows[ok]], y[rows[ok]], sets[m, ok])
-    lanes = np.repeat(sets, K, axis=0)          # a group holds its set
-    v = _vwarp_tree(lanes.reshape(P // 32, 32, R), K).reshape(P, R)
-    ws = v[::32 * K // R, 0].reshape(grid, 32)
-    partials = []
-    for b in range(grid):
-        for q in range(R // K):
-            w = ws[b, 8 * q:8 * q + 8]
-            z = np.float32(0)
-            c = [((w[j] + z) + z) + ((w[j + 4] + z) + z) for j in range(4)]
-            if b * (R // K) + q < G:
-                partials.append(np.float32((c[0] + c[2]) + (c[1] + c[3])))
-    partials = np.array(partials, np.float32)
-    s = np.zeros(1024, np.float32)
-    for i in range(0, G, 1024):
-        m = min(1024, G - i)
-        s[:m] = (s[:m] + partials[i:i + m]).astype(np.float32)
-    v = _vwarp_tree(s.reshape(8, 32, 4)).reshape(256, 4)
-    return _shfl_tree(v[::8, 0][None, :])[0]
+def _dot_bound(n, grid, R, u, y):
+    """A bound on the rounding of any summation order with the kernels'
+    depth: a thread's chain of L products, the two 5-level trees of each
+    block_sum, the last block's chain over the partials: m additions in
+    all, |error| <= 1.01 m 2^-24 sum |u_i y_i| (Higham, recursive
+    summation)."""
+    L = -(-(-(-n // R)) // (grid * 256)) * R
+    m = L + 10 + -(-grid // 256) + 10
+    return 1.01 * m * 2.0**-24 * float(np.abs(u.astype(np.float64) * y).sum())
 
 
 @pytest.mark.parametrize("R", [4, 8, 16])
 @pytest.mark.parametrize("n", [1, 37, 1000, 70_001, 600_000])
-def test_dot_order_is_the_first_designs(R, n):
-    """The kernels' dot, replayed with runs of R rows (f32 DIA 4, stencil
-    and bf16 DIA 8, int8 DIA 16; R / 4 threads to a run), adds the same f32
-    values in the same order as the first design's two passes: the same
-    bits, for n below one grid, with a last block of fewer than 4 virtual
-    blocks, and past the 2048-block cap."""
+def test_grid_dot_covers_every_row_once_within_its_bound(R, n):
+    """The kernels' dot on a free grid (runs of R rows: f32 DIA 4, stencil
+    and bf16 DIA 8, int8 DIA 16), replayed on one block, on the H100's 132
+    SMs with one and three blocks each, and on more blocks than runs: every
+    row is added once, and the dot, like the plain version's (torch.sum),
+    lies within the rounding bound of its depth of the f64 dot."""
     rng = np.random.default_rng(n + R)
     u = rng.standard_normal(n).astype(np.float32)
     y = (rng.standard_normal(n) * 1e3).astype(np.float32)
-    want = _two_pass_dot(u, y)
-    got = _run_dot(u, y, R)
-    assert got.tobytes() == np.float32(want).tobytes()
-    assert abs(float(got) - float(np.dot(u.astype(np.float64), y))) <= (
-        1e-4 * float(np.abs(u.astype(np.float64) * y).sum()))
+    exact = float(np.dot(u.astype(np.float64), y))
+    for grid in (1, 132, 396, -(-n // R) + 3):
+        got, seen = _grid_dot(u, y, grid, R)
+        assert (seen == 1).all(), grid
+        assert abs(float(got) - exact) <= _dot_bound(n, grid, R, u, y), grid
+    plain = float(torch.sum(torch.from_numpy(u) * torch.from_numpy(y)))
+    assert abs(plain - exact) <= _dot_bound(n, 1, R, u, y)
