@@ -74,6 +74,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
     on the advection-diffusion stencil.  Each with its launches (one kernel a
     product), true residual, kernel-free witness, time a step and the
     card's busy share.
+14. The row-panel products and the block, least-squares, eigen and SVD
+    solvers: ``mv_rows`` of a (16, n) panel on the 216^3 and 101^3 stencils
+    and the 101^3 f32 and int8 DIA matrices (the kernel once a row, each row
+    the same bits as ``mv`` of it, against the plain batched version, both
+    timed); block CG with 8 right-hand sides on the 216^3 stencil; LOBPCG
+    (16 smallest) on the 101^3 DIA matrix, f32 and int8 diagonals; svdl (6
+    largest) on the 101^3 gradient (3,090,903 x 1,030,301, no kernel) and
+    the 216^3 stencil; LSQR and LSMR on the shifted 216^3 stencil and the
+    damped 101^3 gradient.  Each against its analytic values or an f64
+    solve and a kernel-free witness, with its launches, time a step, host
+    synchronisations and the card's busy share.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It imports no JAX and nothing of the JAX package.
@@ -1565,6 +1576,425 @@ def krylov_phase(torch, its, St, Ad, x64, counters):
     return out
 
 
+# ---- phase 14: mv_rows, block CG, LOBPCG, svdl, LSQR and LSMR ---------------
+# The JAX package's published eigen/SVD workloads at full size
+# (benchmarks/tpu_eigen_bench.py:37-57, benchmarks/tpu_svdl_1m_gradient.py:
+# 38-50) and the 216^3 main-path operators.
+ROWS = 16                 # rows of an mv_rows panel; LOBPCG's block
+EIG_SIDE = 101            # 1,030,301 rows
+BLOCK_K = 8               # block CG's right-hand sides
+LOBPCG_TOL, LOBPCG_MAXITER = 1e-4, 150
+# lambda_0 against 6 (1 - cos(pi / 102)) (the JAX package's own run on its
+# TPU: 7.0e-5, BENCH_NOTES.md:26-32); f32 against int8 diagonals (the same
+# products, bit for bit, phase 3); the kernel-free witness
+LAM_REL, LAM_AGREE, WITNESS_LAM_REL = 1e-3, 1e-5, 1e-4
+SVDL_NSV, SVDL_TOL, SVDL_MAXITER = 6, 1e-3, 100
+# sigma_max against the analytic value (the JAX package's own run on the
+# gradient: 4.9e-6, BENCH_NOTES.md:629-637); the kernel-free witness
+SIGMA_REL, WITNESS_SIGMA_REL = 1e-4, 1e-4
+LSQ_TOL, LSQ_MAXITER, GRAD_LSQ_MAXITER = 1e-5, 300, 100
+# a least-squares run's true residual and |x - x64| / |x64| against its
+# witness's (the kernel-free solve on the stencil; on the gradient, which
+# has no kernel, the f64 solve with the f32 run's stopping rule)
+LSQ_RES_FACTOR, LSQ_X_FACTOR = 2.0, 4.0
+# LOBPCG's and svdl's traced solves stop after this many iterations (whole
+# phases of their loops); their busy share is the trace's device time an
+# iteration over the timed solve's wall time an iteration
+TRACE_ITERS = 24
+
+
+def lobpcg_products(iters):
+    """mv_rows calls of one lobpcg batch of ``iters`` iterations: one at the
+    start, one in the first iteration, then one a step of the main loop in
+    phases of 8 (masked steps included)."""
+    main = iters - 1
+    return 1 + min(iters, 1) + (-(-main // 8) * 8 if main > 0 else 0)
+
+
+def svdl_products(iters, k, j):
+    """mv (and rmv) calls of one svdl run of ``iters`` macro-iterations: k
+    to build, k - j a macro-iteration in phases of 4 (masked ones
+    included)."""
+    return k + (k - j) * -(-iters // 4) * 4
+
+
+def syncs_and_trace(torch, fn, name):
+    """Run ``fn`` once under ``torch.profiler`` with CUDA's sync debug mode
+    on: (result, device busy ms by kernel, host synchronisations counted by
+    torch's sync warnings)."""
+    import warnings
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with warnings.catch_warnings(record=True) as caught, \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return out, device_ms(torch, prof, name), syncs
+
+
+def timed_run(torch, fn):
+    """(result, ms) of one call of ``fn`` between CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def block_phase(torch, its, St, A64, x64, counters, bound):
+    """Phase 14.  ``St`` the 216^3 stencil, ``A64`` its f64 DIA matrix and
+    ``x64`` its f64 CG solution of b = 1 (phase 4); ``counters`` the
+    kernels' wrappers.  Returns the runs' rows by name, the mv_rows A/B and
+    the launches, each of these two by kernel key: the counter's name, and
+    for the DIA kernel the diagonals' dtype (``dia_spmv[int8]``)."""
+    import numpy as np
+
+    from iterativesolvers_tpu_torch.ops.cuda_spmv import (dia_spmv,
+                                                          dia_spmv_plain)
+    from iterativesolvers_tpu_torch.ops.cuda_stencil import (
+        stencil_apply, stencil_apply_plain)
+    from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+    from iterativesolvers_tpu_torch.utils.fixtures import laplace_dia
+
+    def reset():
+        for f in counters:
+            f.launches = 0
+
+    def counts():
+        return {f.__name__: f.launches for f in counters}
+
+    def rel(x, ref):
+        return float(torch.linalg.vector_norm(x.double() - ref.double())
+                     / torch.linalg.vector_norm(ref.double()))
+
+    def plain(op):
+        """``op`` with its kernel routed off: the kernel's plain version."""
+        if isinstance(op, its.StencilOperator):
+            a = (op.n, op.center, op.terms, op.coeffs)
+            return its.FunctionOperator(
+                lambda v: stencil_apply_plain(*a, v), op.shape, op.dtype,
+                rmatvec=lambda v: stencil_apply_plain(*a, v, conj=True))
+        return its.FunctionOperator(
+            lambda v: dia_spmv_plain(op.diags, op.offsets, v), op.shape,
+            torch.float32)
+
+    def plain_rows(op, X):
+        """The plain batched version: the plain product of the columns X.T
+        (elementwise, so each row the same bits as the row's product)."""
+        if isinstance(op, its.StencilOperator):
+            return stencil_apply_plain(op.n, op.center, op.terms, op.coeffs,
+                                       X.T).T
+        return dia_spmv_plain(op.diags, op.offsets, X.T).T
+
+    def row_kernel(op):
+        """The kernel of one row, x into out."""
+        if isinstance(op, its.StencilOperator):
+            return lambda x, y: stencil_apply(op.n, op.center, op.terms,
+                                              op.coeffs, x, out=y)
+        return lambda x, y: dia_spmv(op.diags, op.offsets, x, out=y)
+
+    def padded_rows(X):
+        """X's values in a panel whose rows start on 16-byte boundaries (a
+        view of a buffer with rows padded to whole 16-byte vectors)."""
+        k, n = X.shape
+        out = X.new_empty((k, -(-n // 4) * 4))[:, :n]
+        out.copy_(X)
+        return out
+
+    runs, bad, launches = {}, [], {}
+    t_start = time.perf_counter()
+
+    def record(name, row, ok, key=None):
+        row["phase_s"] = time.perf_counter() - t_start
+        print(f"  {name}: " + ", ".join(
+            f"{k} {v:.4e}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items() if not isinstance(v, dict)), flush=True)
+        runs[name] = row
+        if key is not None:
+            launches.setdefault(key, {})[name] = row["launches"]
+        if not ok:
+            bad.append(name)
+
+    A101 = laplace_dia(EIG_SIDE, 3, dtype="float32")
+    dia101 = {"f32": A101, "int8": its.compress_values(A101, torch.int8)}
+    St101 = its.laplacian(EIG_SIDE, 3)
+    print(f"phase 14: mv_rows at ({ROWS}, n), block CG, LOBPCG, svdl, LSQR "
+          "and LSMR:")
+
+    # -- mv_rows: parity, launches and the kernel loop against the plain
+    #    batched version, and against the same loop on rows that start on
+    #    16-byte boundaries (at 101^3, n is odd: mv_rows's rows of a
+    #    contiguous panel take the kernels' per-row loads)
+    ab = {}
+    g = torch.Generator(device="cuda").manual_seed(14)
+    for name, op, kernel, key in (
+            (f"stencil {SIDE}^3", St, "stencil_apply", "stencil_apply"),
+            (f"stencil {EIG_SIDE}^3", St101, "stencil_apply",
+             "stencil_apply"),
+            (f"dia_f32 {EIG_SIDE}^3", dia101["f32"], "dia_spmv",
+             "dia_spmv[f32]"),
+            (f"dia_int8 {EIG_SIDE}^3", dia101["int8"], "dia_spmv",
+             "dia_spmv[int8]")):
+        n = op.shape[0]
+        X = torch.randn(ROWS, n, generator=g, device="cuda")
+        reset()
+        Y = op.mv_rows(X)
+        torch.cuda.synchronize()
+        c = counts()
+        same = all(torch.equal(Y[i], op.mv(X[i].clone()))
+                   for i in range(ROWS))
+        err = check(f"mv_rows {name}", Y, plain_rows(op, X), TOL_Y_F32)
+        t = kernel_timing(torch, lambda: op.mv_rows(X), reps=10)
+        t.pop("samples")
+        plain_ms, _ = time_ms(torch, lambda: plain_rows(op, X), reps=3,
+                              batches=3)
+        Xa, Ya, run = padded_rows(X), padded_rows(X), row_kernel(op)
+
+        def aligned_loop():
+            for i in range(ROWS):
+                run(Xa[i], Ya[i])
+
+        ta = kernel_timing(torch, aligned_loop, reps=10)
+        diag = sum(d.numel() * d.element_size() for d in getattr(
+            op, "diags", ()))
+        b_ms, b_by = bound(diag + 8 * ROWS * n, 2 * ROWS * 7 * n)
+        row = {"launches": c[kernel], "expected_launches": ROWS,
+               "rows_same_bits_as_mv": same, "max_abs_err": err, **t,
+               "plain_batched_ms": plain_ms, "aligned_rows_ms": ta["ms"],
+               "aligned_rows_device_ms": ta["device_ms"], "bound_ms": b_ms,
+               "bound_by": b_by, "loop_over_plain": t["ms"] / plain_ms}
+        ab.setdefault(key, {})[name] = row
+        record(f"mv_rows {name}", row,
+               same and c[kernel] == ROWS and sum(c.values()) == ROWS, key)
+        del X, Y, Xa, Ya
+
+    # -- block CG on the 216^3 stencil: k = 8, column 0 = 1, columns 1-7
+    #    normal from seed 14
+    n = St.n
+    B = torch.randn(n, BLOCK_K, generator=g, device="cuda")
+    B[:, 0] = 1.0
+    reset()
+    (X, h), wall = timed_run(torch, lambda: its.block_cg(
+        St, B, reltol=RELTOL, log=True))
+    c = counts()
+    ran = chunked_steps(h.iters)
+    want = BLOCK_K * (1 + ran)
+    tol_col = RELTOL * torch.linalg.vector_norm(B, dim=0).cpu().numpy()
+    col_steps = [int(np.argmax(h["resnorm"][:, j] <= tol_col[j])) + 1
+                 for j in range(BLOCK_K)]
+    cg_steps, xerr = [], []
+    St64 = its.StencilOperator(n, St.center, St.terms, St.coeffs,
+                               dtype=torch.float64)
+    for j in (0, 1):
+        _, hj = its.cg(St, B[:, j], reltol=RELTOL, log=True)
+        ref = x64 if j == 0 else its.cg(St64, B[:, j].double(),
+                                        reltol=RELTOL)
+        cg_steps.append(hj.iters)
+        xerr.append(rel(X[:, j], ref))
+    (_, _), by_kernel, syncs = syncs_and_trace(
+        torch, lambda: its.block_cg(St, B, reltol=RELTOL, log=True),
+        "block_cg")
+    busy = sum(by_kernel.values())
+    row = {"iters": h.iters, "converged": h.isconverged,
+           "column_steps": col_steps, "cg_steps_columns_0_1": cg_steps,
+           "x_rel_diff_f64_columns_0_1": xerr, "launches": c["stencil_apply"],
+           "expected_launches": want, "steps_run": ran, "wall_ms": wall,
+           "us_per_step": wall / ran * 1e3, "busy_share": busy / wall,
+           "host_syncs": syncs}
+    ok = (h.isconverged and bool(h["converged_per_rhs"].all())
+          and c["stencil_apply"] == want and sum(c.values()) == want
+          and all(abs(col_steps[j] - cg_steps[j]) <= CG_STEP_SPREAD
+                  for j in (0, 1))
+          and max(xerr) <= X_F64_REL and bool(torch.isfinite(X).all()))
+    record(f"block_cg stencil {SIDE}^3 k={BLOCK_K}", row, ok,
+           "stencil_apply")
+    del X, B
+
+    # -- LOBPCG on the 101^3 DIA matrix, f32 and int8 diagonals
+    N = A101.shape[0]
+    X0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (N, ROWS)).astype(np.float32)).cuda()
+    lam_true = 3 * 2 * (1 - np.cos(np.pi / (EIG_SIDE + 1)))
+    lams = {}
+    for tag, op in dia101.items():
+        reset()
+        r, wall = timed_run(torch, lambda: its.lobpcg(
+            op, X0, tol=LOBPCG_TOL, maxiter=LOBPCG_MAXITER))
+        c = counts()
+        want = ROWS * lobpcg_products(r.iterations)
+        lam0 = float(r.lam[0])
+        lams[tag] = r.lam.double()
+        rt, by_kernel, syncs = syncs_and_trace(
+            torch, lambda: its.lobpcg(op, X0, tol=LOBPCG_TOL,
+                                      maxiter=TRACE_ITERS),
+            f"lobpcg {tag}")
+        busy = sum(by_kernel.values()) / rt.iterations * r.iterations
+        syncs /= rt.iterations
+        row = {"iters": r.iterations, "converged": r.converged,
+               "lam0": lam0, "lam0_analytic": lam_true,
+               "lam0_rel_err": abs(lam0 - lam_true) / lam_true,
+               "max_residual_norm": float(r.residual_norms.max()),
+               "launches": c["dia_spmv"], "expected_launches": want,
+               "wall_ms": wall, "us_per_step": wall / r.iterations * 1e3,
+               "busy_share": busy / wall, "host_syncs_per_iter": syncs}
+        ok = (abs(lam0 - lam_true) <= LAM_REL * lam_true
+              and c["dia_spmv"] == want and sum(c.values()) == want
+              and bool(torch.isfinite(r.lam).all()))
+        if tag == "f32":
+            reset()
+            w = its.lobpcg(plain(op), X0, tol=LOBPCG_TOL,
+                           maxiter=LOBPCG_MAXITER)
+            dw = float(((w.lam.double() - lams[tag]).abs()
+                        / lams[tag].abs()).max())
+            row.update(witness_iters=w.iterations, witness_lam_rel_diff=dw)
+            ok = ok and dw <= WITNESS_LAM_REL and not any(counts().values())
+        record(f"lobpcg dia_{tag} {EIG_SIDE}^3 nev={ROWS}", row, ok,
+               f"dia_spmv[{tag}]")
+    agree = float(((lams["f32"] - lams["int8"]).abs()
+                   / lams["f32"].abs()).max())
+    print(f"  lobpcg f32 against int8 diagonals: max relative difference "
+          f"{agree:.3e} (limit {LAM_AGREE})")
+    runs["lobpcg f32 vs int8"] = {"lam_rel_diff": agree}
+    if not agree <= LAM_AGREE:
+        bad.append("lobpcg f32 vs int8")
+    del X0
+
+    # -- svdl: the 101^3 gradient (no kernel) and the 216^3 stencil
+    G = its.GradientOperator((EIG_SIDE,) * 3)
+    sig_grad = float(np.sqrt(3 * 4 * np.sin((EIG_SIDE - 1) * np.pi
+                                            / (2 * EIG_SIDE)) ** 2))
+    sig_st = 6 * (1 - np.cos(SIDE * np.pi / (SIDE + 1)))
+    k, j = 2 * SVDL_NSV, SVDL_NSV
+    for name, op, sig_true, kernel in (
+            (f"svdl gradient {EIG_SIDE}^3 ({3 * N} x {N})", G, sig_grad,
+             None),
+            (f"svdl stencil {SIDE}^3", St, sig_st, "stencil_apply")):
+        def solve(o, maxiter=SVDL_MAXITER):
+            return its.svdl(o, nsv=SVDL_NSV, tol=SVDL_TOL, maxiter=maxiter,
+                            log=True,
+                            key=torch.Generator(device="cuda").manual_seed(0))
+        reset()
+        (vals, _, h), wall = timed_run(torch, lambda: solve(op))
+        c = counts()
+        want = 2 * svdl_products(h.iters, k, j) if kernel else 0
+        smax = float(vals[0])
+        (_, _, ht), by_kernel, syncs = syncs_and_trace(
+            torch, lambda: solve(op, TRACE_ITERS), name)
+        busy = sum(by_kernel.values()) / ht.iters * h.iters
+        syncs /= ht.iters
+        row = {"iters": h.iters, "converged": h.isconverged,
+               "sigma_max": smax, "sigma_max_analytic": sig_true,
+               "sigma_max_rel_err": abs(smax - sig_true) / sig_true,
+               "values": [float(v) for v in vals],
+               "launches": c.get(kernel, 0) if kernel else 0,
+               "expected_launches": want, "wall_ms": wall,
+               "us_per_step": wall / h.iters * 1e3, "busy_share": busy / wall,
+               "host_syncs_per_iter": syncs}
+        ok = (abs(smax - sig_true) <= SIGMA_REL * sig_true
+              and sum(c.values()) == want
+              and (kernel is None or c[kernel] == want)
+              and bool(torch.isfinite(vals).all()))
+        if kernel:
+            reset()
+            wv, _, wh = solve(plain(op))
+            dw = float((wv.double() - vals.double()).abs().max() / smax)
+            row.update(witness_iters=wh.iters, witness_rel_diff=dw)
+            ok = ok and dw <= WITNESS_SIGMA_REL and not any(counts().values())
+        record(name, row, ok, kernel)
+
+    # -- LSQR and LSMR: the shifted 216^3 stencil (center 7), b = 1; the
+    #    101^3 gradient, b = G x_true, damped
+    Sh = its.StencilOperator(n, 7.0, St.terms, St.coeffs)
+    Sh64 = its.StencilOperator(n, 7.0, St.terms, St.coeffs,
+                               dtype=torch.float64)
+    b1 = torch.ones(n, device="cuda")
+    x_sh64 = its.cg(Sh64, b1.double(), reltol=1e-12)
+    xt = torch.randn(N, generator=g, device="cuda")
+    xt -= xt.mean()
+    bg = G.mv(xt)
+    G64 = its.GradientOperator((EIG_SIDE,) * 3, dtype=torch.float64)
+    kw64 = dict(atol=1e-14, btol=1e-14, maxiter=1000)
+    x_g64 = {"lsqr": its.lsqr(G64, bg.double(), damp=1.0, **kw64),
+             "lsmr": its.lsmr(G64, bg.double(), lam=1.0, **kw64)}
+
+    def sh_res(x):
+        r = b1.double() - Sh64.mv(x.double())
+        return float(torch.linalg.vector_norm(r) / n**0.5)
+
+    def grad_res(x):
+        # the damped normal equations' residual, relative to |G^T b|
+        x = x.double()
+        r = G64.rmv(bg.double() - G64.mv(x)) - x
+        return float(torch.linalg.vector_norm(r)
+                     / torch.linalg.vector_norm(G64.rmv(bg.double())))
+
+    for solver in ("lsqr", "lsmr"):
+        damp = "damp" if solver == "lsqr" else "lam"
+        fn = getattr(its, solver)
+        for name, op, rhs, kw, res, x_ref, witness, kernel in (
+                (f"{solver} shifted stencil {SIDE}^3", Sh, b1,
+                 dict(atol=LSQ_TOL, btol=LSQ_TOL, maxiter=LSQ_MAXITER),
+                 sh_res, x_sh64, lambda kw: fn(plain(Sh), b1, log=True, **kw),
+                 "stencil_apply"),
+                (f"{solver} gradient {EIG_SIDE}^3 damped", G, bg,
+                 {damp: 1.0, "maxiter": GRAD_LSQ_MAXITER}, grad_res,
+                 x_g64[solver], None, None)):
+            reset()
+            (x, h), wall = timed_run(torch, lambda: fn(op, rhs, log=True,
+                                                         **kw))
+            c = counts()
+            ran = chunked_steps(h.iters)
+            want = 2 * (1 + ran) if kernel else 0
+            if witness is not None:
+                xw, hw = witness(kw)
+                if counts() != c:
+                    bad.append(f"{name}: the witness launched a kernel")
+            else:
+                # no kernel to route off: the f64 solve with this run's
+                # stopping rule
+                kw64w = dict(kw)
+                if solver == "lsqr":
+                    kw64w.update(atol=h["atol"], btol=h["btol"])
+                xw, hw = fn(G64, bg.double(), log=True, **kw64w)
+            (_, _), by_kernel, syncs = syncs_and_trace(
+                torch, lambda: fn(op, rhs, log=True, **kw), name)
+            busy = sum(by_kernel.values())
+            r_run, r_w = res(x), res(xw)
+            d_run, d_w = rel(x, x_ref), rel(xw, x_ref)
+            row = {"iters": h.iters, "istop": h["istop"],
+                   "converged": h.isconverged, "true_residual": r_run,
+                   "witness_true_residual": r_w, "x_rel_diff_f64": d_run,
+                   "witness_x_rel_diff_f64": d_w,
+                   "witness_iters": hw.iters,
+                   "limits": {"true_residual": LSQ_RES_FACTOR * r_w,
+                              "x_rel_diff": LSQ_X_FACTOR * d_w + 1e-6},
+                   "launches": c.get(kernel, 0) if kernel else 0,
+                   "expected_launches": want, "wall_ms": wall,
+                   "us_per_step": wall / max(ran, 1) * 1e3,
+                   "busy_share": busy / wall, "host_syncs": syncs}
+            ok = (h["istop"] in (1, 2) if kernel else h.isconverged) \
+                and r_run <= LSQ_RES_FACTOR * r_w + 1e-12 \
+                and d_run <= LSQ_X_FACTOR * d_w + 1e-6 \
+                and sum(c.values()) == want \
+                and (kernel is None or c[kernel] == want) \
+                and bool(torch.isfinite(x).all())
+            record(name, row, ok, kernel)
+    print(json.dumps({"phase14": runs}))
+    if bad:
+        raise AssertionError(f"phase 14 runs off their limits: {bad}")
+    return runs, ab, launches
+
+
 def panel_ortho_entries(ptimes, perr, r0):
     """The kernels-line entries of the two sweeps: f32 panel (the main
     path's), the bf16 panel beside it."""
@@ -2030,6 +2460,28 @@ def main():
             k["krylov_launches"] = {name: r["launches"]
                                     for name, r in krylov.items()
                                     if ("DIA" in name) == dia}
+
+    # ---- 14. mv_rows, block CG, LOBPCG, svdl, LSQR and LSMR ----------------
+    t0 = time.perf_counter()
+    _, rows_ab, p14 = block_phase(torch, its, St, A64, x64, counters, bound)
+    print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+    # phase 14's launches by run and the mv_rows A/B, joined to the kernels
+    # entries by exact key; an entry or a key without its partner raises
+    p14_keys = {"stencil_apply[no dot]": "stencil_apply",
+                "dia_spmv[f32 diagonals]": "dia_spmv[f32]",
+                "dia_spmv[int8 diagonals]": "dia_spmv[int8]"}
+    names = {k["name"] for k in kernels}
+    if (not set(p14_keys) <= names
+            or set(p14) != set(p14_keys.values())
+            or set(rows_ab) != set(p14_keys.values())):
+        raise AssertionError(
+            f"phase 14's records {sorted(p14)} / {sorted(rows_ab)} do not "
+            f"match the kernels entries {p14_keys}")
+    for k in kernels:
+        if k["name"] in p14_keys:
+            key = p14_keys[k["name"]]
+            k["phase14_launches"] = p14[key]
+            k["mv_rows"] = rows_ab[key]
 
     for k in kernels:
         if "bytes" in k:

@@ -13,9 +13,13 @@ on the stencil and DIA operators, and the Givens, Hessenberg and
 orthogonalization ops GMRES uses; MINRES, QMR, BiCGStab(l), IDR(s),
 Chebyshev (with ``gershgorin_bounds`` / ``power_bound``), pipelined CG and
 the power method (``powm``, ``invpowm``); the identity, diagonal, dense and
-function preconditioners; and the row-sharded halo operators and GMRES's
+function preconditioners; the row-sharded halo operators and GMRES's
 sharded-panel CGS2 route over ``torch.distributed``
-(``iterativesolvers_tpu_torch.parallel``, one process per rank).
+(``iterativesolvers_tpu_torch.parallel``, one process per rank), with
+GMRES's mesh-reduced orthogonalization where that route does not apply;
+the row-panel products ``mv_rows`` (the stencil and DIA kernels once per
+row) and block CG, LSQR, LSMR, LOBPCG and svdl on them, with the matrix-free
+``GradientOperator``.
 """
 
 from .operators.linear_operator import (
@@ -34,6 +38,7 @@ from .operators.preconditioners import (
     as_preconditioner,
 )
 from .operators.stencil import (
+    GradientOperator,
     StencilOperator,
     advection_diffusion_stencil,
     laplacian,
@@ -44,14 +49,19 @@ from .operators.sparse import (
     values_representable,
 )
 from .solvers.bicgstabl import bicgstabl, bicgstabl_iterator
+from .solvers.block_cg import block_cg, block_cg_iterator
 from .solvers.cg import cg, cg_iterator
 from .solvers.chebyshev import chebyshev, chebyshev_iterator
 from .solvers.gmres import gmres, gmres_iterator
 from .solvers.idrs import idrs, idrs_iterator
 from .solvers.minres import minres, minres_iterator
 from .solvers.pipelined import pipelined_cg
+from .solvers.lobpcg import LOBPCGResults, lobpcg, lobpcg_iterator
+from .solvers.lsmr import lsmr
+from .solvers.lsqr import lsqr
 from .solvers.qmr import qmr, qmr_iterator
 from .solvers.simple import invpowm, powm, powm_iterator
+from .solvers.svdl import svdl, svdl_iterator
 from .ops.givens import givens
 from .ops.hessenberg import hessenberg_lstsq
 from .ops.orthogonalize import ORTH_METHODS, orthogonalize_and_normalize

@@ -21,6 +21,7 @@ __all__ = [
     "MatrixOperator",
     "FunctionOperator",
     "AdjointOperator",
+    "ScaledIdentityPlusOperator",
     "as_operator",
 ]
 
@@ -55,6 +56,14 @@ class LinearOperator:
         single pass over device memory."""
         y = self.mv(x)
         return y, torch.sum(x.conj() * y)
+
+    def mv_rows(self, Xr):
+        """Row-panel product: ``Xr`` is (k, n) with VECTORS AS ROWS; returns
+        the (k, m) row panel of ``A @ x`` per row.  Block solvers (LOBPCG,
+        block CG) keep panels in this layout.  The default transposes
+        through ``mv`` of the (n, k) columns; concrete formats override it
+        with a product that keeps the rows."""
+        return self.mv(Xr.T).T
 
     # Conveniences mirroring the Julia surface.
     def __matmul__(self, x):
@@ -99,6 +108,10 @@ class MatrixOperator(LinearOperator):
     def rmv(self, x):
         return self.mat.conj().T @ x
 
+    def mv_rows(self, Xr):
+        # (A X)^T = X^T A^T: one GEMM, the minor dim stays n
+        return Xr @ self.mat.T
+
     def to_dense(self):
         return self.mat
 
@@ -139,6 +152,12 @@ class FunctionOperator(LinearOperator):
             return super().rmv(x)
         return self._rmatvec(*self.params, x) if self.params else self._rmatvec(x)
 
+    def mv_rows(self, Xr):
+        # a user matvec typically takes a single (n,) vector only (e.g. it
+        # reshapes to a grid): apply it row by row, as the JAX package
+        # vmaps it
+        return torch.stack([self.mv(r) for r in Xr])
+
 
 class AdjointOperator(LinearOperator):
     def __init__(self, inner: LinearOperator):
@@ -170,6 +189,41 @@ class AdjointOperator(LinearOperator):
     @property
     def H(self):
         return self.inner
+
+
+class ScaledIdentityPlusOperator(LinearOperator):
+    """(A + sigma*I) — used for shifts (e.g. inverse iteration helpers)."""
+
+    def __init__(self, inner: LinearOperator, sigma):
+        self.inner = inner
+        self.sigma = sigma
+
+    @property
+    def shape(self):
+        return self.inner.shape
+
+    @property
+    def dtype(self):
+        return self.inner.dtype
+
+    @property
+    def device(self):
+        return self.inner.device
+
+    @property
+    def mesh(self):
+        return self.inner.mesh
+
+    def mv(self, x):
+        return self.inner.mv(x) + self.sigma * x
+
+    def rmv(self, x):
+        s = self.sigma
+        s = s.conj() if isinstance(s, torch.Tensor) else s.conjugate()
+        return self.inner.rmv(x) + s * x
+
+    def mv_rows(self, Xr):
+        return self.inner.mv_rows(Xr) + self.sigma * Xr
 
 
 def as_operator(A, b=None, device="cuda") -> LinearOperator:

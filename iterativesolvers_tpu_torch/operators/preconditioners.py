@@ -30,6 +30,13 @@ class Preconditioner:
     def ldiv(self, x):
         raise NotImplementedError
 
+    def ldiv_rows(self, Xr):
+        """Apply to a (k, n) ROW panel (vectors as rows, the block solvers'
+        layout).  Default: the single-vector apply row by row (the JAX
+        package vmaps it); preconditioners with a native block form
+        override it."""
+        return torch.stack([self.ldiv(r) for r in Xr])
+
     def __call__(self, x):
         return self.ldiv(x)
 
@@ -37,6 +44,9 @@ class Preconditioner:
 class IdentityPreconditioner(Preconditioner):
     def ldiv(self, x):
         return x
+
+    def ldiv_rows(self, Xr):
+        return Xr
 
 
 class DiagonalPreconditioner(Preconditioner):
@@ -47,6 +57,9 @@ class DiagonalPreconditioner(Preconditioner):
 
     def ldiv(self, x):
         return x / self.diag
+
+    def ldiv_rows(self, Xr):
+        return Xr / self.diag
 
 
 class DensePreconditioner(Preconditioner):
@@ -68,6 +81,9 @@ class DensePreconditioner(Preconditioner):
         out = torch.linalg.lu_solve(LU.to(dt), piv,
                                     b[:, None] if b.ndim == 1 else b)
         return out[:, 0] if x.ndim == 1 else out
+
+    def ldiv_rows(self, Xr):
+        return self.ldiv(Xr.T).T
 
 
 class FunctionPreconditioner(Preconditioner):

@@ -12,7 +12,8 @@ from typing import Tuple
 
 import torch
 
-from ..ops.cuda_spmv import DIAG_DTYPES, dia_spmv, dia_spmv_dot, dia_spmv_plain
+from ..ops.cuda_spmv import (DIAG_DTYPES, dia_spmv, dia_spmv_dot,
+                             dia_spmv_plain, dia_spmv_rows)
 from ..utils.dtypes import as_dtype
 from .linear_operator import LinearOperator
 
@@ -27,7 +28,8 @@ class DIAMatrix(LinearOperator):
     ``mv`` / ``mv_dot`` send a 1-D real f32 x of a square matrix with f32,
     bf16 or int8 diagonals to the DIA kernel (``ops/cuda_spmv.py``), and
     everything else to the plain shifted-slice version, which promotes each
-    product to ``promote(dtype, x.dtype)``."""
+    product to ``promote(dtype, x.dtype)``.  ``mv_rows`` takes a (k, n)
+    panel of such rows to the kernel once per row (``dia_spmv_rows``)."""
 
     def __init__(self, data, offsets: Tuple[int, ...], shape, device="cuda"):
         self.device = torch.device(device)
@@ -61,10 +63,10 @@ class DIAMatrix(LinearOperator):
         return DIAMatrix(tuple(d.to(dt) for d in self.diags), self.offsets,
                          self._shape, device=self.device)
 
-    def _use_kernel(self, x) -> bool:
+    def _use_kernel(self, x, ndim=1) -> bool:
         # past the kernel's limits the wrapper raises on CUDA
         n, m = self._shape
-        return (x.ndim == 1 and x.dtype == torch.float32 and n == m
+        return (x.ndim == ndim and x.dtype == torch.float32 and n == m
                 and self.dtype in DIAG_DTYPES)
 
     def mv(self, x):
@@ -76,6 +78,11 @@ class DIAMatrix(LinearOperator):
         if self._use_kernel(x):
             return dia_spmv_dot(self.diags, self.offsets, x, x)
         return super().mv_dot(x)
+
+    def mv_rows(self, Xr):
+        if self._use_kernel(Xr, ndim=2):
+            return dia_spmv_rows(self.diags, self.offsets, Xr)
+        return super().mv_rows(Xr)
 
     def rmv(self, x):
         n, m = self._shape

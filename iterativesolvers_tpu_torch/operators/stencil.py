@@ -9,7 +9,8 @@ multiplies.
 
 ``laplacian(side, dims)`` builds the reference fixture operator
 (test/laplace_matrix.jl:1-13) in this form; equality with ``laplace_dia`` is
-tested element-wise.
+tested element-wise.  ``GradientOperator`` is the rectangular forward
+difference of a grid, also with no stored matrix data.
 """
 
 from __future__ import annotations
@@ -19,11 +20,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..ops.cuda_stencil import stencil_apply, stencil_sum
+from ..ops.cuda_stencil import stencil_apply, stencil_apply_rows, stencil_sum
 from ..utils.dtypes import as_dtype
 from .linear_operator import LinearOperator
 
-__all__ = ["StencilOperator", "laplacian", "advection_diffusion_stencil"]
+__all__ = ["StencilOperator", "GradientOperator", "laplacian",
+           "advection_diffusion_stencil"]
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -105,6 +107,18 @@ class StencilOperator(LinearOperator):
             return self._kernel(x, conj=False, with_dot=True)
         return super().mv_dot(x)
 
+    def mv_rows(self, Xr):
+        """The product of each row of the (k, n) panel ``Xr``: where ``mv``
+        takes the kernel (real f32 / bf16), the kernel once per row on a
+        CUDA tensor and its plain version of the columns ``Xr.T`` on a CPU
+        tensor (``stencil_apply_rows``); else the plain sum of ``Xr.T``.
+        Each row is the same bits as ``mv`` of that row.  (The JAX package vmaps
+        its XLA path here; the port keeps the kernel, PERF.md.)"""
+        if Xr.dtype in _KERNEL_DTYPES and not self.dtype.is_complex:
+            return stencil_apply_rows(self.n, self.center, self.terms,
+                                      self.coeffs, Xr)
+        return super().mv_rows(Xr)
+
     def to_dia(self):
         """Materialize as DIAMatrix (for tests / interop) on this device."""
         from .sparse import DIAMatrix
@@ -125,6 +139,87 @@ class StencilOperator(LinearOperator):
         return DIAMatrix([data[k] for k in order],
                          tuple(offsets[k] for k in order), (n, n),
                          device=self.device)
+
+
+class GradientOperator(LinearOperator):
+    """Matrix-free RECTANGULAR discrete-gradient operator of a regular grid:
+    ``G : R^n -> R^{d*n}`` stacking the forward differences along each of
+    the d grid axes (the operator class of the reference's rectangular
+    least-squares / svdl workloads), with no stored matrix data: every
+    ``mv`` / ``rmv`` is shifted reads and masks.
+
+    ``dims`` is the grid shape, row-major (last axis fastest): axis k has
+    stride ``prod(dims[k+1:])`` and extent ``dims[k]``.  Rows with the axis
+    position at the upper boundary are zero (forward difference undefined).
+    The products are eager torch, as the JAX package's are XLA fusions (no
+    Pallas kernel); each axis's mask ``(i // stride) % extent < extent - 1``
+    is computed once per device, not in every product.  ``x`` is (n,) or
+    (n, k); the result keeps x's dtype.
+    """
+
+    def __init__(self, dims: Tuple[int, ...], dtype=torch.float32,
+                 device="cuda"):
+        self.dims = tuple(int(d) for d in dims)
+        n = 1
+        for d in self.dims:
+            n *= d
+        self.n = n
+        terms = []
+        stride = 1
+        for d in reversed(self.dims):
+            terms.append((stride, d))
+            stride *= d
+        self._terms = tuple(reversed(terms))   # (stride, extent) per axis
+        self._dtype = as_dtype(dtype)
+        self.device = torch.device(device)
+        self._masks = {}
+
+    @property
+    def shape(self):
+        return (len(self._terms) * self.n, self.n)
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+    def _valid(self, device):
+        """Per axis, the rows whose forward difference exists, on
+        ``device`` (cached)."""
+        if device not in self._masks:
+            i = torch.arange(self.n, device=device)
+            self._masks[device] = [(i // s) % e < e - 1
+                                   for (s, e) in self._terms]
+        return self._masks[device]
+
+    def mv(self, x):
+        n = self.n
+        pad = max(s for (s, _) in self._terms)
+        xp = torch.cat([x, x.new_zeros((pad,) + tuple(x.shape[1:]))])
+        blocks = []
+        for (s, _), valid in zip(self._terms, self._valid(x.device)):
+            mask = valid if x.ndim == 1 else valid[:, None]
+            blocks.append(torch.where(mask, xp[s:s + n] - x, 0))
+        return torch.cat(blocks)
+
+    def rmv(self, y):
+        # G^H block a: (D_a^T y_a)[j] = valid[j-s] y_a[j-s] - valid[j] y_a[j]
+        n = self.n
+        out = None
+        for k, ((s, _), valid) in enumerate(zip(self._terms,
+                                                self._valid(y.device))):
+            ya = y[k * n:(k + 1) * n]
+            mask = valid if y.ndim == 1 else valid[:, None]
+            yv = torch.where(mask, ya, 0)
+            up = torch.cat([yv.new_zeros((s,) + tuple(y.shape[1:])),
+                            yv[:n - s]])          # y_a[j - s]
+            contrib = up - yv
+            out = contrib if out is None else out + contrib
+        return out
+
+    def to_csr(self):
+        raise NotImplementedError(
+            "GradientOperator.to_csr needs CSRMatrix, which the port does not "
+            "have yet (ROADMAP.md, Queue A item 6)")
 
 
 def advection_diffusion_stencil(N: int = 50, beta: float = 1000.0,

@@ -30,12 +30,12 @@ import functools
 import torch
 
 from . import _build
-from .cuda_stencil import (VEC_BYTES, aligned, blocks_per_sm, dot_ticket,
-                           grid_for, max_rows, on_device,
+from .cuda_stencil import (VEC_BYTES, _check_out, aligned, blocks_per_sm,
+                           dot_ticket, grid_for, max_rows, on_device,
                            raw_stream, run_rows)
 
-__all__ = ["dia_spmv", "dia_spmv_dot", "dia_spmv_plain", "MAX_DIAGS",
-           "DIAG_DTYPES"]
+__all__ = ["dia_spmv", "dia_spmv_dot", "dia_spmv_rows", "dia_spmv_plain",
+           "MAX_DIAGS", "DIAG_DTYPES"]
 
 MAX_DIAGS = 16
 _DIAG_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
@@ -142,7 +142,7 @@ def _diag_args(ptrs, offsets):
             all(p % VEC_BYTES == 0 for p in ptrs), arrays)
 
 
-def _launch(diags, offsets, x, u):
+def _launch(diags, offsets, x, u, out=None):
     if x.device.type != "cuda":
         raise ValueError(f"DIA kernel runs on CUDA tensors, got {x.device}")
     n, nd = x.shape[0], len(diags)
@@ -154,7 +154,7 @@ def _launch(diags, offsets, x, u):
     stream = raw_stream(dev)
     grid, partials, ticket = _grid(diags[0].dtype, with_dot, nd, n, dev,
                                    stream if with_dot else 0)
-    y = torch.empty_like(x)
+    y = torch.empty_like(x) if out is None else _check_out(out, x)
     if with_dot:
         dot = torch.empty((), dtype=torch.float32, device=dev)
         red = (partials.data_ptr(), ticket, dot.data_ptr())
@@ -172,14 +172,38 @@ def _launch(diags, offsets, x, u):
     return y, dot
 
 
-def dia_spmv(diags, offsets, x):
-    """y = A x for a DIA operator (sequence of 1-D diagonals + offsets)."""
+def dia_spmv(diags, offsets, x, out=None):
+    """y = A x for a DIA operator (sequence of 1-D diagonals + offsets).
+    ``out``, a contiguous tensor like x, takes y on a CUDA launch."""
     _check(diags, offsets, x, None)
     if x.device.type == "cpu":
         return dia_spmv_plain(diags, offsets, x)
-    y, _ = _launch(diags, offsets, x, None)
+    y, _ = _launch(diags, offsets, x, None, out)
     dia_spmv.launches += 1
     return y
+
+
+def dia_spmv_rows(diags, offsets, X):
+    """Y = rows ``A x_i`` of the (k, n) f32 panel X (vectors as rows).  A
+    CUDA tensor launches the DIA kernel once per row into a contiguous
+    (k, n) Y (each launch counted by :func:`dia_spmv`; the kernel's limits
+    are checked before the first); a CPU tensor takes the plain version of
+    the (n, k) columns ``X.T``.  Each row of Y is the same bits as
+    :func:`dia_spmv` of that row on the same device."""
+    if X.ndim != 2:
+        raise ValueError(f"X must be a (k, n) panel, got {tuple(X.shape)}")
+    X = X if X.stride(1) == 1 else X.contiguous()
+    if X.shape[0]:
+        _check(diags, offsets, X[0], None)
+    if X.device.type == "cpu":
+        return dia_spmv_plain(diags, offsets, X.T).T
+    if X.device.type != "cuda":
+        raise ValueError(f"DIA kernel runs on CUDA tensors, got {X.device}")
+    _check_kernel(X.shape[1], tuple(offsets))
+    Y = torch.empty_like(X, memory_format=torch.contiguous_format)
+    for i in range(X.shape[0]):
+        dia_spmv(diags, offsets, X[i], out=Y[i])
+    return Y
 
 
 def dia_spmv_dot(diags, offsets, x, u):

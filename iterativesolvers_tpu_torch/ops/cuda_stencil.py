@@ -50,9 +50,9 @@ import torch
 
 from . import _build
 
-__all__ = ["stencil_apply", "stencil_apply_plain", "stencil_sum", "MAX_TERMS",
-           "VEC_BYTES", "STENCIL_RUN", "run_rows", "fast_divisor", "dot_ticket",
-           "grid_for"]
+__all__ = ["stencil_apply", "stencil_apply_rows", "stencil_apply_plain",
+           "stencil_sum", "MAX_TERMS", "VEC_BYTES", "STENCIL_RUN", "run_rows",
+           "fast_divisor", "dot_ticket", "grid_for"]
 
 MAX_TERMS = 8
 _THREADS = 256
@@ -343,9 +343,11 @@ def aligned(*tensors) -> bool:
     return all(t.data_ptr() % VEC_BYTES == 0 for t in tensors)
 
 
-def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False):
+def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False,
+                  out=None):
     """y = A x (and ``<x, Ax>`` in f32 with ``with_dot``) for the stencil
-    ``(center, terms, coeffs)``; see the module docstring."""
+    ``(center, terms, coeffs)``; see the module docstring.  ``out``, a
+    contiguous tensor like x, takes y on a CUDA launch."""
     n = int(n)
     if not (type(terms) is tuple and type(coeffs) is tuple
             and all(type(t) is tuple for t in terms)):
@@ -362,7 +364,7 @@ def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False):
     # the plan without the dot holds nothing of a stream's
     launch = _launch(n, center, terms, coeffs, bool(conj), x.dtype,
                      bool(with_dot), dev, stream if with_dot else 0)
-    y = torch.empty_like(x)
+    y = torch.empty_like(x) if out is None else _check_out(out, x)
     if with_dot:
         dot = torch.empty((), dtype=torch.float32, device=dev)
         ptrs = (launch.partials.data_ptr(), launch.ticket, dot.data_ptr())
@@ -379,3 +381,38 @@ def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False):
 
 
 stencil_apply.launches = 0
+
+
+def _check_out(out, x):
+    if (out.shape != x.shape or out.dtype != x.dtype
+            or out.device != x.device or not out.is_contiguous()):
+        raise ValueError("out must be a contiguous tensor like x")
+    return out
+
+
+def stencil_apply_rows(n, center, terms, coeffs, X, *, conj=False):
+    """Y = rows ``A x_i`` of the (k, n) panel X (vectors as rows), in X's
+    dtype.  A CUDA tensor launches the stencil kernel once per row into a
+    contiguous (k, n) Y (each launch counted by :func:`stencil_apply`; the
+    kernel's limits are checked before the first); a CPU tensor takes the
+    plain version of the (n, k) columns ``X.T``.  Each row of Y is the same
+    bits as :func:`stencil_apply` of that row on the same device (the plain
+    sum is elementwise, so its layout does not change a bit)."""
+    n = int(n)
+    terms, coeffs = _normal(terms, coeffs)
+    if X.ndim != 2 or X.shape[1] != n:
+        raise ValueError(f"X must have shape (k, {n}), got {tuple(X.shape)}")
+    if X.dtype not in _DTYPE_CODE:
+        raise TypeError(f"stencil kernel takes f32 or bf16 x, got {X.dtype}")
+    _check_terms(terms)
+    if X.device.type == "cpu":
+        return stencil_apply_plain(n, center, terms, coeffs, X.T,
+                                   conj=conj).T
+    if X.device.type != "cuda":
+        raise ValueError(f"stencil kernel runs on CUDA tensors, got {X.device}")
+    _check_kernel(n, terms)
+    X = X if X.stride(1) == 1 else X.contiguous()
+    Y = torch.empty_like(X, memory_format=torch.contiguous_format)
+    for i in range(X.shape[0]):
+        stencil_apply(n, center, terms, coeffs, X[i], conj=conj, out=Y[i])
+    return Y

@@ -20,6 +20,13 @@ columns must be zero, so their coefficients vanish naturally.  Methods:
   * ``"cgs2"`` — CGS with one unconditional re-orthogonalization pass
     ("twice is enough"; DGKS stability class without the data-dependent
     gate).
+
+With a ``mesh`` (a row-sharded operator's ``mesh``, ``parallel/sharded.py``)
+the basis rows and ``w`` are this rank's block of rows: every projection
+``V^H w`` and every norm of ``w`` is a rank-local product followed by one
+``mesh.all_reduce``, so every rank holds the same coefficients and takes the
+same DGKS branch.  GMRES takes this form on a mesh where its sharded-panel
+CGS2 route does not apply ('dgks', complex dtypes).
 """
 
 from __future__ import annotations
@@ -28,7 +35,7 @@ import math
 
 import torch
 
-from ..solvers.common import norm
+from ..solvers.common import norm, vdot
 
 __all__ = ["orthogonalize_and_normalize", "orthogonalize_and_normalize_rows",
            "mgs_rows", "ORTH_METHODS"]
@@ -40,19 +47,20 @@ _DGKS_ETA = 1.0 / math.sqrt(2.0)  # src/orthogonalize.jl:19 ("used by ARPACK")
 _DGKS_MAX_REPEATS = 2
 
 
-def mgs_rows(Vt, w, k=None):
+def mgs_rows(Vt, w, k=None, mesh=None):
     """MGS of ``w`` against the rows of ``Vt`` in order, in w's dtype (each
     row is widened before it meets the 0-d ``h_j``, since torch would round
     ``h_j * v_j`` to the row's dtype); returns ``(w, h)``.  With ``k`` (an
     int or a 0-d tensor) a row past k leaves w as it is and gets ``h = 0``,
     whatever it holds: the masked sweep of the panel-MGS kernel's plain
-    version (``ops/cuda_mgs.py``), on the same bits as the unmasked one."""
+    version (``ops/cuda_mgs.py``), on the same bits as the unmasked one.
+    With a ``mesh`` each ``h_j`` is allreduced (one allreduce a row)."""
     active = (None if k is None
               else torch.arange(Vt.shape[0], device=Vt.device) <= k)
     hs = []
     for j in range(Vt.shape[0]):
         vj = Vt[j].to(w.dtype)
-        hj = torch.sum(vj.conj() * w)
+        hj = vdot(vj, w, mesh)
         if active is None:
             w = w - hj * vj
         else:
@@ -63,18 +71,22 @@ def mgs_rows(Vt, w, k=None):
     return w, h
 
 
-def _project_cgs(V, w):
-    h = V.conj().T @ w
+def _reduced(h, mesh):
+    return h if mesh is None else mesh.all_reduce(h)
+
+
+def _project_cgs(V, w, mesh=None):
+    h = _reduced(V.conj().T @ w, mesh)
     return h, w - V @ h
 
 
-def _project_cgs_rows(Vt, w):
+def _project_cgs_rows(Vt, w, mesh=None):
     """CGS against the ROWS of a (m, n) panel: two matvecs."""
-    h = Vt.conj() @ w
+    h = _reduced(Vt.conj() @ w, mesh)
     return h, w - h @ Vt
 
 
-def _dgks_loop(project, w, h):
+def _dgks_loop(project, w, h, mesh=None):
     """DGKS conditional re-orthogonalization (src/orthogonalize.jl:22-33):
     repeat CGS while ``norm(w) < eta * norm(latest correction)``, the
     comparison against the LATEST correction's size (the reference updates
@@ -82,13 +94,14 @@ def _dgks_loop(project, w, h):
 
     Masked form: every repeat up to the cap runs, and one the criterion
     would have skipped changes nothing (``torch.where`` on each value), so
-    the loop reads nothing back to the host."""
-    nrm = norm(w)
+    the loop reads nothing back to the host.  The coefficients ``h`` are
+    replicated on a ``mesh``; only the norms of ``w`` are reduced."""
+    nrm = norm(w, mesh)
     proj = norm(h)
     active = nrm < _DGKS_ETA * proj
     for _ in range(_DGKS_MAX_REPEATS):
         corr, w2 = project(w)
-        nrm2 = norm(w2)
+        nrm2 = norm(w2, mesh)
         w = torch.where(active, w2, w)
         h = torch.where(active, h + corr, h)
         nrm = torch.where(active, nrm2, nrm)
@@ -97,13 +110,32 @@ def _dgks_loop(project, w, h):
     return w, h
 
 
-def _normalize(w, h):
-    nrm = norm(w)
+def _normalize(w, h, mesh=None):
+    nrm = norm(w, mesh)
     safe = torch.where(nrm == 0, 1, nrm)
     return w / safe, h, nrm
 
 
-def orthogonalize_and_normalize_rows(Vt, w, method: str = "mgs"):
+def _orthogonalize(project, mgs, w, method, mesh):
+    """The four methods over one layout: ``project(w)`` is a CGS pass
+    returning ``(h, w)``, ``mgs(w)`` an MGS sweep returning ``(w, h)``."""
+    if method == "mgs":
+        w, h = mgs(w)
+    elif method == "cgs":
+        h, w = project(w)
+    elif method == "cgs2":
+        h, w = project(w)
+        h2, w = project(w)
+        h = h + h2
+    elif method == "dgks":
+        h, w = project(w)
+        w, h = _dgks_loop(project, w, h, mesh)
+    else:
+        raise ValueError(f"unknown orthogonalization method {method!r}")
+    return _normalize(w, h, mesh)
+
+
+def orthogonalize_and_normalize_rows(Vt, w, method: str = "mgs", mesh=None):
     """Row-panel variant: the basis is stored as (m, n), rows are the Krylov
     vectors (GMRES's panel).  Inactive rows are zero, so full-panel ops stay
     exact.  MGS runs over every row, each step a contiguous-row dot + axpy.
@@ -114,23 +146,12 @@ def orthogonalize_and_normalize_rows(Vt, w, method: str = "mgs"):
     w = w.to(torch.promote_types(Vt.dtype, w.dtype))
     if method != "mgs":
         Vt = Vt.to(w.dtype)
-    if method == "mgs":
-        w, h = mgs_rows(Vt, w)
-    elif method == "cgs":
-        h, w = _project_cgs_rows(Vt, w)
-    elif method == "cgs2":
-        h, w = _project_cgs_rows(Vt, w)
-        h2, w = _project_cgs_rows(Vt, w)
-        h = h + h2
-    elif method == "dgks":
-        h, w = _project_cgs_rows(Vt, w)
-        w, h = _dgks_loop(lambda v: _project_cgs_rows(Vt, v), w, h)
-    else:
-        raise ValueError(f"unknown orthogonalization method {method!r}")
-    return _normalize(w, h)
+    return _orthogonalize(lambda v: _project_cgs_rows(Vt, v, mesh),
+                          lambda v: mgs_rows(Vt, v, mesh=mesh), w, method,
+                          mesh)
 
 
-def orthogonalize_and_normalize(V, w, method: str = "mgs"):
+def orthogonalize_and_normalize(V, w, method: str = "mgs", mesh=None):
     """Column-panel variant, the public API analogue of the reference's
     ``orthogonalize_and_normalize!(V, w, h, method)``
     (src/orthogonalize.jl:1-11), for user code that keeps a basis as (n, m)
@@ -139,17 +160,6 @@ def orthogonalize_and_normalize(V, w, method: str = "mgs"):
     w = w.to(dtype)
     if method != "mgs":
         V = V.to(dtype)
-    if method == "mgs":
-        w, h = mgs_rows(V.T, w)
-    elif method == "cgs":
-        h, w = _project_cgs(V, w)
-    elif method == "cgs2":
-        h, w = _project_cgs(V, w)
-        h2, w = _project_cgs(V, w)
-        h = h + h2
-    elif method == "dgks":
-        h, w = _project_cgs(V, w)
-        w, h = _dgks_loop(lambda v: _project_cgs(V, v), w, h)
-    else:
-        raise ValueError(f"unknown orthogonalization method {method!r}")
-    return _normalize(w, h)
+    return _orthogonalize(lambda v: _project_cgs(V, v, mesh),
+                          lambda v: mgs_rows(V.T, v, mesh=mesh), w, method,
+                          mesh)

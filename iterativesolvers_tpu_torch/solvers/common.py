@@ -45,6 +45,7 @@ __all__ = [
     "log_at",
     "run_chunked",
     "chunked_steps",
+    "no_mesh",
 ]
 
 
@@ -110,6 +111,17 @@ def resolve_tols(dtype, reltol: Optional[float], abstol: Optional[float],
     rt = real_dtype(dtype)
     return (torch.tensor(float(reltol), dtype=rt, device=device),
             torch.tensor(float(abstol), dtype=rt, device=device))
+
+
+def no_mesh(op, solver):
+    """Raise for an operator row-sharded over D > 1 ranks: the block and
+    least-squares solvers need the halo operators' ``mv_rows`` and mesh
+    reductions, which the port does not have yet."""
+    mesh = op.mesh
+    if mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            f"{solver} on a {mesh.size}-rank mesh operator: the port has no "
+            "mesh form of it yet (ROADMAP.md, Queue A item 8)")
 
 
 class Problem(NamedTuple):
@@ -226,15 +238,17 @@ def select(live, new, old, keep=("resnorm_log",)):
 
 
 def log_at(log, k, value, live=None, in_place=False):
-    """``log`` with ``value`` at slot ``k`` (a 0-d int tensor, clamped to
-    the buffer) where ``live`` (a 0-d bool tensor; None: always).  A copy
-    unless ``in_place``: a solve's own loop, which holds no earlier state,
-    writes in place, to avoid a copy of the whole buffer a step."""
+    """``log`` with ``value`` (a row of the log: a 0-d tensor for a 1-D
+    log) at slot ``k`` (a 0-d int tensor, clamped to the buffer) where
+    ``live`` (a 0-d bool tensor; None: always).  A copy unless
+    ``in_place``: a solve's own loop, which holds no earlier state, writes
+    in place, to avoid a copy of the whole buffer a step."""
     log = log if in_place else log.clone()
     slot = k.clamp(min=0, max=log.shape[0] - 1).reshape(1)
     if live is not None:
         value = torch.where(live, value, log.index_select(0, slot)[0])
-    log.index_put_((slot,), value.reshape(1).to(log.dtype))
+    log.index_put_((slot,),
+                   value.reshape((1,) + tuple(log.shape[1:])).to(log.dtype))
     return log
 
 

@@ -29,7 +29,7 @@ with a panel of the solve's dtype; the panel SpMV
 (``ops/cuda_mgs.panel_mgs``) on such an operator with a bf16 panel; and
 ``op.mv`` followed by the panel MGS for any other real f32 MGS solve.  Every
 other solve (f64, complex, CGS/CGS2/DGKS) runs plain PyTorch
-(``ops/orthogonalize.py``).
+(``ops/orthogonalize.py``), on a mesh with its reductions allreduced.
 
 On a row-sharded operator of D > 1 ranks (``op.mesh``, ``parallel/``) the
 step takes the sharded-panel route (``_dist_panel_setup``): the panel lives
@@ -143,13 +143,14 @@ def _dist_panel_setup(op, n, dtype, orth_method, warn: bool = False,
     default MGS (subsumed by CGS2 on a mesh) or CGS/CGS2 explicitly.  A
     non-divisible n takes the layout's zero-padded last shard.
 
-    Where the JAX package falls back to GSPMD orthogonalization ('dgks',
-    complex dtypes) the port raises NotImplementedError: that fallback needs
-    a mesh-aware ``ops/orthogonalize.py`` (ROADMAP.md, Queue A item 8), and
-    orthogonalizing rank-local blocks as if they were whole vectors would be
-    wrong.  ``warn=True`` (set once by ``gmres()``) warns where an EXPLICIT
-    'mgs'/'cgs' is upgraded to distributed CGS2 (the solver's own default
-    pick is not a substitution)."""
+    Elsewhere on a mesh ('dgks', complex dtypes) it returns None and the
+    step orthogonalizes this rank's rows of the panel with the requested
+    method through ``ops/orthogonalize.py`` and the mesh (a projection's
+    coefficients and each norm allreduced), as the JAX package falls back
+    to GSPMD orthogonalization.  ``warn=True`` (set once by ``gmres()``)
+    warns of that fallback, and where an EXPLICIT 'mgs'/'cgs' is upgraded
+    to distributed CGS2 (the solver's own default pick is not a
+    substitution)."""
     mesh = op.mesh
     if mesh is None or mesh.size <= 1:
         return None
@@ -160,11 +161,14 @@ def _dist_panel_setup(op, n, dtype, orth_method, warn: bool = False,
     elif dtype not in (torch.float32, torch.float64):
         on_mesh_but = f"solve dtype {dtype} is not f32/f64"
     if on_mesh_but is not None:
-        raise NotImplementedError(
-            f"gmres on a {D}-device mesh operator: {on_mesh_but}; the JAX "
-            "package falls back to GSPMD orthogonalization (m scalar "
-            "allreduces per Arnoldi step), which the port does not have yet "
-            "(ROADMAP.md, Queue A item 8)")
+        if warn:
+            warnings.warn(
+                f"gmres on a {D}-device mesh operator: {on_mesh_but}; "
+                "falling back to mesh-reduced orthogonalization (an "
+                "allreduce per projection and norm, m of them a step with "
+                "MGS, instead of the sharded-panel CGS2 route)",
+                stacklevel=3)
+        return None
     if warn and explicit and orth_method in ("mgs", "cgs"):
         warnings.warn(
             f"gmres on a {D}-device mesh operator: orth_method="
@@ -185,6 +189,9 @@ def _routes(op, Pl, Pr, n, dtype, orth_method, vdtype) -> _Routes:
     dist = _dist_panel_setup(op, n, dtype, orth_method)
     if dist is not None:
         return _Routes(None, None, False, dist)
+    if op.mesh is not None and op.mesh.size > 1:
+        # the mesh fallback: no single-device kernel sees the whole panel
+        return _Routes(None, None, False, None)
     fused = _fused_setup(op, Pl, Pr, n, dtype, orth_method, vdtype)
     mgs = _use_panel_mgs(n, dtype, orth_method, vdtype)
     panel_mv = None
@@ -280,7 +287,8 @@ def _make_step(op, Pl, Pr, m, dtype, orth_method, routes, maxiter=None,
             if routes.mgs:
                 h, nrm = panel_mgs(V, w.to(dtype), k, do.to(torch.int32))
             else:
-                w, h, nrm = orthogonalize_and_normalize_rows(V, w, orth_method)
+                w, h, nrm = orthogonalize_and_normalize_rows(
+                    V, w, orth_method, op.mesh)
                 w = torch.where(do, w, 0)
                 V.index_copy_(0, (k + 1).reshape(1).long(),
                               w.to(V.dtype)[None])

@@ -13,11 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..operators.linear_operator import ScaledIdentityPlusOperator
 from ..operators.sparse import DIAMatrix
-from ..operators.stencil import StencilOperator
+from ..operators.stencil import GradientOperator, StencilOperator
 
 __all__ = ["dia_from_arrays", "stencil_from_arrays", "operator_from_arrays",
            "halo_dia_from_arrays", "halo_stencil_from_arrays"]
+
+KINDS = ("dia", "stencil", "gradient", "scaled_identity_plus")
 
 
 def host_tensor(a) -> torch.Tensor:
@@ -75,17 +78,27 @@ def _scalar(c):
 def operator_from_arrays(spec: dict, device="cuda", mesh=None):
     """Dispatch on ``spec["kind"]``: ``"dia"`` takes the keys of
     :func:`dia_from_arrays`, ``"stencil"`` those of
-    :func:`stencil_from_arrays`.  With a ``mesh`` the operator is the
-    row-sharded halo operator of that kind on the mesh (``device`` is then
-    the mesh's)."""
+    :func:`stencil_from_arrays`, ``"gradient"`` a ``GradientOperator``'s
+    ``dims`` and ``dtype``, ``"scaled_identity_plus"`` the spec of the
+    ``inner`` operator and ``sigma`` (a ``ScaledIdentityPlusOperator``).
+    With a ``mesh`` a ``"dia"`` or ``"stencil"`` operator is the row-sharded
+    halo operator of that kind on the mesh (``device`` is then the
+    mesh's)."""
     kind = spec.get("kind")
     args = {k: v for k, v in spec.items() if k != "kind"}
-    if kind not in ("dia", "stencil"):
-        raise ValueError(f"unknown operator kind {kind!r} (expected 'dia' "
-                         f"or 'stencil')")
+    if kind not in KINDS:
+        raise ValueError(f"unknown operator kind {kind!r} (expected one of "
+                         f"{KINDS})")
+    if kind == "scaled_identity_plus":
+        return ScaledIdentityPlusOperator(
+            operator_from_arrays(args["inner"], device, mesh),
+            _scalar(args["sigma"]))
     if mesh is not None:
+        if kind == "gradient":
+            raise ValueError("GradientOperator has no row-sharded form")
         build = (halo_dia_from_arrays if kind == "dia"
                  else halo_stencil_from_arrays)
         return build(mesh=mesh, **args)
-    build = dia_from_arrays if kind == "dia" else stencil_from_arrays
+    build = {"dia": dia_from_arrays, "stencil": stencil_from_arrays,
+             "gradient": GradientOperator}[kind]
     return build(device=device, **args)

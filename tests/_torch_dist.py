@@ -52,6 +52,9 @@ def _operator(c, a, mesh):
     spec = dict(c["op"])
     if spec["kind"] == "dia":
         spec["diags"] = [a[f"diag{i}"] for i in range(spec.pop("ndiags"))]
+    elif "coeffs" in a:
+        # complex coefficients travel as arrays (JSON has no complex)
+        spec["center"], spec["coeffs"] = a["center"][()], list(a["coeffs"])
     return convert.operator_from_arrays(spec, mesh=mesh)
 
 

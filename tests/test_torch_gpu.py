@@ -517,3 +517,114 @@ def test_cuda_grid_dot_is_repeatable_within_its_bound(cuda, case):
     m = L + 10 + -(-grid // 256) + 10
     bound = 1.01 * m * 2.0**-24 * float(prods.abs().sum())
     assert abs(float(d1) - float(prods.sum())) <= bound
+
+
+# ---- mv_rows: the stencil and DIA kernels once per row ---------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["stencil f32", "stencil bf16", "dia_f32",
+                                  "dia_bf16", "dia_int8"])
+@pytest.mark.parametrize("side", [16, 21])
+def test_cuda_mv_rows_is_mv_row_by_row(cuda, case, side):
+    """``mv_rows`` of a (5, n) panel launches the operator's kernel once a
+    row, and each row is the same bits as ``mv`` of it (a fresh copy);
+    side 21 makes n odd, so the panel's rows start off the 16-byte
+    boundary and take the kernels' per-row loads.  A column-major panel
+    gives the same rows.  Within the f32 / bf16 tolerance of the plain
+    batched version."""
+    g = torch.Generator(device=cuda).manual_seed(side)
+    if case.startswith("stencil"):
+        op = pits.laplacian(side, 3, device=cuda)
+        dtype = torch.float32 if case.endswith("f32") else torch.bfloat16
+        counter = cuda_stencil.stencil_apply
+    else:
+        dtype = torch.float32
+        op = pits.compress_values(pfix.laplace_dia(side, 3, dtype=np.float32,
+                                                   device=cuda),
+                                  {"dia_f32": torch.float32,
+                                   "dia_bf16": torch.bfloat16,
+                                   "dia_int8": torch.int8}[case])
+        counter = cuda_spmv.dia_spmv
+    n = op.shape[0]
+    X = torch.randn(5, n, generator=g, device=cuda).to(dtype)
+    before = counter.launches
+    Y = op.mv_rows(X)
+    assert counter.launches == before + 5
+    assert Y.shape == (5, n) and Y.dtype == dtype
+    for i in range(5):
+        assert torch.equal(Y[i], op.mv(X[i].clone()))
+    assert torch.equal(op.mv_rows(X.T.contiguous().T), Y)
+    if case.startswith("stencil"):
+        Yp = cuda_stencil.stencil_apply_plain(op.n, op.center, op.terms,
+                                              op.coeffs, X.T).T
+    else:
+        Yp = cuda_spmv.dia_spmv_plain(op.diags, op.offsets, X.T).T
+    tol = 1e-6 if dtype == torch.float32 else 2e-2
+    assert _close(Y, Yp, tol)
+
+
+@pytest.mark.gpu
+def test_cuda_mv_rows_past_the_kernel_limits_raise(cuda):
+    """A panel of an operator past its kernel's limits raises before any
+    row is launched, never a quiet plain run."""
+    St = pits.laplacian(3, 5, device=cuda)           # 10 terms
+    nd = cuda_spmv.MAX_DIAGS + 1
+    A = pits.DIAMatrix([torch.ones(40, device=cuda)] * nd, tuple(range(nd)),
+                       (40, 40), device=cuda)
+    before = (cuda_stencil.stencil_apply.launches,
+              cuda_spmv.dia_spmv.launches)
+    with pytest.raises(ValueError, match="at most"):
+        St.mv_rows(torch.ones(4, St.n, device=cuda))
+    with pytest.raises(ValueError, match="at most"):
+        A.mv_rows(torch.ones(4, 40, device=cuda))
+    assert (cuda_stencil.stencil_apply.launches,
+            cuda_spmv.dia_spmv.launches) == before
+
+
+@pytest.mark.gpu
+def test_cuda_lobpcg_gram_not_positive_definite_returns(cuda):
+    """The indefinite B-Gram of tests/test_torch_eigsvd.py on the card:
+    cholesky_ex's factor is NaN, eigh's input is guarded, and lobpcg
+    returns the JAX package's answer there (no Ritz pair alive: the
+    eigenvalue placeholders at float max, NaN vectors, not converged after
+    one step) with no exception."""
+    n = 40
+    B = torch.diag(torch.cat([torch.ones(n // 2), -torch.ones(n - n // 2)]))
+    X0 = torch.zeros(n, 2)
+    X0[0] = 1.0
+    X0[n // 2, 0] = X0[n // 2 + 1, 1] = 0.9
+    A = torch.diag(torch.linspace(1.0, 10.0, n))
+    r = pits.lobpcg(A.to(cuda, torch.float64), X0.to(cuda, torch.float64),
+                    B=B.to(cuda, torch.float64), maxiter=20)
+    assert (r.lam == torch.finfo(torch.float64).max).all()
+    assert torch.isnan(r.X).all() and not r.converged
+    assert r.iterations == 1
+
+
+@pytest.mark.gpu
+def test_cuda_lobpcg_and_block_cg_use_the_kernels(cuda):
+    """LOBPCG and block CG on the stored and the matrix-free Laplacian at
+    21^3 launch the kernel once per row of every panel product; LOBPCG's
+    eigenvalues agree with the same solve on the CPU (the kernels' plain
+    versions) within 2 tol: each run's Ritz values lie within its residual
+    norm (at most tol) of eigenvalues of the matrix (Bauer-Fike for a
+    symmetric matrix)."""
+    A = pfix.laplace_dia(21, 3, dtype=np.float32, device=cuda)
+    St = pits.laplacian(21, 3, device=cuda)
+    g = torch.Generator().manual_seed(0)
+    X0 = torch.randn(A.shape[0], 4, generator=g)
+    lam_cpu = pits.lobpcg(pfix.laplace_dia(21, 3, dtype=np.float32,
+                                           device="cpu"), X0, tol=1e-4,
+                          maxiter=200).lam
+    for op, counter in ((A, cuda_spmv.dia_spmv),
+                        (St, cuda_stencil.stencil_apply)):
+        before = counter.launches
+        r = pits.lobpcg(op, X0.to(cuda), tol=1e-4, maxiter=200)
+        assert counter.launches > before and r.converged
+        torch.testing.assert_close(r.lam.cpu(), lam_cpu, rtol=0, atol=2e-4)
+        B = torch.ones(A.shape[0], 3, device=cuda)
+        B[:, 1:] = torch.randn(A.shape[0], 2, generator=g).to(cuda)
+        before = counter.launches
+        X, h = pits.block_cg(op, B, reltol=1e-5, log=True)
+        assert h.isconverged and counter.launches == before + 3 * (
+            pits.solvers.common.chunked_steps(h.iters) + 1)

@@ -123,12 +123,37 @@ PIPECG = {  # name: (operator, dtype, keywords), on D = 2 ranks
 GATES = [("float64", "mgs"), ("float32", "cgs2"), ("float32", "cgs"),
          ("float64", "dgks"), ("complex128", "mgs")]
 
+# GMRES where the sharded-panel route does not apply, on D = 2 ranks:
+# name: (operator, dtype, keywords)
+FALLBACK = {
+    "dgks_f64": ("advection_diffusion_stencil(8)", F64,
+                 dict(reltol=1e-8, restart=20, maxiter=400,
+                      orth_method="dgks")),
+    "complex128": ("complex_stencil(8)", np.complex128,
+                   dict(reltol=1e-8, restart=20, maxiter=400)),
+}
+
+
+def _complex_stencil():
+    """laplacian(8, 3) with complex coefficients (not Hermitian)."""
+    St = jits.laplacian(8, 3, dtype=np.complex128)
+    coeffs = [-1.0 + 0.3j, -1.0 - 0.2j, -1.0 + 0.1j, -1.0, -1.0 - 0.4j, -1.0]
+    return jits.StencilOperator(St.n, 6.0 + 0.5j, St.terms, coeffs,
+                                dtype=np.complex128)
+
 
 def _operator(name, dtype):
     """The JAX operator of a case and its port spec and arrays."""
     if name in STENCILS:
         St = STENCILS[name](dtype)
         return St, _stencil_spec(St), {}
+    if name == "complex_stencil(8)":
+        St = _complex_stencil()
+        spec = {"kind": "stencil", "n": int(St.n),
+                "terms": [list(t) for t in St.terms], "dtype": "complex128"}
+        return St, spec, {"center": np.asarray(St.center),
+                          "coeffs": np.asarray([np.asarray(c)
+                                                for c in St.coeffs])}
     if name == "laplacian(16,2)":
         St = jits.laplacian(16, 2, dtype=dtype)
         return St, _stencil_spec(St), {}
@@ -165,6 +190,11 @@ def _cases(D):
             out.append(({"name": f"cg/{name}", "kind": "cg", "op": spec,
                          "kw": kw}, {**arrays, "b": np.ones(A.shape[0], dt)}))
     if D == 2:
+        for name, (opname, dt, kw) in FALLBACK.items():
+            A, spec, arrays = _operator(opname, dt)
+            out.append(({"name": f"fallback/{name}", "kind": "gmres",
+                         "op": spec, "kw": kw},
+                        {**arrays, "b": np.ones(A.shape[0], dt)}))
         for name, (opname, dt, kw) in PIPECG.items():
             A, spec, arrays = _operator(opname, dt)
             out.append(({"name": f"pipecg/{name}", "kind": "pipecg",
@@ -475,8 +505,9 @@ def test_ranks_hold_the_same_replicated_state(port):
 def test_dist_panel_setup_gates_match_jax(port):
     """The sharded-panel gates of ``_dist_panel_setup``: where JAX takes the
     route the port does; where JAX falls back to GSPMD orthogonalization
-    (dgks, complex), with a warning, the port raises NotImplementedError
-    naming ROADMAP.md."""
+    (dgks, complex), with a warning, the port returns None too and its
+    GMRES orthogonalizes through the mesh-aware ``ops/orthogonalize.py``
+    (``test_gmres_dist_fallback_matches_jax``)."""
     got = _out(port(4), "setup")
     St = jits.laplacian(8, 3, dtype=F64)
     op = jsh.HaloStencilOperator(St, _mesh(4))
@@ -491,7 +522,38 @@ def test_dist_panel_setup_gates_match_jax(port):
         else:
             assert any("falling back to GSPMD" in str(w.message)
                        for w in caught)
-            assert res.startswith("raise: ") and "ROADMAP.md" in res
+            assert res == "none"
+
+
+@pytest.mark.parametrize("name", list(FALLBACK))
+def test_gmres_dist_fallback_matches_jax(port, name):
+    """GMRES(20) on 2 ranks with orth_method='dgks' (f64 halo stencil) and
+    on a complex128 halo stencil, where the sharded-panel route does not
+    apply: the port orthogonalizes each rank's rows through
+    ``ops/orthogonalize.py`` with the mesh's allreduces, the JAX package
+    through GSPMD on row_mesh(2).  Equal step, product and restart counts,
+    the residual series within 1e-10 relative down to 1e-12 |r0|, x within
+    1e-10; no panel kernel ran, and each package warned of its fallback."""
+    opname, dtype, kw = FALLBACK[name]
+    got = _out(port(2), f"fallback/{name}")
+    mesh = _mesh(2)
+    St = _operator(opname, dtype)[0]
+    op = jsh.HaloStencilOperator(St, mesh)
+    b = jsh.shard_vector(jnp.ones(op.shape[0], dtype), mesh)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        x, h = jits.gmres(op, b, log=True, **kw)
+    assert h.isconverged and bool(got["converged"])
+    assert (int(got["iters"]), int(got["mvps"]), int(got["restarts"])) \
+        == (h.iters, h.mvps, h.restarts)
+    np.testing.assert_allclose(got["resnorm"], h["resnorm"], rtol=1e-10,
+                               atol=1e-12 * h["resnorm"][0])
+    assert rel(got["x"], np.asarray(x)) <= 1e-10
+    for k in ("dist_panel_ortho", "panel_mgs", "fused_arnoldi",
+              "panel_dots", "panel_update"):
+        assert int(got[f"calls/{k}"]) == 0
+    assert any("falling back to GSPMD" in str(w.message) for w in caught)
+    assert any("falling back to mesh-reduced" in m for m in got["warnings"])
 
 
 def test_single_rank_mesh_takes_single_device_routes(port):
