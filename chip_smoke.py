@@ -85,6 +85,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
     damped 101^3 gradient.  Each against its analytic values or an f64
     solve and a kernel-free witness, with its launches, time a step, host
     synchronisations and the card's busy share.
+15. The stored formats: the 216^3 Laplacian's COO triplets through the
+    native sort into ``CSRMatrix`` (equal to the numpy version), its CSR,
+    ELL and HYB products against the DIA kernel's, ``auto_format`` back to
+    ``laplace_dia``'s diagonals bit for bit, CG on that DIA matrix (phase
+    4's steps and x, the DIA kernel once a step) and on the CSR itself;
+    the JAX package's three 1M-row format-selection matrices (DIA, ELL
+    after RCM, BSR picked, CG converged, the true residual and each pick's
+    product held against the eager CSR's, a DIA pick's also against the
+    plain version); a 27-point stencil at 100^3 whose DIA pick takes the
+    DIA kernel in two launches a product; its MatrixMarket corpus (the
+    native parse against the Python parser, CG / GMRES(60) / LSQR / LSMR /
+    BSR CG in f32 and f64 with their bars, the picks); its sprand
+    GMRES(15), LSQR / LSMR and svdl on a 600,000 x 400,000 BSR matrix
+    against scipy's ``svds`` (in a process of its own).  Each product timed
+    beside its byte bound and cuSPARSE's ``A @ x``, the same bits on two
+    runs; each solve's time a step and busy share.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It imports no JAX and nothing of the JAX package.
@@ -1995,6 +2011,735 @@ def block_phase(torch, its, St, A64, x64, counters, bound):
     return runs, ab, launches
 
 
+# ---- phase 15: the stored formats, auto_format and MatrixMarket I/O --------
+# The main path's matrix in CSR form at 216^3, the JAX package's
+# format-selection workload (benchmarks/run_all.py:803-898), its committed
+# MatrixMarket corpus (run_all.py:711-800, tests/test_matrixmarket_
+# workloads.py) and its sprand workloads at their published size
+# (run_all.py:141-157, :336, :502-553).  The CSR, ELL, HYB and BSR products
+# are eager torch (XLA gathers and segment sums in the JAX package, no
+# Pallas kernel); a DIA matrix that auto_format picks runs the DIA kernel.
+FS_SIDE, FS_BLOCKS, FS_BS = 1024, 250_000, 4
+FS_RELTOL, FS_MAXITER, FS_TRUE_RES = 1e-6, 600, 1e-4
+# the picks of the JAX package on its own run (BENCH_NOTES.md:726-729)
+FS_PICKS = {"banded_vc": "DIAMatrix", "scrambled": "ELLMatrix",
+            "block4": "BSRMatrix"}
+# the 27-point stencil past one launch of diagonals: 100^3 rows (as many as
+# the format-selection matrices), diagonally dominant (eigenvalues in
+# [2, 54]) so that f32 CG meets FS_TRUE_RES
+S27_SIDE, S27_CENTER = 100, 28.0
+MTX = ("fem_poisson", "mesh_gradient_ls", "elasticity_2d", "fd_band9",
+       "powerlaw_graph", "uniform_scatter")
+MTX_PICKS = {"fd_band9": "DIAMatrix", "powerlaw_graph": "HYBMatrix",
+             "uniform_scatter": "ELLMatrix"}
+# the eager products against the DIA kernel's y (216^3, f32): another
+# order of the same seven products, without FMA contraction
+TOL_FORMAT_Y = TOL_Y_F32
+SPRAND_GMRES = dict(restart=15, reltol=1e-5, maxiter=210)
+SPRAND_LSQ = dict(atol=1e-4, btol=1e-4, maxiter=100)
+LSQ_NORMAL_RES = 1e-2
+SVDL_BSR = dict(nsv=6, tol=1e-3, maxiter=40)
+SVDL_SCIPY_REL = 2e-3
+# scipy's reference to 1e-8 relative (ARPACK's tolerance): far inside the
+# 2e-3 it is held to
+SVDS_TOL = 1e-8
+SVDS_TIMEOUT = 600
+# a solve's traced twin stops after this many steps (restarts for svdl)
+TRACE_STEPS = 64
+# run_all.py's sizes: the sprand GMRES matrix (n), the LSQR / LSMR one
+# (rows, columns) and svdl's BSR(8) matrix (block rows, block columns,
+# blocks a block row)
+SPRAND_GMRES_N = 100_000
+SPRAND_LSQ_SHAPE = (200_000, 50_000)
+SVDL_BSR_BLOCKS = (75_000, 50_000, 6)
+
+
+def format_selection_matrices(np, CSRMatrix, device):
+    """run_all.py:803-898's three ~1M-row CSR matrices on ``device``, in
+    turn and with its seeds (one generator, 42, drawn in its order): (tag,
+    matrix)."""
+    rng = np.random.default_rng(42)
+    side = FS_SIDE
+    n = side * side
+    i = np.arange(n, dtype=np.int64)
+    offs = (-side - 1, -side, -side + 1, -1, 0, 1, side - 1, side, side + 1)
+    rows_l, cols_l, vals_l = [], [], []
+    for off in offs:
+        j = i + off
+        ok = (j >= 0) & (j < n)
+        if abs(off) != 0:
+            # mask row-wrap for the +-1-ish couplings
+            ok &= np.abs((j % side) - (i % side)) <= 1
+        r, c = i[ok], j[ok]
+        v = (np.float32(8.0) + rng.random(r.size, np.float32)
+             if off == 0 else -rng.random(r.size, np.float32))
+        rows_l.append(r)
+        cols_l.append(c)
+        vals_l.append(v)
+    rows = np.concatenate(rows_l)
+    cols = np.concatenate(cols_l)
+    vals = np.concatenate(vals_l).astype(np.float32)
+    del rows_l, cols_l, vals_l
+    banded = CSRMatrix.from_coo(rows, cols, vals, (n, n), device=device)
+    del rows, cols, vals
+    yield "banded_vc", banded
+    p = rng.permutation(n)
+    scrambled = banded.permute(p)
+    del banded
+    yield "scrambled", scrambled
+    del scrambled
+    # 4-dof blocks on an unstructured block graph (250k block rows)
+    nb = FS_BLOCKS
+    ib = np.arange(nb, dtype=np.int64)
+    deg = 6
+    nbr = rng.integers(0, nb, size=(nb, deg)).astype(np.int64)
+    br = np.concatenate([np.repeat(ib, deg), ib, np.repeat(ib, deg)])
+    bc = np.concatenate([nbr.ravel(), ib, nbr.ravel()])
+    # symmetrize the pattern so CG has an SPD-able matrix
+    blk_ids = np.unique(br * nb + bc)
+    br, bc = blk_ids // nb, blk_ids % nb
+    up = br < bc
+    bu, cu = br[up], bc[up]
+    bs = FS_BS
+    Bu = rng.random((bu.size, bs, bs), np.float32) * np.float32(-0.05)
+    Bd = np.broadcast_to(np.float32(6.0) * np.eye(bs, dtype=np.float32),
+                         (nb, bs, bs))
+    # symmetric assembly: (i,j) = B, (j,i) = B^T, (i,i) = 6I
+    abr = np.concatenate([bu, cu, ib])
+    abc = np.concatenate([cu, bu, ib])
+    avv = np.concatenate([Bu, np.transpose(Bu, (0, 2, 1)), Bd])
+    rr = (abr[:, None, None] * bs + np.arange(bs)[None, :, None]).repeat(bs, 2)
+    cc = (abc[:, None, None] * bs + np.arange(bs)[None, None, :]).repeat(bs, 1)
+    yield "block4", CSRMatrix.from_coo(rr.ravel(), cc.ravel(), avv.ravel(),
+                                       (nb * bs, nb * bs), device=device)
+
+
+def svdl_bsr_matrix(np):
+    """run_all.py:502-553's 600,000 x 400,000 BSR(8) matrix (seed 11):
+    (blocks, block columns, block rows, shape)."""
+    rng = np.random.default_rng(11)
+    bs = 8
+    nbr, nbc, deg = SVDL_BSR_BLOCKS     # 600k x 400k, 450k blocks
+    br = np.repeat(np.arange(nbr, dtype=np.int64), deg)
+    bc = rng.integers(0, nbc, size=nbr * deg).astype(np.int64)
+    keys = np.unique(br * nbc + bc)
+    br, bc = keys // nbc, keys % nbc
+    blocks = (rng.standard_normal((br.size, bs, bs)) / np.sqrt(deg * bs)
+              ).astype(np.float32)
+    return blocks, bc, br, (nbr * bs, nbc * bs)
+
+
+def svds_reference():
+    """The 6 largest singular values of :func:`svdl_bsr_matrix`'s matrix by
+    scipy's ``svds`` in f64 and the seconds it took: (sigma, seconds) (run
+    by phase 15 in a process of its own, beside the card's work: ~35 s of
+    one host core)."""
+    import numpy as np
+    from scipy.sparse import bsr_matrix
+    from scipy.sparse.linalg import svds
+
+    t0 = time.perf_counter()
+    blocks, bc, br, shape = svdl_bsr_matrix(np)
+    indptr = np.zeros(shape[0] // blocks.shape[1] + 1, np.int64)
+    np.add.at(indptr, br + 1, 1)
+    sp = bsr_matrix((blocks.astype(np.float64), bc, np.cumsum(indptr)),
+                    shape=shape)
+    sref = np.sort(svds(sp, k=SVDL_BSR["nsv"], tol=SVDS_TOL,
+                        return_singular_vectors=False))[::-1]
+    return sref.tolist(), time.perf_counter() - t0
+
+
+def _send_svds_reference(conn):
+    """svds_reference's result through the pipe ``conn`` (the child's
+    end)."""
+    conn.send(svds_reference())
+    conn.close()
+
+
+def start_svds_reference():
+    """svds_reference in a spawned process of its own (this one holds the
+    card): (process, the parent's end of its pipe)."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_send_svds_reference, args=(send,))
+    proc.start()
+    send.close()
+    return proc, recv
+
+
+def svds_result(recv, timeout):
+    """(sigma, seconds) from start_svds_reference's pipe; raises if the
+    process ended without a result or took longer than ``timeout``."""
+    if not recv.poll(timeout):
+        raise AssertionError(f"scipy's svds gave no result in {timeout} s")
+    try:
+        return recv.recv()
+    except EOFError:
+        raise AssertionError("scipy's svds ended without a result") from None
+
+
+def format_bytes(its, op, kind="mv"):
+    """Bytes one product must move: the format's own arrays at their
+    stored widths (padding included), x read and y written once (f32)."""
+    n, m = op.shape
+    vec = 4 * (n + m)
+    if kind == "rmv" and getattr(op, "adj", None) is not None:
+        return format_bytes(its, op.adj)
+
+    def size(t):
+        return t.numel() * t.element_size()
+
+    if isinstance(op, its.DIAMatrix):
+        return sum(size(d) for d in op.diags) + vec
+    if isinstance(op, its.CSRMatrix):
+        idx = size(op.indices) + (size(op.row_ids) if kind == "rmv"
+                                  else size(op.indptr))
+        return size(op.data) + idx + vec
+    if isinstance(op, its.ELLMatrix):
+        return size(op.data) + size(op.cols) + vec
+    if isinstance(op, its.HYBMatrix):
+        tail = size(op.tail_vals) + size(op.tail_cols) + (
+            size(op.tail_rows) if kind == "rmv" else
+            size(op._tail_row_set) + size(op._tail_offsets))
+        return format_bytes(its, op.ell, kind) + tail
+    if isinstance(op, its.BSRMatrix):
+        idx = size(op.block_cols) + (size(op.block_row_ids) if kind == "rmv"
+                                     else size(op._block_offsets))
+        return size(op.blocks) + idx + vec
+    raise TypeError(type(op).__name__)
+
+
+def stored_entries(its, op):
+    """Stored values a product multiplies (2 operations each)."""
+    if isinstance(op, its.DIAMatrix):
+        return sum(d.numel() for d in op.diags)
+    if isinstance(op, its.CSRMatrix):
+        return op.nnz
+    if isinstance(op, its.ELLMatrix):
+        return op.data.numel()
+    if isinstance(op, its.HYBMatrix):
+        return op.ell.data.numel() + op.tail_nnz
+    return op.blocks.numel()
+
+
+def library_csr(torch, A):
+    """cuSPARSE's operand for ``A @ x``: the port's CSR matrix ``A`` as a
+    torch sparse CSR tensor (the same int32 indices, f32 values)."""
+    return torch.sparse_csr_tensor(A.indptr, A.indices, A.data.float(),
+                                   A.shape, check_invariants=False)
+
+
+def formats_phase(torch, its, A32, runs4, x64, counters, bound):
+    """Phase 15.  ``A32`` the f32 ``laplace_dia(216, 3)`` (the phase runs on
+    its device), ``runs4`` phase 4's CG runs by path ((x, history,
+    launches)), ``x64`` its f64 x; ``counters`` every kernel wrapper.
+    Returns the runs by name, the product timings and the launches of the
+    phase by kernel key and run."""
+    t_start = time.perf_counter()
+    # scipy's svds of item 4's BSR matrix takes ~35 s of one host core:
+    # started first, in a process of its own, and read at the end
+    proc, recv = start_svds_reference()
+    try:
+        return _formats_phase(torch, its, A32, runs4, x64, counters, bound,
+                              recv, t_start)
+    finally:
+        if proc.is_alive():
+            proc.kill()
+        proc.join()
+        recv.close()
+
+
+def _formats_phase(torch, its, A32, runs4, x64, counters, bound, reference,
+                   t_start):
+    import numpy as np
+
+    from iterativesolvers_tpu_torch import native
+    from iterativesolvers_tpu_torch.ops.cuda_spmv import (MAX_DIAGS,
+                                                          dia_spmv_plain)
+    from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+    from iterativesolvers_tpu_torch.utils.fixtures import (
+        laplace_matrix_coo, random_sparse, stencil27_coo)
+
+    dev = A32.device
+    side = round(A32.shape[0] ** (1 / 3))
+    runs, products, bad = {}, {}, []
+    launches = {}
+
+    def reset():
+        for f in counters:
+            f.launches = 0
+
+    def counts():
+        return {f.__name__: f.launches for f in counters if f.launches}
+
+    def elapsed():
+        return time.perf_counter() - t_start
+
+    def record(name, row, ok):
+        row["phase_s"] = elapsed()
+        print(f"  {name}: " + ", ".join(
+            f"{k} {v:.4e}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items() if not isinstance(v, (dict, list))),
+            flush=True)
+        runs[name] = row
+        for kernel, c in row.get("launches", {}).items():
+            launches.setdefault(kernel, {})[name] = c
+        if not ok:
+            bad.append(name)
+
+    def rel(x, ref):
+        return float(torch.linalg.vector_norm(x.double() - ref.double())
+                     / torch.linalg.vector_norm(ref.double()))
+
+    def true_res(op64, x, b):
+        b = b.double()
+        return float(torch.linalg.vector_norm(b - op64.mv(x.double()))
+                     / torch.linalg.vector_norm(b))
+
+    def solve(name, call, steps_of, trace=True):
+        """Run ``call(None)`` between CUDA events (counting launches), and
+        with ``trace`` ``call(TRACE_STEPS)``, the same solve stopped after
+        that many steps, under the profiler: (result, row of time a step,
+        busy share, host syncs a step and launches).  The busy share is the
+        trace's device time a step over the timed run's wall time a step."""
+        reset()
+        out, wall = timed_run(torch, lambda: call(None))
+        c = counts()
+        steps = max(steps_of(out), 1)
+        row = {"wall_ms": wall, "steps_run": steps,
+               "us_per_step": wall / steps * 1e3, "launches": c}
+        if trace:
+            tout, by_kernel, syncs = syncs_and_trace(
+                torch, lambda: call(TRACE_STEPS), name)
+            tsteps = max(steps_of(tout), 1)
+            row.update(busy_share=sum(by_kernel.values()) / tsteps * steps
+                       / wall, host_syncs_per_step=syncs / tsteps)
+        return out, row
+
+    def capped(kw, cap):
+        """``kw`` with maxiter cut to ``cap`` (None: as given)."""
+        if cap is None:
+            return kw
+        return {**kw, "maxiter": min(cap, kw.get("maxiter") or cap)}
+
+    def product(key, op, fn, kind="mv", lib=None, x=None):
+        """Time one product of ``op`` (``fn``), check it gives the same
+        bits twice (a forward product or a precomputed adjoint's), and
+        time cuSPARSE's ``lib @ x`` beside it."""
+        ya, yb = fn(), fn()
+        same = torch.equal(ya, yb)
+        t = kernel_timing(torch, fn, reps=10)
+        t.pop("samples")
+        nbytes = format_bytes(its, op, kind)
+        b_ms, b_by = bound(nbytes, 2 * stored_entries(its, op))
+        row = {"format": type(op).__name__, "shape": list(op.shape),
+               "dtype": str(op.dtype), "bytes": nbytes, **t,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "same_bits_twice": same,
+               "library_ms": (time_ms(torch, lambda: lib @ x, reps=10)[0]
+                              if lib is not None else None)}
+        products[key] = row
+        lib_ms = row["library_ms"]
+        print(f"  {key}: {t['ms']:.4f} ms (device {t['device_ms']:.4f}), "
+              f"bound {b_ms:.4f} ({b_by}), cuSPARSE "
+              + ("-" if lib_ms is None else f"{lib_ms:.4f}")
+              + f", same bits twice {same}", flush=True)
+        must_repeat = kind == "mv" or getattr(op, "adj", None) is not None
+        if must_repeat and not same:
+            bad.append(f"{key}: not the same bits on two runs")
+        return ya
+
+    def hold_pick(key, op, x, y, y_csr):
+        """The picked format's product ``y`` of ``x`` against the eager CSR's
+        (another order of the same products) and, for a DIA pick, against
+        the DIA kernel's plain version; both at TOL_FORMAT_Y of max|y|."""
+        products[key]["max_abs_err_vs_csr"] = check(
+            f"{key} against the CSR product", y, y_csr, TOL_FORMAT_Y)
+        if isinstance(op, its.DIAMatrix):
+            products[key]["max_abs_err_vs_plain"] = check(
+                f"{key} against the plain version", y,
+                dia_spmv_plain(op.diags, op.offsets, x), TOL_FORMAT_Y)
+
+    print("phase 15: the stored formats, auto_format, MatrixMarket I/O:")
+    if native.get_lib() is None:
+        raise AssertionError(f"the native library did not load: "
+                             f"{native.build_error()}")
+
+    # -- 1. the main path's matrix in CSR form: 216^3, 70.3M stored values
+    t0 = time.perf_counter()
+    rows, cols, vals, N = laplace_matrix_coo(side, 3, dtype=np.float32)
+    A = its.CSRMatrix.from_coo(rows, cols, vals, (N, N), device=dev)
+    host_s = {"laplace_matrix_coo + from_coo": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    indptr, indices, data = native._coo_to_csr_numpy(
+        rows.astype(np.int64), cols.astype(np.int64), vals, N)
+    host_s["numpy coo_to_csr"] = time.perf_counter() - t0
+    same_csr = (np.array_equal(A.indptr.cpu().numpy(), indptr)
+                and np.array_equal(A.indices.cpu().numpy(), indices)
+                and np.array_equal(A.data.cpu().numpy(), data))
+    del rows, cols, vals, indptr, indices, data
+    record(f"from_coo {side}^3", {"n": N, "nnz": A.nnz,
+                                  "equals_numpy_version": same_csr,
+                                  "host_s": dict(host_s)}, same_csr)
+    g = torch.Generator(device=dev).manual_seed(15)
+    x = torch.randn(N, generator=g, device=dev)
+    y_dia = A32.mv(x)
+    t0 = time.perf_counter()
+    ell = A.to_ell()
+    host_s["to_ell"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hyb = A.to_hyb()
+    host_s["to_hyb"] = time.perf_counter() - t0
+    lib = library_csr(torch, A)
+    for name, op in (("csr", A), ("ell", ell), ("hyb", hyb),
+                     ("dia kernel", A32)):
+        y = product(f"mv {name} {side}^3", op, lambda op=op: op.mv(x),
+                    lib=lib, x=x)
+        if name != "dia kernel":
+            err = check(f"mv {name} {side}^3 against the DIA kernel", y,
+                        y_dia, TOL_FORMAT_Y)
+            products[f"mv {name} {side}^3"]["max_abs_err_vs_dia"] = err
+    product(f"rmv csr (scatter) {side}^3", A, lambda: A.rmv(x), "rmv",
+            lib=lib, x=x)
+    del ell, hyb, lib
+    t0 = time.perf_counter()
+    op, perm = A.auto_format()
+    host_s["auto_format"] = time.perf_counter() - t0
+    same_diags = (isinstance(op, its.DIAMatrix) and perm is None
+                  and op.offsets == A32.offsets
+                  and all(torch.equal(a, b)
+                          for a, b in zip(op.diags, A32.diags)))
+    record(f"auto_format {side}^3", {"picked": type(op).__name__,
+                                     "perm": perm is not None,
+                                     "diagonals_equal_laplace_dia":
+                                     same_diags, "host_s": dict(host_s)},
+           same_diags)
+    b = torch.ones(N, device=dev)
+    x4, h4, _ = runs4["dia_f32"]
+    (xd, hd), row = solve(f"cg auto_format dia {side}^3", lambda cap: its.cg(
+        op, b, reltol=RELTOL, log=True, chunk=CHUNK, maxiter=cap),
+        lambda r: chunked_steps(r[1].iters, CHUNK))
+    want = {"dia_spmv_dot": chunked_steps(hd.iters, CHUNK)}
+    ok = (hd.isconverged and hd.iters == h4.iters and torch.equal(xd, x4)
+          and row["launches"] == want)
+    record(f"cg auto_format dia {side}^3", {
+        "iters": hd.iters, "phase4_iters": h4.iters,
+        "x_equal_phase4": torch.equal(xd, x4),
+        "expected_launches": want, **row}, ok)
+    (xc, hc), row = solve(f"cg csr {side}^3", lambda cap: its.cg(
+        A, b, reltol=RELTOL, log=True, chunk=CHUNK, maxiter=cap),
+        lambda r: chunked_steps(r[1].iters, CHUNK))
+    A64 = A32.astype(torch.float64)
+    res, dx = true_res(A64, xc, b), rel(xc, x64)
+    ok = (hc.isconverged and abs(hc.iters - h4.iters) <= CG_STEP_SPREAD
+          and dx <= X_F64_REL and res <= TRUE_RES_F32 and not row["launches"])
+    record(f"cg csr {side}^3", {
+        "iters": hc.iters, "phase4_iters": h4.iters, "true_residual": res,
+        "x_rel_diff_f64": dx, **row}, ok)
+    cv = its.compress_values(A)
+    record(f"compress_values csr {side}^3", {"dtype": str(cv.dtype)},
+           cv.dtype == torch.int8)
+    del A, op, cv, A64, xc, xd, y_dia, x
+
+    # -- 2. run_all.py's format selection at ~1M rows
+    for tag, csr in format_selection_matrices(np, its.CSRMatrix, dev):
+        rcm_calls = []
+        rcm = csr.rcm
+
+        def counting_rcm():
+            rcm_calls.append(1)
+            return rcm()
+
+        csr.rcm = counting_rcm
+        t0 = time.perf_counter()
+        op, perm = csr.auto_format()
+        af_s = time.perf_counter() - t0
+        n = csr.shape[0]
+        bb = torch.ones(n, device=dev)
+        (xf, hf), row = solve(f"cg {tag}", lambda cap: its.cg(
+            op, bb, reltol=FS_RELTOL, maxiter=cap or FS_MAXITER, log=True),
+            lambda r: chunked_steps(r[1].iters))
+        # the true residual through the eager CSR product, which runs no
+        # kernel: the pick's own product is held against it below
+        r = bb.double() - csr.mv(xf).double()
+        res = float(torch.linalg.vector_norm(r)
+                    / torch.linalg.vector_norm(bb.double()))
+        picked = type(op).__name__
+        ok = (picked == FS_PICKS[tag] and perm is None and hf.isconverged
+              and res <= FS_TRUE_RES and bool(torch.isfinite(xf).all())
+              and (tag != "scrambled" or rcm_calls))
+        if picked == "DIAMatrix":
+            ok = ok and row["launches"] == {
+                "dia_spmv_dot": chunked_steps(hf.iters)}
+        else:
+            ok = ok and not row["launches"]
+        record(f"cg {tag} 1M", {
+            "n": n, "nnz": csr.nnz, "picked": picked, "rcm_tried":
+            bool(rcm_calls), "auto_format_s": af_s, "iters": hf.iters,
+            "converged": hf.isconverged, "true_residual": res, **row}, ok)
+        xr = torch.randn(n, generator=g, device=dev)
+        lib = library_csr(torch, csr)
+        yc = product(f"mv csr {tag} 1M", csr, lambda: csr.mv(xr), lib=lib,
+                     x=xr)
+        yo = product(f"mv {picked} {tag} 1M", op, lambda: op.mv(xr), lib=lib,
+                     x=xr)
+        hold_pick(f"mv {picked} {tag} 1M", op, xr, yo, yc)
+        del csr, op, lib, xf, xr, yc, yo
+
+    # -- 2b. a 27-point stencil (a hexahedral Q1 mesh's pattern): auto_format
+    #    picks DIA with 27 diagonals, more than one launch of the DIA kernel
+    #    takes (MAX_DIAGS), so each product is two launches
+    rows, cols, vals, n = stencil27_coo(S27_SIDE, S27_CENTER,
+                                        dtype=np.float32)
+    csr = its.CSRMatrix.from_coo(rows, cols, vals, (n, n), device=dev)
+    del rows, cols, vals
+    t0 = time.perf_counter()
+    op, perm = csr.auto_format()
+    af_s = time.perf_counter() - t0
+    groups = -(-len(getattr(op, "offsets", ())) // MAX_DIAGS)
+    bb = torch.ones(n, device=dev)
+    (xf, hf), row = solve("cg stencil27", lambda cap: its.cg(
+        op, bb, reltol=FS_RELTOL, maxiter=cap or FS_MAXITER, log=True),
+        lambda r: chunked_steps(r[1].iters))
+    res = true_res(csr, xf, bb)
+    picked = type(op).__name__
+    ok = (picked == "DIAMatrix" and perm is None and len(op.offsets) == 27
+          and hf.isconverged and res <= FS_TRUE_RES
+          and row["launches"] == {"dia_spmv_dot":
+                                  groups * chunked_steps(hf.iters)})
+    record(f"cg stencil27 {S27_SIDE}^3", {
+        "n": n, "nnz": csr.nnz, "picked": picked,
+        "diagonals": len(getattr(op, "offsets", ())),
+        "launches_per_product": groups, "auto_format_s": af_s,
+        "iters": hf.iters, "converged": hf.isconverged,
+        "true_residual": res, **row}, ok)
+    xr = torch.randn(n, generator=g, device=dev)
+    lib = library_csr(torch, csr)
+    yc = product(f"mv csr stencil27 {S27_SIDE}^3", csr, lambda: csr.mv(xr),
+                 lib=lib, x=xr)
+    yo = product(f"mv {picked} stencil27 {S27_SIDE}^3", op,
+                 lambda: op.mv(xr), lib=lib, x=xr)
+    hold_pick(f"mv {picked} stencil27 {S27_SIDE}^3", op, xr, yo, yc)
+    if picked == "DIAMatrix":
+        _, d = op.mv_dot(xr)
+        _, dp = dia_spmv_plain(op.diags, op.offsets, xr, xr)
+        check(f"mv_dot stencil27 {S27_SIDE}^3 dot against the plain version",
+              d, dp, TOL_DOT, kind="dot")
+    del csr, op, lib, xf, xr, yc, yo
+
+    # -- 3. the MatrixMarket corpus: the native parse against the Python
+    #    parser; the pipeline's solves (f32 with run_all.py's bars, f64 with
+    #    tests/test_matrixmarket_workloads.py's) and the picks
+    mdir = pathlib.Path(__file__).resolve().parent / "benchmarks" / "matrices"
+    parse = {}
+    for name in MTX:
+        path = str(mdir / f"{name}.mtx")
+        nat, py = native.mm_read(path), native._mm_read_python(path)
+        parse[name] = (nat[0] == tuple(py[0]) and all(
+            np.array_equal(a, np.asarray(b, a.dtype))
+            for a, b in zip(nat[1:], py[1:])))
+    record("mm_read against the Python parser", {"equal": parse},
+           all(parse.values()))
+
+    def load(name, dtype):
+        return its.load_matrix_market(str(mdir / f"{name}.mtx"), dtype=dtype,
+                                      device=dev)
+
+    for dt, tag in ((np.float32, "f32"), (np.float64, "f64")):
+        f64 = tag == "f64"
+        P = load("fem_poisson", dt)
+        d, _ = P.diagonal()
+        Pl = its.DiagonalPreconditioner(d, device=dev)
+        Ph = P.to_hyb()
+        bp = P.mv(torch.ones(P.shape[0], dtype=P.dtype, device=dev))
+        kw = (dict(reltol=1e-8, maxiter=3000) if f64
+              else dict(reltol=1e-6, maxiter=3000))
+        (xp, hp), row = solve(f"cg fem_poisson hyb {tag}", lambda cap: its.cg(
+            Ph, bp, Pl=Pl, log=True, **capped(kw, cap)), lambda r: r[1].iters,
+            trace=False)
+        res = true_res(P, xp, bp)
+        ok = hp.isconverged and (res < 1e-6 and hp.iters < 2500 if f64
+                                 else res < 0.5)
+        record(f"cg fem_poisson hyb jacobi {tag}", {
+            "iters": hp.iters, "true_residual": res, **row}, ok)
+        kw = (dict(reltol=1e-5, restart=60, maxiter=3000) if f64
+              else dict(reltol=1e-4, restart=60, maxiter=3000))
+        (xg, hg), row = solve(f"gmres fem_poisson hyb {tag}",
+                              lambda cap: its.gmres(Ph, bp, Pl=Pl, log=True,
+                                                    **capped(kw, cap)),
+                              lambda r: r[1].iters, trace=False)
+        res = true_res(P, xg, bp)
+        ok = (hg.isconverged and res < 1e-3) if f64 else res < 0.5
+        record(f"gmres(60) fem_poisson hyb jacobi {tag}", {
+            "iters": hg.iters, "converged": hg.isconverged,
+            "true_residual": res, **row}, ok)
+        G = load("mesh_gradient_ls", dt)
+        Gh = G.to_hyb().with_adjoint()
+        if f64:
+            bg = G.mv(torch.from_numpy(np.random.default_rng(
+                3).standard_normal(G.shape[1])).to(dev))
+            kw = dict(atol=1e-10, btol=1e-10, maxiter=2000)
+        else:
+            bg = torch.from_numpy(np.random.default_rng(0).standard_normal(
+                G.shape[0]).astype(np.float32)).to(dev)
+            kw = dict(atol=1e-6, btol=1e-6, maxiter=400)
+        for sname in ("lsqr", "lsmr"):
+            fn = getattr(its, sname)
+            (xl, hl), row = solve(f"{sname} mesh_gradient_ls hyb {tag}",
+                                  lambda cap: fn(Gh, bg, log=True,
+                                                 **capped(kw, cap)),
+                                  lambda r: r[1].iters, trace=False)
+            rv = bg.double() - G.mv(xl.double() if f64 else xl).double()
+            if f64:
+                res = float(torch.linalg.vector_norm(rv)
+                            / torch.linalg.vector_norm(bg))
+                ok = hl.isconverged and res < 1e-6
+            else:
+                res = float(torch.linalg.vector_norm(G.rmv(rv.float()))
+                            / torch.linalg.vector_norm(bg))
+                ok = hl.isconverged and res < 0.1
+            record(f"{sname} mesh_gradient_ls hyb adjoint {tag}", {
+                "iters": hl.iters, "converged": hl.isconverged,
+                ("true_residual" if f64 else "normal_residual_over_b"): res,
+                **row}, ok)
+        E = load("elasticity_2d", dt)
+        dE, _ = E.diagonal()
+        Eb = its.BSRMatrix.from_csr(E, 2)
+        be = E.mv(torch.ones(E.shape[0], dtype=E.dtype, device=dev))
+        kw = (dict(reltol=1e-7, maxiter=6000) if f64
+              else dict(reltol=1e-6, maxiter=4000))
+        (xe, he), row = solve(f"cg elasticity_2d bsr {tag}", lambda cap: its.cg(
+            Eb, be, Pl=its.DiagonalPreconditioner(dE, device=dev), log=True,
+            **capped(kw, cap)), lambda r: r[1].iters, trace=False)
+        res = true_res(E, xe, be)
+        ok = he.isconverged and res < 1e-5 if f64 else res < 0.5
+        record(f"cg elasticity_2d bsr(2) jacobi {tag}", {
+            "iters": he.iters, "true_residual": res, **row}, ok)
+    for name, pick in MTX_PICKS.items():
+        for dt, tag in ((np.float32, "f32"), (np.float64, "f64")):
+            M = load(name, dt)
+            op, perm = M.auto_format()
+            n = M.shape[0]
+            if name == "fd_band9":
+                bm = M.mv(torch.from_numpy(np.random.default_rng(
+                    5).standard_normal(n).astype(dt)).to(dev))
+                kw = dict(reltol=1e-8 if tag == "f64" else 1e-6,
+                          maxiter=4000)
+                fn, bar = its.cg, 1e-4
+            elif name == "powerlaw_graph":
+                bm = torch.ones(n, dtype=M.dtype, device=dev)
+                kw = dict(reltol=1e-6, maxiter=2000)
+                fn, bar = its.cg, 1e-4
+            else:
+                bm = torch.ones(n, dtype=M.dtype, device=dev)
+                kw = dict(restart=20, reltol=1e-6, maxiter=400)
+                fn, bar = its.gmres, 1e-4
+            (xm, hm), row = solve(f"{name} {tag}", lambda cap: fn(
+                op, bm, log=True, **capped(kw, cap)), lambda r: r[1].iters,
+                trace=False)
+            res = true_res(M, xm, bm)
+            # f32: CG on DIA launches the DIA kernel a step, GMRES panel
+            # MGS (op.mv and an f32 panel); f64 launches none
+            want = set()
+            if tag == "f32":
+                want = {"dia_spmv_dot"} if pick == "DIAMatrix" else (
+                    {"panel_mgs"} if fn is its.gmres else set())
+            ok = (type(op).__name__ == pick and perm is None
+                  and hm.isconverged and res < bar
+                  and set(row["launches"]) == want)
+            if want == {"dia_spmv_dot"}:
+                ok = ok and row["launches"]["dia_spmv_dot"] == chunked_steps(
+                    hm.iters)
+            record(f"{fn.__name__} {name} auto_format {tag}", {
+                "picked": type(op).__name__, "iters": hm.iters,
+                "true_residual": res, "expected_kernels": sorted(want),
+                **row}, ok)
+
+    # -- 4. run_all.py's sprand workloads at their published size
+    ns = SPRAND_GMRES_N
+    S = random_sparse(ns, ns, 5.0 / ns, seed=1, dtype=np.float32,
+                      symmetrize=True, shift=4.0, device=dev)
+    Sh = S.to_hyb()
+    bs_ = torch.ones(S.shape[0], device=dev)
+    (xs, hs), row = solve("gmres sprand 100k", lambda cap: its.gmres(
+        Sh, bs_, log=True, **capped(SPRAND_GMRES, cap)),
+        lambda r: r[1].iters)
+    res = true_res(S, xs, bs_)
+    route = ("op.mv + panel_mgs (f32 panel)"
+             if row["launches"].get("panel_mgs") else
+             f"launches {row['launches']}")
+    ok = (hs.isconverged and res <= FS_TRUE_RES
+          and set(row["launches"]) == {"panel_mgs"})
+    record("gmres(15) sprand 100k hyb", {
+        "iters": hs.iters, "converged": hs.isconverged,
+        "true_residual": res, "route": route, **row}, ok)
+    xr = torch.randn(S.shape[0], generator=g, device=dev)
+    lib = library_csr(torch, S)
+    product("mv csr sprand 100k", S, lambda: S.mv(xr), lib=lib, x=xr)
+    product("mv hyb sprand 100k", Sh, lambda: Sh.mv(xr), lib=lib, x=xr)
+    del S, Sh, lib
+    ml, nl = SPRAND_LSQ_SHAPE
+    L = random_sparse(ml, nl, 10.0 / nl, seed=3, dtype=np.float32,
+                      device=dev)
+    Lh = L.to_hyb()
+    La = Lh.with_adjoint()
+    bl = torch.ones(L.shape[0], device=dev)
+    for sname in ("lsqr", "lsmr"):
+        fn = getattr(its, sname)
+        (xl, hl), row = solve(f"{sname} sprand 200k x 50k", lambda cap: fn(
+            La, bl, log=True, **capped(SPRAND_LSQ, cap)),
+            lambda r: r[1].iters)
+        gn = float(torch.linalg.vector_norm(La.rmv(bl - La.mv(xl)))
+                   / torch.linalg.vector_norm(La.rmv(bl)))
+        ok = hl.isconverged and gn <= LSQ_NORMAL_RES and not row["launches"]
+        record(f"{sname} sprand 200k x 50k hyb adjoint", {
+            "iters": hl.iters, "converged": hl.isconverged,
+            "normal_residual": gn, **row}, ok)
+    xm = torch.randn(L.shape[1], generator=g, device=dev)
+    xn = torch.randn(L.shape[0], generator=g, device=dev)
+    lib = library_csr(torch, L)
+    libt = library_csr(torch, La.adj.to_csr())
+    product("mv hyb sprand 200k x 50k", Lh, lambda: Lh.mv(xm), lib=lib,
+            x=xm)
+    product("rmv hyb (scatter) sprand 200k x 50k", Lh, lambda: Lh.rmv(xn),
+            "rmv", lib=libt, x=xn)
+    product("rmv hyb with_adjoint sprand 200k x 50k", La,
+            lambda: La.rmv(xn), "rmv", lib=libt, x=xn)
+    del L, Lh, La, lib, libt
+    blocks, bc, br, shape = svdl_bsr_matrix(np)
+    B = its.BSRMatrix(blocks, bc, br, shape, device=dev)
+    key = torch.Generator(device=dev)
+    (vals, _, hv), row = solve("svdl bsr 600k x 400k", lambda cap: its.svdl(
+        B, log=True, key=key.manual_seed(2), **capped(SVDL_BSR, cap)),
+        lambda r: r[2].iters)
+    sref, scipy_s = svds_result(reference, SVDS_TIMEOUT)
+    sref = np.asarray(sref)
+    got = vals.double().cpu().numpy()
+    err = float(np.max(np.abs(got - sref) / sref))
+    ok = err <= SVDL_SCIPY_REL and bool(torch.isfinite(vals).all())
+    record("svdl nsv=6 bsr 600k x 400k", {
+        "iters": hv.iters, "converged": hv.isconverged,
+        "sigma": [float(v) for v in got], "scipy_sigma": sref.tolist(),
+        "max_rel_err_vs_scipy": err, "scipy_s": scipy_s, **row}, ok)
+    xb = torch.randn(shape[1], generator=g, device=dev)
+    xt = torch.randn(shape[0], generator=g, device=dev)
+    bcsr = its.CSRMatrix.from_coo(
+        (br[:, None, None] * 8 + np.arange(8)[None, :, None]).repeat(8, 2)
+        .ravel(), (bc[:, None, None] * 8 + np.arange(8)[None, None, :])
+        .repeat(8, 1).ravel(), blocks.ravel(), shape, device=dev)
+    product("mv bsr 600k x 400k", B, lambda: B.mv(xb),
+            lib=library_csr(torch, bcsr), x=xb)
+    product("rmv bsr (scatter) 600k x 400k", B, lambda: B.rmv(xt), "rmv")
+    del B, bcsr, blocks
+    print(json.dumps({"phase15": runs, "phase15_products": products}))
+    print(f"  phase 15: {elapsed():.1f} s")
+    if bad:
+        raise AssertionError(f"phase 15 runs off their limits: {bad}")
+    return runs, products, launches
+
+
 def panel_ortho_entries(ptimes, perr, r0):
     """The kernels-line entries of the two sweeps: f32 panel (the main
     path's), the bf16 panel beside it."""
@@ -2034,6 +2779,7 @@ def main():
     from torch.profiler import ProfilerActivity, profile
 
     import iterativesolvers_tpu_torch as its
+    from iterativesolvers_tpu_torch import native
     from iterativesolvers_tpu_torch.ops import (_build, cuda_arnoldi, cuda_mgs,
                                                cuda_panel_ortho, cuda_stencil)
     from iterativesolvers_tpu_torch.ops.cuda_spmv import (
@@ -2060,6 +2806,12 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s, {sorted(libs)}")
+    t0 = time.perf_counter()
+    if native.get_lib() is None:
+        raise RuntimeError(f"the native host library did not build or load: "
+                           f"{native.build_error()}")
+    print(f"native host library (g++): {time.perf_counter() - t0:.1f} s, "
+          f"{native.library_path()}")
     ptxas = sweep_resources(_build)
     spmv_resources(_build)
 
@@ -2482,6 +3234,24 @@ def main():
             key = p14_keys[k["name"]]
             k["phase14_launches"] = p14[key]
             k["mv_rows"] = rows_ab[key]
+
+    # ---- 15. the stored formats, auto_format, MatrixMarket I/O -----------
+    t0 = time.perf_counter()
+    _, p15_products, p15 = formats_phase(
+        torch, its, A, runs, x64,
+        gcounters + (cuda_panel_ortho.panel_dots,
+                     cuda_panel_ortho.panel_update), bound)
+    # phase 15's launches by run, joined to the kernels entries by kernel
+    # (GMRES on the HYB matrix orthogonalizes an f32 panel: panel_mgs's f32
+    # row, beside the entry's bf16 one)
+    p15_keys = {"dia_spmv_dot[f32 diagonals]": "dia_spmv_dot",
+                "panel_mgs[bf16 panel]": "panel_mgs"}
+    if not set(p15) <= set(p15_keys.values()):
+        raise AssertionError(f"phase 15 launched {sorted(p15)}, expected "
+                             f"only {sorted(p15_keys.values())}")
+    for k in kernels:
+        if k["name"] in p15_keys:
+            k["phase15_launches"] = p15.get(p15_keys[k["name"]], {})
 
     for k in kernels:
         if "bytes" in k:

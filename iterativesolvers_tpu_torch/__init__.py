@@ -19,7 +19,15 @@ sharded-panel CGS2 route over ``torch.distributed``
 GMRES's mesh-reduced orthogonalization where that route does not apply;
 the row-panel products ``mv_rows`` (the stencil and DIA kernels once per
 row) and block CG, LSQR, LSMR, LOBPCG and svdl on them, with the matrix-free
-``GradientOperator``.
+``GradientOperator``; the stored formats CSR, ELL, HYB and BSR with
+``auto_format`` (which sends banded matrices to the DIA kernel), the native
+host layer (``native``, built by g++ at first use) and the MatrixMarket
+loader.
+
+Still to port (the JAX package's names this package lacks): the ILU, IC,
+red-black IC and Eisenstat preconditioners, ``LevelScheduledTriangular``,
+``RBReducedSystem`` and the stationary methods (jacobi, gauss_seidel, sor,
+ssor, their iterables and ``SingularError``).
 """
 
 from .operators.linear_operator import (
@@ -44,8 +52,14 @@ from .operators.stencil import (
     laplacian,
 )
 from .operators.sparse import (
+    BSRMatrix,
+    CSRMatrix,
     DIAMatrix,
+    ELLMatrix,
+    HYBMatrix,
     compress_values,
+    csr_from_dense,
+    dia_from_dense,
     values_representable,
 )
 from .solvers.bicgstabl import bicgstabl, bicgstabl_iterator
@@ -67,5 +81,6 @@ from .ops.hessenberg import hessenberg_lstsq
 from .ops.orthogonalize import ORTH_METHODS, orthogonalize_and_normalize
 from .utils.dtypes import zerox
 from .utils.history import ConvergenceHistory
+from .utils.io import load_matrix_market
 from .utils.spectral import gershgorin_bounds, power_bound
 from . import parallel

@@ -44,6 +44,12 @@
 // finish_dot), in an order fixed by n and the grid; the grid is as many
 // blocks as the SMs hold, with the dot as without it.
 //
+// More than kMaxDiags diagonals: the wrapper launches the kernel once for
+// each group of kMaxDiags, in order, each launch after the first starting
+// every row's chain from the y the one before stored (DiaArgs::accumulate),
+// so the rows are the FMA chain one launch over all the diagonals would
+// make; only the last launch takes the dot.
+//
 // What the TPU design needed and this one does not: the halo/padding plan
 // (1024-lane aligned windows, padded diagonals); here the ragged edge is
 // masked from the index.  The TPU grid summed the dot in SMEM across
@@ -53,6 +59,7 @@
 
 namespace its {
 
+// Diagonals one launch takes (the wrapper launches more in groups).
 constexpr int kMaxDiags = 16;
 // Diagonals whose loads a run issues together: a matrix with more takes
 // its diagonals in groups of kGroup, one after the other, so the registers
@@ -61,6 +68,7 @@ constexpr int kGroup = 8;
 
 struct DiaArgs {
   int nd;
+  int accumulate;  // 1: each row's chain starts from y, else from 0
   int off[kMaxDiags];
   const void* diag[kMaxDiags];
 };
@@ -69,9 +77,10 @@ struct DiaArgs {
 // dropped by a select.
 template <typename D>
 __device__ __forceinline__ float dia_row(const DiaArgs& a,
-                                         const float* __restrict__ x, int i,
+                                         const float* __restrict__ x,
+                                         const float* y, int i,
                                          int n) {
-  float acc = 0.0f;
+  float acc = a.accumulate ? y[i] : 0.0f;
 #pragma unroll
   for (int k = 0; k < kMaxDiags; ++k) {
     if (k < a.nd) {
@@ -95,8 +104,20 @@ __device__ __forceinline__ void dia_run(
   constexpr int R = kVecOf<D>;
   if (vec && r0 + R <= n) {
     float acc[R];
+    if (a.accumulate) {
+      // plain loads: y is written by this launch
 #pragma unroll
-    for (int e = 0; e < R; ++e) acc[e] = 0.0f;
+      for (int p = 0; p < R; p += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(y + r0 + p);
+        acc[p] = v.x;
+        acc[p + 1] = v.y;
+        acc[p + 2] = v.z;
+        acc[p + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < R; ++e) acc[e] = 0.0f;
+    }
 #pragma unroll
     for (int k0 = 0; k0 < kMaxDiags; k0 += kGroup) {
       if (k0 < a.nd) {
@@ -150,7 +171,7 @@ __device__ __forceinline__ void dia_run(
     for (int e = 0; e < R; ++e) {
       const int i = r0 + e;
       if (i < n) {
-        const float yi = dia_row<D>(a, x, i, n);
+        const float yi = dia_row<D>(a, x, y, i, n);
         y[i] = yi;
         if (kDot) {
           set_at(pu, e, u[i]);
@@ -214,7 +235,9 @@ extern "C" int its_dia_blocks_per_sm(int diag_dtype, int with_dot, int nd,
 }
 
 // diag_dtype: 0 = float32, 1 = bfloat16, 2 = int8.  `diags` and `offs` are
-// host arrays of `nd` device pointers and offsets.  vec = 1 when x, u, y and
+// host arrays of `nd` device pointers and offsets (nd <= kMaxDiags; the
+// wrapper launches more in groups).  accumulate = 1 adds the products to
+// the y already stored (each row's chain starts from it).  vec = 1 when x, u, y and
 // every diagonal are 16-byte aligned (else every row takes the per-row
 // loads).  With the dot: `partials` holds `grid`
 // floats, `ticket` one unsigned that is 0 between launches (the kernel
@@ -224,11 +247,13 @@ extern "C" int its_dia_spmv(int diag_dtype, int with_dot,
                             const void* const* diags, const int* offs, int nd,
                             const void* x, const void* u, void* y,
                             void* partials, void* ticket, void* dot, int n,
-                            int grid, int vec, void* stream) {
+                            int grid, int vec, int accumulate,
+                            void* stream) {
   using namespace its;
   if (nd < 1 || nd > kMaxDiags || grid < 1 || n < 1) return -1;
   DiaArgs a = {};
   a.nd = nd;
+  a.accumulate = accumulate;
   for (int k = 0; k < nd; ++k) {
     a.off[k] = offs[k];
     a.diag[k] = diags[k];

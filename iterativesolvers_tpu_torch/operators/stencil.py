@@ -217,9 +217,23 @@ class GradientOperator(LinearOperator):
         return out
 
     def to_csr(self):
-        raise NotImplementedError(
-            "GradientOperator.to_csr needs CSRMatrix, which the port does not "
-            "have yet (ROADMAP.md, Queue A item 6)")
+        """Materialize as a :class:`CSRMatrix` on the operator's device
+        (tests and interop; small grids)."""
+        from .sparse import CSRMatrix
+
+        n = self.n
+        i = np.arange(n)
+        rows, cols, vals = [], [], []
+        for k, (s, e) in enumerate(self._terms):
+            valid = (i // s) % e < e - 1
+            r = i[valid] + k * n
+            rows += [r, r]
+            cols += [i[valid], i[valid] + s]
+            vals += [np.full(valid.sum(), -1.0), np.full(valid.sum(), 1.0)]
+        return CSRMatrix.from_coo(
+            np.concatenate(rows), np.concatenate(cols),
+            torch.from_numpy(np.concatenate(vals)).to(self._dtype),
+            self.shape, device=self.device)
 
 
 def advection_diffusion_stencil(N: int = 50, beta: float = 1000.0,

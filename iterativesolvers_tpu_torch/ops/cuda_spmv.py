@@ -12,9 +12,14 @@ where a column outside ``[0, n)`` reads 0; ``dia_spmv_dot`` also returns
 matrix is square); the diagonals are f32, bf16 or int8, and every product is
 promoted to f32 before it is summed.
 
-A CUDA tensor launches the kernel or raises (also past the kernel's limits:
-at most ``MAX_DIAGS`` diagonals, 32-bit row indices); a CPU tensor takes the
-plain version :func:`dia_spmv_plain`, which has no such limits.
+A CUDA tensor launches the kernel or raises (also past its limit of 32-bit
+row indices); a CPU tensor takes the plain version :func:`dia_spmv_plain`,
+which has no such limit.  A launch takes at most ``MAX_DIAGS`` diagonals: a
+matrix with more launches the kernel once for each group of ``MAX_DIAGS``,
+in order, each launch after the first adding to the y the one before
+stored, so that every row is the FMA chain one launch over all the
+diagonals would make; only the last launch takes the dot.  Each launch is
+counted.
 
 The kernel takes runs of ``run_rows(diag dtype)`` rows a thread (16 bytes
 of each diagonal), and finishes the dot in the same launch on a ticket
@@ -37,7 +42,7 @@ from .cuda_stencil import (VEC_BYTES, _check_out, aligned, blocks_per_sm,
 __all__ = ["dia_spmv", "dia_spmv_dot", "dia_spmv_rows", "dia_spmv_plain",
            "MAX_DIAGS", "DIAG_DTYPES"]
 
-MAX_DIAGS = 16
+MAX_DIAGS = 16                   # diagonals one launch takes
 _DIAG_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 DIAG_DTYPES = tuple(_DIAG_CODE)
 
@@ -93,11 +98,8 @@ def _check(diags, offsets, x, u):
 
 @functools.lru_cache(maxsize=64)
 def _check_kernel(n, offsets):
-    """The kernel's limits, checked before a launch (the plain version has
+    """The kernel's limit, checked before a launch (the plain version has
     none)."""
-    if len(offsets) > MAX_DIAGS:
-        raise ValueError(
-            f"at most {MAX_DIAGS} diagonals, got {len(offsets)}")
     span = max(abs(int(o)) for o in offsets)
     if n > max_rows(span):
         raise ValueError(f"n = {n} is too large for 32-bit row indices")
@@ -109,7 +111,7 @@ def _lib():
     lib.its_dia_spmv.restype = ctypes.c_int
     lib.its_dia_spmv.argtypes = (
         [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+         ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
         + [ctypes.c_void_p])
     lib.its_dia_blocks_per_sm.restype = ctypes.c_int
     lib.its_dia_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
@@ -143,33 +145,39 @@ def _diag_args(ptrs, offsets):
 
 
 def _launch(diags, offsets, x, u, out=None):
+    """(y, dot, launches): one launch for each group of ``MAX_DIAGS``
+    diagonals, the dot (``u`` given) in the last."""
     if x.device.type != "cuda":
         raise ValueError(f"DIA kernel runs on CUDA tensors, got {x.device}")
-    n, nd = x.shape[0], len(diags)
+    n = x.shape[0]
     _check_kernel(n, tuple(offsets))
     dev = x.device
-    dptr, optr, diags_aligned, _ = _diag_args(
-        tuple(d.data_ptr() for d in diags), tuple(offsets))
-    with_dot = u is not None
     stream = raw_stream(dev)
-    grid, partials, ticket = _grid(diags[0].dtype, with_dot, nd, n, dev,
-                                   stream if with_dot else 0)
     y = torch.empty_like(x) if out is None else _check_out(out, x)
-    if with_dot:
-        dot = torch.empty((), dtype=torch.float32, device=dev)
-        red = (partials.data_ptr(), ticket, dot.data_ptr())
-    else:
-        dot, red = None, (None, None, None)
-    u = x if u is None else u
-    vec = diags_aligned and aligned(x, u, y)
-    with on_device(dev):
-        err = _lib().its_dia_spmv(
-            _DIAG_CODE[diags[0].dtype], int(with_dot), dptr, optr, nd,
-            x.data_ptr(), u.data_ptr(), y.data_ptr(), *red, n, grid,
-            int(vec), stream)
-    if err != 0:
-        raise RuntimeError(f"DIA kernel launch failed (error {err})")
-    return y, dot
+    dot = None
+    starts = range(0, len(diags), MAX_DIAGS)
+    for g0 in starts:
+        ds, offs = diags[g0:g0 + MAX_DIAGS], tuple(offsets[g0:g0 + MAX_DIAGS])
+        dptr, optr, diags_aligned, _ = _diag_args(
+            tuple(d.data_ptr() for d in ds), offs)
+        with_dot = u is not None and g0 == starts[-1]
+        grid, partials, ticket = _grid(ds[0].dtype, with_dot, len(ds), n,
+                                       dev, stream if with_dot else 0)
+        if with_dot:
+            dot = torch.empty((), dtype=torch.float32, device=dev)
+            red = (partials.data_ptr(), ticket, dot.data_ptr())
+        else:
+            red = (None, None, None)
+        uu = u if with_dot else x
+        vec = diags_aligned and aligned(x, uu, y)
+        with on_device(dev):
+            err = _lib().its_dia_spmv(
+                _DIAG_CODE[ds[0].dtype], int(with_dot), dptr, optr, len(ds),
+                x.data_ptr(), uu.data_ptr(), y.data_ptr(), *red, n, grid,
+                int(vec), int(g0 > 0), stream)
+        if err != 0:
+            raise RuntimeError(f"DIA kernel launch failed (error {err})")
+    return y, dot, len(starts)
 
 
 def dia_spmv(diags, offsets, x, out=None):
@@ -178,16 +186,16 @@ def dia_spmv(diags, offsets, x, out=None):
     _check(diags, offsets, x, None)
     if x.device.type == "cpu":
         return dia_spmv_plain(diags, offsets, x)
-    y, _ = _launch(diags, offsets, x, None, out)
-    dia_spmv.launches += 1
+    y, _, launches = _launch(diags, offsets, x, None, out)
+    dia_spmv.launches += launches
     return y
 
 
 def dia_spmv_rows(diags, offsets, X):
     """Y = rows ``A x_i`` of the (k, n) f32 panel X (vectors as rows).  A
-    CUDA tensor launches the DIA kernel once per row into a contiguous
-    (k, n) Y (each launch counted by :func:`dia_spmv`; the kernel's limits
-    are checked before the first); a CPU tensor takes the plain version of
+    CUDA tensor launches the DIA kernel once per row (and group of
+    diagonals) into a contiguous (k, n) Y (each launch counted by
+    :func:`dia_spmv`; the kernel's limit is checked before the first); a CPU tensor takes the plain version of
     the (n, k) columns ``X.T``.  Each row of Y is the same bits as
     :func:`dia_spmv` of that row on the same device."""
     if X.ndim != 2:
@@ -211,9 +219,9 @@ def dia_spmv_dot(diags, offsets, x, u):
     _check(diags, offsets, x, u)
     if x.device.type == "cpu":
         return dia_spmv_plain(diags, offsets, x, u)
-    out = _launch(diags, offsets, x, u)
-    dia_spmv_dot.launches += 1
-    return out
+    y, dot, launches = _launch(diags, offsets, x, u)
+    dia_spmv_dot.launches += launches
+    return y, dot
 
 
 dia_spmv.launches = 0

@@ -5,7 +5,9 @@ package is taken apart into numpy arrays and Python tuples (for example
 ``np.asarray(A.diags[k])``, ``A.offsets``, ``St.terms``,
 ``float(St.center)``) and rebuilt here on ``device``, or row-sharded on a
 mesh of ranks (``parallel/sharded.py``).  Nothing of the JAX
-package is imported: the caller hands over plain data.
+package is imported: the caller hands over plain data.  Values keep their
+dtype (an ``ml_dtypes`` bfloat16 array becomes a bfloat16 tensor); index
+arrays are stored as the formats store them.
 """
 
 from __future__ import annotations
@@ -14,23 +16,18 @@ import numpy as np
 import torch
 
 from ..operators.linear_operator import ScaledIdentityPlusOperator
-from ..operators.sparse import DIAMatrix
+from ..operators.sparse import (BSRMatrix, CSRMatrix, DIAMatrix, ELLMatrix,
+                                HYBMatrix)
 from ..operators.stencil import GradientOperator, StencilOperator
+from .dtypes import host_tensor
 
-__all__ = ["dia_from_arrays", "stencil_from_arrays", "operator_from_arrays",
-           "halo_dia_from_arrays", "halo_stencil_from_arrays"]
+__all__ = ["dia_from_arrays", "stencil_from_arrays", "csr_from_arrays",
+           "ell_from_arrays", "hyb_from_arrays", "bsr_from_arrays",
+           "operator_from_arrays", "halo_dia_from_arrays",
+           "halo_stencil_from_arrays", "host_tensor"]
 
-KINDS = ("dia", "stencil", "gradient", "scaled_identity_plus")
-
-
-def host_tensor(a) -> torch.Tensor:
-    """A copy of a host array as a tensor of the same dtype.  numpy has no
-    bfloat16 of its own; an ``ml_dtypes`` bfloat16 array goes through f32,
-    which holds every bfloat16 value exactly."""
-    a = np.array(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(a)
+KINDS = ("dia", "stencil", "gradient", "scaled_identity_plus", "csr", "ell",
+         "hyb", "bsr")
 
 
 def dia_from_arrays(diags, offsets, shape, device="cuda") -> DIAMatrix:
@@ -39,6 +36,44 @@ def dia_from_arrays(diags, offsets, shape, device="cuda") -> DIAMatrix:
     return DIAMatrix([host_tensor(d) for d in diags],
                      tuple(int(o) for o in offsets), tuple(shape),
                      device=device)
+
+
+def csr_from_arrays(data, indices, indptr, shape, device="cuda") -> CSRMatrix:
+    """A :class:`CSRMatrix` from its values, column indices and row
+    pointers (the JAX operator's ``data``, ``indices``, ``indptr``)."""
+    return CSRMatrix(host_tensor(data), np.asarray(indices),
+                     np.asarray(indptr), tuple(shape), device=device)
+
+
+def ell_from_arrays(data, cols, shape, adj=None, gather_chunk_rows=None,
+                    device="cuda") -> ELLMatrix:
+    """An :class:`ELLMatrix` from its (n, w) values and columns; ``adj``,
+    the keys of this function for a precomputed adjoint, or None."""
+    if adj is not None:
+        adj = ell_from_arrays(device=device, **adj)
+    return ELLMatrix(host_tensor(data), np.asarray(cols), tuple(shape),
+                     adj=adj, gather_chunk_rows=gather_chunk_rows,
+                     device=device)
+
+
+def hyb_from_arrays(ell, tail_rows, tail_cols, tail_vals, shape, adj=None,
+                    device="cuda") -> HYBMatrix:
+    """A :class:`HYBMatrix` from its ELL part (the keys of
+    :func:`ell_from_arrays`), its COO tail and shape; ``adj``, the keys of
+    this function for a precomputed adjoint, or None."""
+    if adj is not None:
+        adj = hyb_from_arrays(device=device, **adj)
+    return HYBMatrix(ell_from_arrays(device=device, **ell),
+                     np.asarray(tail_rows), np.asarray(tail_cols),
+                     host_tensor(tail_vals), tuple(shape), adj=adj)
+
+
+def bsr_from_arrays(blocks, block_cols, block_row_ids, shape,
+                    device="cuda") -> BSRMatrix:
+    """A :class:`BSRMatrix` from its (nblk, bs, bs) blocks and their block
+    columns and block rows."""
+    return BSRMatrix(host_tensor(blocks), np.asarray(block_cols),
+                     np.asarray(block_row_ids), tuple(shape), device=device)
 
 
 def stencil_from_arrays(n, center, terms, coeffs, dtype,
@@ -78,12 +113,14 @@ def _scalar(c):
 def operator_from_arrays(spec: dict, device="cuda", mesh=None):
     """Dispatch on ``spec["kind"]``: ``"dia"`` takes the keys of
     :func:`dia_from_arrays`, ``"stencil"`` those of
-    :func:`stencil_from_arrays`, ``"gradient"`` a ``GradientOperator``'s
-    ``dims`` and ``dtype``, ``"scaled_identity_plus"`` the spec of the
-    ``inner`` operator and ``sigma`` (a ``ScaledIdentityPlusOperator``).
-    With a ``mesh`` a ``"dia"`` or ``"stencil"`` operator is the row-sharded
-    halo operator of that kind on the mesh (``device`` is then the
-    mesh's)."""
+    :func:`stencil_from_arrays`, ``"csr"``, ``"ell"``, ``"hyb"`` and
+    ``"bsr"`` those of :func:`csr_from_arrays`, :func:`ell_from_arrays`,
+    :func:`hyb_from_arrays` and :func:`bsr_from_arrays`, ``"gradient"`` a
+    ``GradientOperator``'s ``dims`` and ``dtype``,
+    ``"scaled_identity_plus"`` the spec of the ``inner`` operator and
+    ``sigma`` (a ``ScaledIdentityPlusOperator``).  With a ``mesh`` a
+    ``"dia"`` or ``"stencil"`` operator is the row-sharded halo operator of
+    that kind on the mesh (``device`` is then the mesh's)."""
     kind = spec.get("kind")
     args = {k: v for k, v in spec.items() if k != "kind"}
     if kind not in KINDS:
@@ -94,11 +131,13 @@ def operator_from_arrays(spec: dict, device="cuda", mesh=None):
             operator_from_arrays(args["inner"], device, mesh),
             _scalar(args["sigma"]))
     if mesh is not None:
-        if kind == "gradient":
-            raise ValueError("GradientOperator has no row-sharded form")
+        if kind not in ("dia", "stencil"):
+            raise ValueError(f"a {kind!r} operator has no row-sharded form")
         build = (halo_dia_from_arrays if kind == "dia"
                  else halo_stencil_from_arrays)
         return build(mesh=mesh, **args)
     build = {"dia": dia_from_arrays, "stencil": stencil_from_arrays,
-             "gradient": GradientOperator}[kind]
+             "gradient": GradientOperator, "csr": csr_from_arrays,
+             "ell": ell_from_arrays, "hyb": hyb_from_arrays,
+             "bsr": bsr_from_arrays}[kind]
     return build(device=device, **args)

@@ -29,6 +29,16 @@ def as_dtype(dtype) -> torch.dtype:
     return torch.from_numpy(np.zeros((), dtype=np.dtype(dtype))).dtype
 
 
+def host_tensor(a) -> torch.Tensor:
+    """A copy of a host array as a tensor of the same dtype.  numpy has no
+    bfloat16 of its own; an ``ml_dtypes`` bfloat16 array goes through f32,
+    which holds every bfloat16 value exactly."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def solve_dtype(a_dtype, b_dtype) -> torch.dtype:
     """dtype of ``b / A`` — the natural dtype for the solution iterates."""
     return torch.promote_types(as_dtype(a_dtype), as_dtype(b_dtype))

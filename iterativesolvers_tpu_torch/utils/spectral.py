@@ -6,7 +6,7 @@ The reference requires the user to supply ``(lmin, lmax)`` positionally
 make the common cases one call:
 
 * :func:`gershgorin_bounds` — rigorous enclosure from diagonal dominance
-  (once, on a stencil's terms or a DIA matrix's diagonals).
+  (once, on a stencil's terms, a DIA matrix's diagonals or a CSR form).
 * :func:`power_bound` — a power-method estimate of ``lambda_max`` on the
   operator's device, with a safety factor, for matrices whose Gershgorin
   radius is too pessimistic.
@@ -23,11 +23,12 @@ __all__ = ["gershgorin_bounds", "power_bound"]
 def gershgorin_bounds(A) -> tuple[float, float]:
     """Rigorous spectral enclosure [min(d - r), max(d + r)] over the
     Gershgorin discs (real symmetric reading) of a ``StencilOperator``
-    (from its terms, as the JAX package) or a ``DIAMatrix`` (from its
-    diagonals: the enclosure the JAX package's ``to_csr()`` route gives).
-    For Chebyshev the lower bound must be positive — the caller shifts or
-    estimates differently otherwise."""
-    from ..operators.sparse import DIAMatrix
+    (from its terms, as the JAX package), a ``DIAMatrix`` (from its
+    diagonals: the enclosure the JAX package's ``to_csr()`` route gives) or
+    any operator with a CSR form (``CSRMatrix``, or ``to_csr()``: ELL, HYB,
+    ``GradientOperator``), on the host.  For Chebyshev the lower bound must
+    be positive — the caller shifts or estimates differently otherwise."""
+    from ..operators.sparse import CSRMatrix, DIAMatrix
     from ..operators.stencil import StencilOperator
 
     if isinstance(A, StencilOperator):
@@ -53,10 +54,20 @@ def gershgorin_bounds(A) -> tuple[float, float]:
             else:
                 r += v.abs().double()
         return float((d - r).min()), float((d + r).max())
-    raise NotImplementedError(
-        f"gershgorin_bounds of a {type(A).__name__}: the port takes a "
-        "StencilOperator or a DIAMatrix; the CSR route of the other formats "
-        "comes with the sparse formats (ROADMAP.md, Queue A item 6)")
+    if not (isinstance(A, CSRMatrix) or hasattr(A, "to_csr")):
+        raise TypeError(
+            f"gershgorin_bounds of a {type(A).__name__}: it takes a "
+            "StencilOperator, a DIAMatrix or an operator with a CSR form")
+    csr = A if isinstance(A, CSRMatrix) else A.to_csr()
+    rows, cols, vals = csr._host_coo()
+    n = csr.shape[0]
+    d = np.zeros(n, np.float64)
+    diag_mask = rows == cols
+    d[rows[diag_mask]] = vals[diag_mask].real
+    r = np.zeros(n, np.float64)
+    off = ~diag_mask
+    np.add.at(r, rows[off], np.abs(vals[off]))
+    return float((d - r).min()), float((d + r).max())
 
 
 def power_bound(A, iters: int = 30, *, key=None, safety: float = 1.05):

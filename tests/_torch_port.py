@@ -47,3 +47,47 @@ def rel(a, b):
     a = np.asarray(a, dtype=dt)
     b = np.asarray(b, dtype=dt)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def sparse_spec(A):
+    """The carry-across spec (``convert.operator_from_arrays``) of a JAX
+    CSR, ELL, HYB, BSR or DIA matrix: its arrays as numpy."""
+    name = type(A).__name__
+    a = np.asarray
+    if name == "CSRMatrix":
+        return dict(kind="csr", data=a(A.data), indices=a(A.indices),
+                    indptr=a(A.indptr), shape=A.shape)
+    if name == "ELLMatrix":
+        return dict(kind="ell", **_ell_args(A))
+    if name == "HYBMatrix":
+        return dict(kind="hyb", **_hyb_args(A))
+    if name == "BSRMatrix":
+        return dict(kind="bsr", blocks=a(A.blocks),
+                    block_cols=a(A.block_cols),
+                    block_row_ids=a(A.block_row_ids), shape=A.shape)
+    if name == "DIAMatrix":
+        return dict(kind="dia", diags=[a(d) for d in A.diags],
+                    offsets=A.offsets, shape=A.shape)
+    raise TypeError(name)
+
+
+def _ell_args(A):
+    out = dict(data=np.asarray(A.data), cols=np.asarray(A.cols),
+               shape=A.shape, gather_chunk_rows=A._gather_chunk_rows)
+    if A.adj is not None:
+        out["adj"] = _ell_args(A.adj)
+    return out
+
+
+def _hyb_args(A):
+    ell = _ell_args(A.ell)
+    return dict(ell=ell, tail_rows=np.asarray(A.tail_rows),
+                tail_cols=np.asarray(A.tail_cols),
+                tail_vals=np.asarray(A.tail_vals), shape=A.shape,
+                adj=None if A.adj is None else _hyb_args(A.adj))
+
+
+def port_sparse(A):
+    """The port's operator on the CPU with the arrays of the JAX stored
+    matrix ``A`` (any of CSR, ELL, HYB, BSR, DIA)."""
+    return convert.operator_from_arrays(sparse_spec(A), device=CPU)

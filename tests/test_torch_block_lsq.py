@@ -269,8 +269,10 @@ def test_gradient_masks_are_computed_once_per_device():
     masks = P._masks[torch.device(CPU)]
     P.rmv(torch.ones(180, dtype=torch.float64))
     assert P._masks[torch.device(CPU)] is masks and len(masks) == 3
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        P.to_csr()
+    # the CSR form (held against the JAX package's in test_torch_sparse.py)
+    # is built on the host, not from the masks
+    assert P.to_csr().shape == P.shape
+    assert P._masks[torch.device(CPU)] is masks
 
 
 # ---- block CG --------------------------------------------------------------------

@@ -202,16 +202,70 @@ def test_cuda_dots_on_two_streams_at_once(cuda):
 @pytest.mark.gpu
 def test_cuda_operators_past_the_kernel_limits_raise(cuda):
     """An operator sends a 1-D f32 CUDA x to its kernel whatever its size;
-    past the kernel's limits the wrapper raises, never a quiet plain run."""
+    past the kernel's limits the wrapper raises, never a quiet plain run.
+    (The DIA kernel takes any number of diagonals, in groups: see
+    test_cuda_dia_past_one_launch_of_diagonals.)"""
     St = pits.laplacian(3, 5, device=cuda)           # 10 terms
     assert len(St.terms) > cuda_stencil.MAX_TERMS
     with pytest.raises(ValueError, match="at most"):
         St.mv_dot(torch.ones(St.n, device=cuda))
-    nd = cuda_spmv.MAX_DIAGS + 1
-    A = pits.DIAMatrix([torch.ones(40, device=cuda)] * nd, tuple(range(nd)),
-                       (40, 40), device=cuda)
-    with pytest.raises(ValueError, match="at most"):
-        A.mv(torch.ones(40, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nd", [cuda_spmv.MAX_DIAGS + 1, 27, 40])
+def test_cuda_dia_past_one_launch_of_diagonals(cuda, nd):
+    """A DIA matrix of more than MAX_DIAGS diagonals launches the kernel
+    once a group of MAX_DIAGS (each launch counted): y, the dot and each
+    row of a panel agree with the plain version within 1e-6 of max|y|
+    (f32, FMA against separate rounding) and the dot within 1e-5 of |dot|
+    (another order of the sum)."""
+    n = 4099                        # odd: the rows past the last whole run
+    rng = np.random.default_rng(nd)
+    offsets = tuple(sorted(rng.choice(np.arange(-60, 61), nd, replace=False)
+                           .tolist()))
+    diags = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+             for _ in offsets]
+    A = pits.DIAMatrix([d.to(cuda) for d in diags], offsets, (n, n),
+                       device=cuda)
+    x = torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+    groups = -(-nd // cuda_spmv.MAX_DIAGS)
+    before = (cuda_spmv.dia_spmv.launches, cuda_spmv.dia_spmv_dot.launches)
+    y = A.mv(x.to(cuda))
+    y2, d = A.mv_dot(x.to(cuda))
+    Y = A.mv_rows(torch.stack([x, 2 * x]).to(cuda))
+    torch.cuda.synchronize()
+    assert (cuda_spmv.dia_spmv.launches - before[0],
+            cuda_spmv.dia_spmv_dot.launches - before[1]) == (3 * groups,
+                                                             groups)
+    yp, dp = cuda_spmv.dia_spmv_plain(diags, offsets, x, x)
+    assert torch.equal(y, y2) and torch.equal(Y[0], y)
+    assert _close(y.cpu(), yp, 1e-6) and _close(Y[1].cpu(), 2 * yp, 1e-6)
+    assert abs(float(d) - float(dp)) <= 1e-5 * abs(float(dp))
+
+
+
+@pytest.mark.gpu
+def test_cuda_auto_format_of_27_point_coo_runs_the_dia_kernel(cuda):
+    """A 27-point stencil's COO picks DIA (27 diagonals, unpermuted), whose
+    product takes the DIA kernel in two launches; CG through it launches
+    dia_spmv_dot twice a step and agrees with CG on the CSR (eager, no
+    kernel) within 1e-5 relative in x, both converged."""
+    rows, cols, vals, n = pfix.stencil27_coo(12, 28.0, dtype=np.float32)
+    A = pits.CSRMatrix.from_coo(rows, cols, vals, (n, n), device=cuda)
+    op, perm = A.auto_format()
+    assert isinstance(op, pits.DIAMatrix) and perm is None
+    assert len(op.offsets) == 27
+    x = torch.randn(n, generator=torch.Generator().manual_seed(2)).to(cuda)
+    assert _close(op.mv(x), A.mv(x), 1e-6)
+    before = cuda_spmv.dia_spmv_dot.launches
+    b = torch.ones(n, device=cuda)
+    xd, h = pits.cg(op, b, reltol=1e-6, log=True)
+    assert h.isconverged and cuda_spmv.dia_spmv_dot.launches - before == (
+        2 * pits.solvers.common.chunked_steps(h.iters))
+    xc, hc = pits.cg(A, b, reltol=1e-6, log=True)
+    assert hc.isconverged
+    assert float(torch.linalg.vector_norm(xc - xd)
+                 / torch.linalg.vector_norm(xc)) <= 1e-5
 
 
 # ---- the GMRES panel kernels (csrc/panel_mgs.cu, csrc/arnoldi.cu) ----------
@@ -568,17 +622,10 @@ def test_cuda_mv_rows_past_the_kernel_limits_raise(cuda):
     """A panel of an operator past its kernel's limits raises before any
     row is launched, never a quiet plain run."""
     St = pits.laplacian(3, 5, device=cuda)           # 10 terms
-    nd = cuda_spmv.MAX_DIAGS + 1
-    A = pits.DIAMatrix([torch.ones(40, device=cuda)] * nd, tuple(range(nd)),
-                       (40, 40), device=cuda)
-    before = (cuda_stencil.stencil_apply.launches,
-              cuda_spmv.dia_spmv.launches)
+    before = cuda_stencil.stencil_apply.launches
     with pytest.raises(ValueError, match="at most"):
         St.mv_rows(torch.ones(4, St.n, device=cuda))
-    with pytest.raises(ValueError, match="at most"):
-        A.mv_rows(torch.ones(4, 40, device=cuda))
-    assert (cuda_stencil.stencil_apply.launches,
-            cuda_spmv.dia_spmv.launches) == before
+    assert cuda_stencil.stencil_apply.launches == before
 
 
 @pytest.mark.gpu
@@ -628,3 +675,62 @@ def test_cuda_lobpcg_and_block_cg_use_the_kernels(cuda):
         X, h = pits.block_cg(op, B, reltol=1e-5, log=True)
         assert h.isconverged and counter.launches == before + 3 * (
             pits.solvers.common.chunked_steps(h.iters) + 1)
+
+
+# ---- the stored formats (operators/sparse.py): eager torch products ---------
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["csr", "ell", "hyb", "hyb_adjoint", "bsr",
+                                 "dia"])
+def test_cuda_stored_formats_repeat_their_bits(cuda, fmt):
+    """Each format's forward product (and the precomputed adjoint's) gives
+    the same bits on two runs on the card (rows summed in order, no
+    atomics), and agrees with the same product on the CPU within 1e-6 of
+    max|y| (f32, another order of the same sums)."""
+    def build(device):
+        A = pfix.random_sparse(4000, 4000, 2e-3, seed=3, dtype=np.float32,
+                               symmetrize=True, shift=4.0, device=device)
+        return {"csr": lambda: A, "ell": A.to_ell,
+                "hyb": lambda: A.to_hyb(row_width=4),
+                "hyb_adjoint": lambda: A.to_hyb(row_width=4).with_adjoint(),
+                "bsr": lambda: pits.BSRMatrix.from_csr(A, 4),
+                "dia": lambda: pfix.laplace_dia(
+                    16, 3, dtype=np.float32, device=device).to_csr().to_dia(),
+                }[fmt]()
+    op, op_cpu = build(cuda), build("cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(op.shape[1], generator=g)
+    products = [lambda o, v: o.mv(v)]
+    if fmt == "hyb_adjoint":
+        products.append(lambda o, v: o.rmv(v))
+    for prod in products:
+        ya, yb = prod(op, x.to(cuda)), prod(op, x.to(cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(ya, yb)
+        yc = prod(op_cpu, x)
+        assert float((ya.cpu() - yc).abs().max()) <= 1e-6 * float(
+            yc.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_auto_format_of_laplacian_coo_lands_on_the_dia_kernel(cuda):
+    """The Laplacian's COO triplets through CSRMatrix.from_coo and
+    auto_format give laplace_dia's diagonals bit for bit, unpermuted, and
+    CG on them launches dia_spmv_dot once a step."""
+    rows, cols, vals, n = pfix.laplace_matrix_coo(21, 3, dtype=np.float32)
+    A = pits.CSRMatrix.from_coo(rows, cols, vals, (n, n), device=cuda)
+    op, perm = A.auto_format()
+    want = pfix.laplace_dia(21, 3, dtype=np.float32, device=cuda)
+    assert isinstance(op, pits.DIAMatrix) and perm is None
+    assert op.offsets == want.offsets
+    assert all(torch.equal(a, b) for a, b in zip(op.diags, want.diags))
+    before = (cuda_spmv.dia_spmv_dot.launches, cuda_spmv.dia_spmv.launches)
+    b = torch.ones(n, device=cuda)
+    x, h = pits.cg(op, b, reltol=1e-5, log=True)
+    steps = pits.solvers.common.chunked_steps(h.iters)
+    assert h.isconverged
+    assert (cuda_spmv.dia_spmv_dot.launches - before[0],
+            cuda_spmv.dia_spmv.launches - before[1]) == (steps, 0)
+    xc, hc = pits.cg(A, b, reltol=1e-5, log=True)
+    assert hc.isconverged and abs(hc.iters - h.iters) <= 5
+    assert float(torch.linalg.vector_norm(xc - x)
+                 / torch.linalg.vector_norm(x)) <= 1e-4

@@ -259,7 +259,8 @@ def test_operators_past_the_kernel_limits_still_go_to_the_wrapper(
         monkeypatch, rng):
     """The operators' rule has no size condition: a 1-D f32 x goes to the
     wrapper whatever the number of terms or diagonals, which raises on CUDA
-    past the kernel's limits and takes the plain version on the CPU."""
+    past the kernel's limits and takes the plain version on the CPU.  The
+    DIA kernel's one limit is 32-bit row indices."""
     from iterativesolvers_tpu_torch.operators import sparse as psparse
     from iterativesolvers_tpu_torch.operators import stencil as pstencil
 
@@ -280,5 +281,9 @@ def test_operators_past_the_kernel_limits_still_go_to_the_wrapper(
     A.mv(xa), A.mv_dot(xa)
     assert (calls.count("stencil_apply"), calls.count("dia_spmv"),
             calls.count("dia_spmv_dot")) == (3, 1, 1)
-    with pytest.raises(ValueError, match="at most"):
-        cuda_spmv._check_kernel(40, offsets)
+    # the DIA kernel takes any number of diagonals (in groups of
+    # MAX_DIAGS a launch); its one limit is 32-bit row indices
+    cuda_spmv._check_kernel(40, offsets)
+    with pytest.raises(ValueError, match="32-bit"):
+        cuda_spmv._check_kernel(cuda_stencil.max_rows(max(offsets)) + 1,
+                                offsets)

@@ -251,7 +251,9 @@ def test_gershgorin_bounds_match_jax(op):
 
 
 def test_gershgorin_bounds_other_operators_raise():
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    """An operator with neither terms, diagonals nor a CSR form raises (the
+    JAX package fails on its missing ``to_csr``)."""
+    with pytest.raises(TypeError, match="CSR form"):
         pits.gershgorin_bounds(pits.MatrixOperator(torch.eye(3)))
 
 

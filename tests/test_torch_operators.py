@@ -189,7 +189,7 @@ def test_convert_operator_from_arrays():
     assert isinstance(S, pits.StencilOperator) and S.terms == St.terms
     assert S.device == P.device == torch.device(CPU)
     with pytest.raises(ValueError, match="unknown operator kind"):
-        convert.operator_from_arrays({"kind": "csr"}, device=CPU)
+        convert.operator_from_arrays({"kind": "rb_reduced"}, device=CPU)
 
 
 def test_dense_function_and_adjoint_operators_match_jax(rng):
