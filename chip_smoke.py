@@ -101,6 +101,27 @@ Phases, in order; any failed check raises and the script exits non-zero:
     against scipy's ``svds`` (in a process of its own).  Each product timed
     beside its byte bound and cuSPARSE's ``A @ x``, the same bits on two
     runs; each solve's time a step and busy share.
+16. The preconditioners, the reduced system and the stationary methods:
+    ``tpu_precond_win.py``'s CG legs on the 216^3 variable-diffusion f32
+    DIA matrix (none, Jacobi, RB-IC as ``Pl``, Eisenstat, the reduced
+    system and its 25-diagonal DIA form, two launches a product) on b = 1
+    and two seeded b, each held to the JAX package's own f32 run on a CPU
+    (``jax_reference/precond_f32_216.py``) and to its f64 twin on the card;
+    CG on the int8 216^3 Laplacian with and without RB-IC; LOBPCG with
+    IC(0) (natural, multicolor) and RB-IC at 101^3 against the analytic
+    eigenvalues; ILU(0) GMRES(20) (natural, multicolor) at 100^3 and IC(0)
+    GMRES(20) on a ``.mtx`` Laplacian; the six stationary variants on the
+    10k sprand matrix and Gauss-Seidel / SOR(1.1), natural and multicolor,
+    at 216^3 against f64 sweeps; two rank processes on the card over gloo
+    (started early, building while the card works) running CG with the
+    shard-local block-Jacobi IC(0) against one card's IC(0) of the same
+    block-diagonal matrix (built and run by a third process), and the
+    reduced system's DIA form in a halo operator against the one-card
+    solve.  Each run with its launches held
+    to the expected set, true residual in f64 through a kernel-free
+    product, time a step, the card's busy share of its first 64 steps and
+    its builders' host seconds; the eager level sweep (us a level) and
+    shift passes against their byte bounds.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It imports no JAX and nothing of the JAX package.
@@ -109,6 +130,7 @@ It imports no JAX and nothing of the JAX package.
 import argparse
 import contextlib
 import json
+import math
 import pathlib
 import re
 import statistics
@@ -2740,6 +2762,1062 @@ def _formats_phase(torch, its, A32, runs4, x64, counters, bound, reference,
     return runs, products, launches
 
 
+# ---- phase 16: preconditioners, the reduced system, the stationary methods ---
+# The JAX package's published preconditioning workloads at full size:
+# benchmarks/tpu_precond_win.py:44-99 (five CG legs at 216^3, with the
+# reduced system's DIA form as a sixth), benchmarks/tpu_cg_rbic_ab.py:24-45,
+# benchmarks/tpu_eigen_precond_bench.py:37-110 (LOBPCG with IC(0) at
+# 101^3), ILU(0) GMRES(20) on the 100^3 advection-diffusion matrix,
+# benchmarks/run_all.py:663-708 (IC(0) GMRES on a .mtx Laplacian) and
+# :270-296 (the stationary methods), the stationary sweeps at 216^3, and on
+# two ranks the shard-local block-Jacobi IC(0) and the reduced system's DIA
+# form in a halo operator.
+PW_SIDE = 216
+PW_FIXTURE = dict(contrast=1e4, smooth=2, seed=7)
+PW_RELTOL, PW_MAXITER = 1e-5, 20000
+PW_CHUNK = {"none": 256, "jacobi": 256, "rbic": 32, "eisenstat": 32,
+            "rb_reduced": 64, "rb_reduced to_dia": 64}
+PW_BS = ("ones", "seed 1", "seed 2")
+# the TPU record's steps (benchmarks/results/precond_win_216_r5.txt), printed
+# beside the port's as counts only
+TPU_PW_STEPS = {"none": 924, "jacobi": 566, "rbic": 287, "eisenstat": 278,
+                "rb_reduced": 278}
+# the JAX package's own f32 runs on a CPU (jax_reference/precond_f32_216.py,
+# PERF.md): leg -> b -> (steps, true relative residual), and |x - x64| /
+# |x64| against its f64 run of the leg on b = 1.  A port run is held to the
+# run of its leg on its b: steps within the spread of the JAX package's
+# steps over the three b (pw_band), the true residual within PW_RES_FACTOR
+# times, and on b = 1 |x - x64| (the port's own f64 run of the leg) within
+# PW_X_FACTOR times the JAX package's (phase 13's factors).  The DIA form of
+# the reduced system is held to the rb_reduced leg's numbers.
+JAX_PW = {
+    "none": {"ones": (923, 5.4070e-03), "seed 1": (814, 1.1381e-05),
+             "seed 2": (812, 1.1143e-05)},
+    "jacobi": {"ones": (566, 4.3906e-03), "seed 1": (484, 1.0934e-05),
+               "seed 2": (485, 1.0574e-05)},
+    "rbic": {"ones": (287, 3.1814e-03), "seed 1": (244, 1.0405e-05),
+             "seed 2": (244, 1.0388e-05)},
+    "eisenstat": {"ones": (277, 1.9437e-03), "seed 1": (240, 1.1036e-05),
+                  "seed 2": (241, 1.0706e-05)},
+    "rb_reduced": {"ones": (278, 1.8795e-03), "seed 1": (247, 7.9109e-06),
+                   "seed 2": (247, 7.9780e-06)}}
+JAX_PW_X = {"none": 1.4322e-06, "jacobi": 8.5178e-07, "rbic": 5.0261e-07,
+            "eisenstat": 1.1814e-06, "rb_reduced": 4.8763e-07}
+PW_RES_FACTOR, PW_X_FACTOR = 2.0, 4.0
+# benchmarks/tpu_cg_rbic_ab.py: CG on the int8 216^3 Laplacian, +- RB-IC,
+# held to phase 4's f32 limits
+RBIC_AB = dict(reltol=1e-6, maxiter=1000)
+TPU_RBIC_AB_STEPS = {"unpreconditioned": 510, "rbic": 277}
+# benchmarks/tpu_eigen_precond_bench.py at 101^3 (EIG_SIDE): eigenvalues
+# against the analytic ones within phase 14's LAM_REL
+EIG_P = dict(nev=4, tol=1e-4, maxiter=500)
+EIG_P_BLOCK, EIG_P_SEED = 8, 7
+TPU_EIG_P_ITERS = {"rbic": 181, "none": 376, "ic0 multicolor": 182,
+                   "ic0 natural": 115}
+JAX_IC_NLEVELS = {"natural": 301, "multicolor": 2}
+# ILU(0) GMRES(20) on advection_diffusion(ILU_SIDE), f32 panel: steps within
+# ILU_STEP_BAND of the JAX package's f32 run (or 10% of them), the true
+# residual and |x - x64| within PW_RES_FACTOR / PW_X_FACTOR times its own
+ILU_SIDE = 100
+ILU_GMRES = dict(restart=20, reltol=1e-5, maxiter=600)
+JAX_ILU = {"natural": (16, 2.2772e-05, 1.9864e-07),
+           "multicolor": (208, 2.2597e-05, 1.8378e-07)}
+ILU_STEP_BAND = 5
+# run_all.py's IC(0) GMRES(20) on the 120^2 Laplacian read from a .mtx
+# file, held to run_all's bar (f32 drift envelope on kappa ~ 6e3)
+MTX_P_SIDE = 120
+MTX_P_GMRES = dict(restart=20, reltol=1e-6, maxiter=800)
+MTX_P_RES = 1e-3
+# run_all.py's stationary workload (sprand n = 10,000 + 4I, 20 sweeps, six
+# variants): the JAX package's f32 x on the CPU by its 2-norm, 1-norm and
+# first STAT_HEAD entries, each within STAT_REL; x against the port's f64
+# sweeps within PW_X_FACTOR times the JAX package's own f32-to-f64
+# distance, and at least STAT_REL
+STAT_N, STAT_SWEEPS, STAT_HEAD, STAT_REL = 10_000, 20, 16, 1e-5
+JAX_STAT = {
+    "jacobi": dict(x_norm2=16.25497051, x_norm1=1584.606593,
+        x_rel_diff_f64=4.0914e-08, x_head=(
+            0.201844603, 0.178709701, 0.0936310887, 0.218150377, 0.158798307,
+            0.103794336, 0.211977363, 0.20943059, 0.16318278, 0.14251563,
+            0.171099618, 0.166519657, 0.151861414, 0.132606655, 0.127550304,
+            0.164216354)),
+    "gauss_seidel": dict(x_norm2=16.27041259, x_norm1=1586.334525,
+        x_rel_diff_f64=4.5345e-08, x_head=(
+            0.201922223, 0.178842783, 0.0938254595, 0.218268409, 0.158902511,
+            0.104113042, 0.212031081, 0.209497362, 0.163337857, 0.14269501,
+            0.171273038, 0.166741103, 0.152120948, 0.132912904, 0.127769142,
+            0.164338589)),
+    "sor": dict(x_norm2=16.27041259, x_norm1=1586.334524,
+        x_rel_diff_f64=5.4946e-08, x_head=(
+            0.201922223, 0.178842768, 0.0938254595, 0.218268409, 0.158902511,
+            0.104113042, 0.212031081, 0.209497362, 0.163337857, 0.14269501,
+            0.171273038, 0.166741118, 0.152120948, 0.132912889, 0.127769142,
+            0.164338589)),
+    "ssor": dict(x_norm2=16.27041251, x_norm1=1586.334517,
+        x_rel_diff_f64=5.8249e-08, x_head=(
+            0.201922223, 0.178842768, 0.0938254744, 0.218268409, 0.158902511,
+            0.10411302, 0.212031081, 0.209497347, 0.163337871, 0.142695025,
+            0.171273038, 0.166741088, 0.152120933, 0.132912904, 0.127769142,
+            0.164338574)),
+    "gs_multicolor": dict(x_norm2=16.27041259, x_norm1=1586.334524,
+        x_rel_diff_f64=4.2452e-08, x_head=(
+            0.201922223, 0.178842783, 0.0938254595, 0.218268409, 0.158902511,
+            0.104113042, 0.212031081, 0.209497362, 0.163337871, 0.14269501,
+            0.171273038, 0.166741103, 0.152120918, 0.132912904, 0.127769142,
+            0.164338589)),
+    "sor_multicolor": dict(x_norm2=16.27041259, x_norm1=1586.334524,
+        x_rel_diff_f64=4.4214e-08, x_head=(
+            0.201922223, 0.178842783, 0.0938254595, 0.218268409, 0.158902511,
+            0.104113042, 0.212031081, 0.209497362, 0.163337871, 0.14269501,
+            0.171273038, 0.166741103, 0.152120918, 0.132912904, 0.127769142,
+            0.164338589))}
+# the sweeps at 216^3 on the variable-diffusion CSR against the same sweeps
+# in f64 on the card (a contraction: f32 rounding stays near eps a sweep)
+STAT_216_X_REL = 1e-5
+# runs whose step holds hundreds of levels of the eager sweep (thousands of
+# launches) are not traced as solves (a GMRES trace takes a whole cycle,
+# LOBPCG's a phase of 8 steps): a traced level took ~6 ms of host time
+# under the profiler and the sync checks on an H100 host (64 traced steps
+# of IC(0) GMRES on the .mtx Laplacian, 478 levels a step, took 188 s);
+# their apply's trace is in the eager table.  The natural sweeps at 216^3
+# trace STAT_TRACE_SWEEPS; the legs' seeded b are timed, not traced
+STAT_TRACE_SWEEPS = 2
+APPLY_TRACE_MS = 20.0
+# two ranks on the one card over gloo, as phase 12: the block-Jacobi CG
+# takes the one-card solve's steps; the solves' x agree within twice phase
+# 4's f32 limit.  The ranks and the one-card reference run in processes of
+# their own, started with the phase: they build while the main process
+# works and wait this long for their turn on the card
+PRECOND_RANK_WAIT = 900
+P16_DEVICE = "cuda"
+
+
+def pw_rhs(torch, n, bname, dev):
+    """b = 1, or numpy's normal b of a seed ("seed 1"), drawn in f64 and
+    rounded to f32 as jax_reference/precond_f32_216.py draws it."""
+    import numpy as np
+
+    if bname == "ones":
+        return torch.ones(n, device=dev)
+    rng = np.random.default_rng(int(bname.split()[1]))
+    return torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+
+
+def pw_build(its, leg, A, side, built=None):
+    """The objects of one leg of tpu_precond_win.py on ``A`` (its dtype and
+    device); the DIA form of the reduced system takes ``built``'s R."""
+    if leg == "jacobi":
+        d, _ = A.diagonal()
+        return {"P": its.DiagonalPreconditioner(d, device=A.device)}
+    if leg == "rbic":
+        return {"P": its.RedBlackICPreconditioner.from_dia(A, side, 3)}
+    if leg == "eisenstat":
+        return {"Ah": its.EisenstatSSOROperator.from_dia(A, side, 3)}
+    if leg == "rb_reduced":
+        return {"R": its.RBReducedSystem.from_dia(A, side, 3)}
+    if leg == "rb_reduced to_dia":
+        return {"R": built["R"], "S": built["R"].to_dia()}
+    return {}
+
+
+def pw_solve(its, leg, A, built, b, maxiter=None):
+    """(x, history) of one leg through the public calls."""
+    kw = dict(reltol=PW_RELTOL, maxiter=maxiter or PW_MAXITER, log=True,
+              chunk=PW_CHUNK[leg])
+    if leg in ("none", "jacobi", "rbic"):
+        return its.cg(A, b, Pl=built.get("P"), **kw)
+    if leg == "eisenstat":
+        Ah = built["Ah"]
+        xh, h = its.cg(Ah, Ah.rhs_transform(b), **kw)
+        return Ah.solution_transform(xh), h
+    R = built["R"]
+    bb, br = R.reduce_rhs(b)
+    xb, h = its.cg(built.get("S", R), bb, **kw)
+    return R.expand_solution(xb, br), h
+
+
+def pw_band(leg):
+    """The spread of the JAX package's f32 steps over the three b."""
+    steps = [v[0] for v in JAX_PW[leg].values()]
+    return max(steps) - min(steps)
+
+
+def stream_bytes(*groups):
+    """Bytes of the tensors in ``groups`` (each read or written once)."""
+    return sum(t.numel() * t.element_size() for g in groups for t in g)
+
+
+def precond_rank(args):
+    """One rank of phase 16 (``--precond-rank``): the shard-local
+    block-Jacobi IC(0) CG and the reduced system's DIA form in a halo
+    operator, on the arrays the main process saved under ``args.out``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke rank: torch.cuda.is_available() is false")
+    from iterativesolvers_tpu_torch.parallel import row_mesh
+
+    mesh = row_mesh("gloo", "cuda:0",
+                    init_method=f"file://{args.rendezvous}",
+                    rank=args.precond_rank, world_size=args.world,
+                    timeout=DIST_COLLECTIVE_TIMEOUT)
+    try:
+        res, xs = precond_rank_solves(torch, mesh, pathlib.Path(args.out))
+    finally:
+        mesh.close()
+    with open(f"{args.out}/p16rank{args.precond_rank}.json", "w") as f:
+        json.dump(res, f)
+    if args.precond_rank == 0:
+        torch.save(xs, f"{args.out}/p16x.pt")
+
+
+def precond_rank_solves(torch, mesh, tmp):
+    """Phase 16 on one rank: returns its results and (gathered) x's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    import iterativesolvers_tpu_torch as its
+    from iterativesolvers_tpu_torch.ops.cuda_spmv import dia_spmv, dia_spmv_dot
+    from iterativesolvers_tpu_torch.parallel import (
+        HaloDIAOperator, ShardedBlockJacobiPreconditioner, gather_vector,
+        shard_vector)
+    from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+    dev = mesh.device
+    counters = (dia_spmv, dia_spmv_dot)
+
+    def whole(name):
+        d = torch.load(tmp / f"p16{name}.pt")
+        return its.DIAMatrix(d["diags"], d["offsets"], d["shape"],
+                             device="cpu")
+
+    host_s = {}
+    t0 = time.perf_counter()
+    A = whole("A")
+    P = ShardedBlockJacobiPreconditioner.ic(A, mesh, ordering="multicolor")
+    torch.cuda.synchronize()
+    host_s["ShardedBlockJacobiPreconditioner.ic multicolor"] = (
+        time.perf_counter() - t0)
+    op = HaloDIAOperator(A, mesh)
+    n = A.shape[0]
+    del A
+    opS = HaloDIAOperator(whole("S"), mesh)
+    b = shard_vector(torch.ones(n), mesh)
+    bb = shard_vector(torch.load(tmp / "p16bb.pt"), mesh)
+    res = {"rank": mesh.rank, "host_s": host_s, "nlevels": P.nlevels,
+           "local_nlevels": P.local.nlevels,
+           "level_bytes": P.local.lower_solve.nbytes
+           + P.local.upper_solve.nbytes}
+    xs = {}
+    # the card's timed work waits until the main process has done its own
+    _wait_for(tmp / "p16go")
+    for name, o, rhs, Pl, chunk in (
+            ("block_jacobi_ic", op, b, P, PW_CHUNK["rbic"]),
+            ("rb_reduced_to_dia", opS, bb, None,
+             PW_CHUNK["rb_reduced to_dia"])):
+        def call(maxiter=PW_MAXITER, o=o, rhs=rhs, Pl=Pl, chunk=chunk):
+            return its.cg(o, rhs, Pl=Pl, reltol=PW_RELTOL, maxiter=maxiter,
+                          chunk=chunk, log=True)
+
+        for f in counters:
+            f.launches = 0
+        torch.cuda.synchronize()
+        mesh.all_reduce(torch.zeros(1, device=dev))
+        (x, h), wall = timed_run(torch, call)
+        steps = chunked_steps(h.iters, chunk)
+        row = {"iters": h.iters, "converged": h.isconverged,
+               "steps_run": steps, "wall_ms": wall,
+               "us_per_step": wall / steps * 1e3,
+               "launches": {f.__name__: f.launches for f in counters
+                            if f.launches}}
+        # the first TRACE_STEPS steps, traced on rank 0 (rank 1 runs the
+        # same capped solve for its collectives)
+        torch.cuda.synchronize()
+        mesh.all_reduce(torch.zeros(1, device=dev))
+        if mesh.rank == 0:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                (_, ht), twall = timed_run(torch, lambda: call(TRACE_STEPS))
+            busy = sum(device_ms(torch, prof, name).values())
+            row["busy_share"] = busy / twall
+        else:
+            call(TRACE_STEPS)
+        res[name] = row
+        xs[name] = gather_vector(x, mesh).cpu()
+    return res, xs
+
+
+def _wait_for(path):
+    """Wait for the file ``path`` (the main process's go) or time out."""
+    t0 = time.perf_counter()
+    while not path.exists():
+        if time.perf_counter() - t0 > PRECOND_RANK_WAIT:
+            raise TimeoutError(f"phase 16 waited too long for {path.name}")
+        time.sleep(0.2)
+
+
+def precond_one_card(args):
+    """Phase 16's one-card reference for the ranks' block-Jacobi CG
+    (``--precond-one-card``): IC(0), multicolor, of the block-diagonal CSR
+    (the ranks' blocks, the entries between them dropped) of the matrix
+    saved under ``args.out``, built while the main process works; its CG
+    waits for the file ``p16go1`` (the ranks done)."""
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is false")
+    import iterativesolvers_tpu_torch as its
+    from iterativesolvers_tpu_torch.operators.preconditioners import (
+        sorted_part)
+    from iterativesolvers_tpu_torch.ops.cuda_spmv import dia_spmv_dot
+    from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+    tmp, dev = pathlib.Path(args.out), torch.device(P16_DEVICE)
+    d = torch.load(tmp / "p16A.pt")
+    A = its.DIAMatrix(d["diags"], d["offsets"], d["shape"], device=dev)
+    t0 = time.perf_counter()
+    C = A.to_csr()
+    n = C.shape[0]
+    nloc = n // DIST_RANKS
+    rows, cols, _ = C._host_coo()
+    keep = (rows // nloc) == (cols // nloc)
+    indptr, indices = sorted_part(rows, cols, keep, n)
+    blk = its.CSRMatrix(C.data.cpu()[torch.from_numpy(keep)], indices,
+                        indptr, C.shape, row_ids=rows[keep], device=dev)
+    del C, rows, cols, keep
+    P = its.ICPreconditioner.from_operator(blk, ordering="multicolor")
+    del blk
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    _wait_for(tmp / "p16go1")
+    b = torch.ones(n, device=dev)
+    chunk = PW_CHUNK["rbic"]
+
+    def call(maxiter=None):
+        return its.cg(A, b, Pl=P, reltol=PW_RELTOL,
+                      maxiter=maxiter or PW_MAXITER, chunk=chunk, log=True)
+
+    dia_spmv_dot.launches = 0
+    (x, h), wall = timed_run(torch, call)
+    launches = dia_spmv_dot.launches
+    (_, ht), by_kernel, syncs = syncs_and_trace(
+        torch, lambda: call(TRACE_STEPS), "block-Jacobi IC(0) one card")
+    steps = chunked_steps(h.iters, chunk)
+    tsteps = chunked_steps(ht.iters, chunk)
+    row = {"iters": h.iters, "converged": h.isconverged, "steps_run": steps,
+           "wall_ms": wall, "us_per_step": wall / steps * 1e3,
+           "launches": {"dia_spmv_dot": launches} if launches else {},
+           "busy_share": sum(by_kernel.values()) / tsteps * steps / wall,
+           "host_syncs_per_step": syncs / tsteps, "nlevels": P.nlevels,
+           "host_s": host_s}
+    (tmp / "p16one.json").write_text(json.dumps(row))
+    torch.save(x.cpu(), tmp / "p16one_x.pt")
+
+
+class PrecondPhase:
+    """Phase 16 (``run``).  ``A_int8`` is phase 4's int8 216^3 Laplacian,
+    ``counters`` every kernel wrapper, ``bound`` the bound of (bytes,
+    operations).  ``runs`` holds the runs by name, ``eager`` the eager
+    computations' timings, ``host_s`` the builders' host seconds and
+    ``launches`` the launches by kernels-line key and run."""
+
+    def __init__(self, torch, its, A_int8, counters, bound):
+        self.torch, self.its = torch, its
+        self.A_int8, self.counters, self.bound = A_int8, counters, bound
+        self.dev = torch.device(P16_DEVICE)
+        self.runs, self.eager, self.host_s = {}, {}, {}
+        self.launches, self.bad = {}, []
+        self.t_start = time.perf_counter()
+
+    # -- helpers ---------------------------------------------------------------
+    def reset(self):
+        for f in self.counters:
+            f.launches = 0
+
+    def counts(self):
+        return {f.__name__: f.launches for f in self.counters if f.launches}
+
+    def built(self, label, fn):
+        """fn() timed on the host, the card synchronised after."""
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        self.host_s[label] = time.perf_counter() - t0
+        return out
+
+    def rel(self, x, ref):
+        tn = self.torch.linalg.vector_norm
+        return float(tn(x.double() - ref.double()) / tn(ref.double()))
+
+    def true_res(self, op64, x, b):
+        tn = self.torch.linalg.vector_norm
+        b = b.double()
+        return float(tn(b - op64.mv(x.double())) / tn(b))
+
+    def record(self, name, row, ok, dia_dtype=None):
+        """A run's row; its launches go to the kernels entries (the DIA
+        kernel's by ``dia_dtype``: ``dia_spmv_dot[f32]``)."""
+        row["phase_s"] = time.perf_counter() - self.t_start
+        print(f"  {name}: " + ", ".join(
+            f"{k} {v:.4e}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items() if not isinstance(v, (dict, list))),
+            flush=True)
+        self.runs[name] = row
+        for kernel, c in row.get("launches", {}).items():
+            key = (f"{kernel}[{dia_dtype}]" if kernel.startswith("dia_")
+                   else kernel)
+            self.launches.setdefault(key, {})[name] = c
+        if not ok:
+            self.bad.append(name)
+
+    def solve(self, name, call, steps_of, trace_steps=TRACE_STEPS):
+        """``call(None)`` between CUDA events, its launches counted, and
+        with ``trace_steps`` ``call(trace_steps)`` (the same solve stopped
+        there) under the profiler: (result, row of time a step, launches,
+        busy share and host syncs a step), as phase 15's."""
+        torch = self.torch
+        self.reset()
+        out, wall = timed_run(torch, lambda: call(None))
+        c = self.counts()
+        steps = max(steps_of(out), 1)
+        row = {"wall_ms": wall, "steps_run": steps,
+               "us_per_step": wall / steps * 1e3, "launches": c}
+        if trace_steps:
+            tout, by_kernel, syncs = syncs_and_trace(
+                torch, lambda: call(trace_steps), name)
+            tsteps = max(steps_of(tout), 1)
+            row.update(busy_share=sum(by_kernel.values()) / tsteps * steps
+                       / wall, host_syncs_per_step=syncs / tsteps,
+                       traced_steps=tsteps)
+        return out, row
+
+    def apply_timing(self, label, fn, nbytes, levels=None):
+        """One eager apply: ms (CUDA events over repeated calls) beside its
+        byte bound, the card's busy share of one traced call (which must
+        make no host sync), and with ``levels`` the time a level."""
+        torch = self.torch
+        ms = time_ms(torch, fn, reps=5, batches=3)[0]
+        b_ms, _ = self.bound(nbytes, 0)
+
+        reps = max(1, math.ceil(APPLY_TRACE_MS / ms))
+
+        def calls():
+            # a window of APPLY_TRACE_MS: on an H100, traces of one call or
+            # four of a 0.2-0.4 ms apply came back with no device time
+            for _ in range(reps):
+                fn()
+
+        _, by_kernel, syncs = syncs_and_trace(torch, calls, label)
+        _, wall = timed_run(torch, calls)
+        row = {"ms": ms, "bytes": nbytes, "bound_ms": b_ms,
+               "over_bound": ms / b_ms,
+               "busy_share": sum(by_kernel.values()) / wall,
+               "traced_calls": reps, "host_syncs": syncs}
+        if levels:
+            row.update(levels=levels, us_per_level=ms * 1e3 / levels)
+        if syncs:
+            # an apply must not read the card back (CG's masking and
+            # run_chunked rely on it)
+            self.bad.append(f"{label}: {syncs} host syncs")
+        self.eager[label] = row
+        print(f"  eager {label}: {ms:.4f} ms, byte bound {b_ms:.4f} ms "
+              f"({ms / b_ms:.1f}x), busy {row['busy_share']:.2f}"
+              + (f", {row['us_per_level']:.2f} us a level over {levels}"
+                 if levels else ""), flush=True)
+        return row
+
+    # -- the phase ---------------------------------------------------------------
+    def run(self):
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            self._run(pathlib.Path(tmp))
+        print(json.dumps({"phase16": self.runs, "phase16_eager": self.eager,
+                          "phase16_host_s": self.host_s}))
+        print(f"  phase 16: {time.perf_counter() - self.t_start:.1f} s")
+        if self.bad:
+            raise AssertionError(f"phase 16 runs off their limits: "
+                                 f"{self.bad}")
+        return self
+
+    def _run(self, tmp):
+        import numpy as np
+
+        from iterativesolvers_tpu_torch.utils.fixtures import (
+            variable_diffusion)
+
+        torch, its = self.torch, self.its
+        side, n = PW_SIDE, PW_SIDE**3
+        print(f"phase 16: preconditioners, the reduced system and the "
+              f"stationary methods ({side}^3 variable diffusion):",
+              flush=True)
+        A = self.built("variable_diffusion(216, 3) f32",
+                       lambda: variable_diffusion(
+                           side, 3, dtype=np.float32, device=self.dev,
+                           **PW_FIXTURE))
+        built = {"rb_reduced": self.built(
+            "RBReducedSystem.from_dia f32",
+            lambda: pw_build(its, "rb_reduced", A, side))}
+        built["rb_reduced to_dia"] = self.built(
+            "RBReducedSystem.to_dia f32", lambda: pw_build(
+                its, "rb_reduced to_dia", A, side, built["rb_reduced"]))
+        # the ranks' arrays, and the ranks, which build while the card works
+        t0 = time.perf_counter()
+        S, R = built["rb_reduced to_dia"]["S"], built["rb_reduced"]["R"]
+        for name, M in (("A", A), ("S", S)):
+            torch.save({"diags": [d.cpu() for d in M.diags],
+                        "offsets": M.offsets, "shape": M.shape},
+                       tmp / f"p16{name}.pt")
+        torch.save(R.reduce_rhs(torch.ones(n, device=self.dev))[0].cpu(),
+                   tmp / "p16bb.pt")
+        self.host_s["save the ranks' arrays"] = time.perf_counter() - t0
+        cmd = [sys.executable, str(pathlib.Path(__file__).resolve()),
+               "--world", str(DIST_RANKS), "--rendezvous",
+               f"{tmp}/p16rendezvous", "--out", str(tmp)]
+        t_ranks = time.perf_counter()
+        procs = [subprocess.Popen(cmd + args, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT)
+                 for args in [["--precond-rank", str(r)]
+                              for r in range(DIST_RANKS)]
+                 + [["--precond-one-card"]]]
+
+        def finish(group, names):
+            """Wait for the processes ``group``; raise with the output of
+            one that failed."""
+            logs = []
+            for p in group:
+                left = DIST_TIMEOUT - (time.perf_counter() - t_ranks)
+                logs.append(p.communicate(timeout=max(left, 1))[0].decode())
+            for name, p, log in zip(names, group, logs):
+                if p.returncode != 0:
+                    print(f"phase 16 {name} output:\n{log[-6000:]}")
+                    raise AssertionError(f"phase 16 {name} exited "
+                                         f"{p.returncode}")
+
+        try:
+            x1 = self.legs(A, built)
+            self.rbic_ab()
+            self.lobpcg()
+            self.ilu_gmres()
+            self.mtx_gmres(tmp)
+            self.stationary_sprand()
+            self.stationary_216(A)
+            # the card to the ranks, then to the one-card reference
+            (tmp / "p16go").touch()
+            finish(procs[:DIST_RANKS],
+                   [f"rank {r}" for r in range(DIST_RANKS)])
+            secs = time.perf_counter() - t_ranks
+            (tmp / "p16go1").touch()
+            finish(procs[DIST_RANKS:], ["one-card reference"])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        ranks = [json.loads((tmp / f"p16rank{r}.json").read_text())
+                 for r in range(DIST_RANKS)]
+        one = json.loads((tmp / "p16one.json").read_text())
+        self.host_s["one-card block-diagonal IC(0) multicolor (its own "
+                    "process)"] = one.pop("host_s")
+        self.dist_checks(A, one, torch.load(tmp / "p16one_x.pt"),
+                         built["rb_reduced"]["R"], x1, ranks,
+                         torch.load(tmp / "p16x.pt"), secs)
+
+    # -- 1. tpu_precond_win.py's legs at 216^3 -------------------------------
+    def legs(self, A, built):
+        """The six legs on b = 1 and the two seeded b, each f32 run held to
+        the JAX package's; on b = 1 each leg's f64 twin.  Returns the x of
+        the reduced system's DIA form on b = 1 for the distributed check."""
+        torch, its = self.torch, self.its
+        from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+        side, n = PW_SIDE, PW_SIDE**3
+        A64 = A.astype(torch.float64)
+        out = None
+        for leg, chunk in PW_CHUNK.items():
+            if leg not in built:
+                built[leg] = self.built(f"{leg} build f32",
+                                        lambda: pw_build(its, leg, A, side))
+            b64_built = self.built(
+                f"{leg} build f64", lambda: pw_build(
+                    its, leg, A64, side, self.f64_reduced)
+                if leg == "rb_reduced to_dia" else pw_build(
+                    its, leg, A64, side))
+            if leg == "rb_reduced":
+                self.f64_reduced = b64_built
+            jleg = "rb_reduced" if leg == "rb_reduced to_dia" else leg
+            per = 2 if leg == "rb_reduced to_dia" else 1
+            kernel = leg in ("none", "jacobi", "rbic", "rb_reduced to_dia")
+            band = pw_band(jleg)
+            for bname in PW_BS:
+                b = pw_rhs(torch, n, bname, self.dev)
+                (x, h), row = self.solve(
+                    f"{leg} {bname}",
+                    lambda cap: pw_solve(its, leg, A, built[leg], b, cap),
+                    lambda r: chunked_steps(r[1].iters, chunk),
+                    TRACE_STEPS if bname == "ones" else None)
+                want = ({"dia_spmv_dot": per * chunked_steps(h.iters, chunk)}
+                        if kernel else {})
+                jsteps, jres = JAX_PW[jleg][bname]
+                res = self.true_res(A64, x, b)
+                row = {"iters": h.iters, "jax_iters": jsteps,
+                       "step_band": band,
+                       "tpu_record_iters": (TPU_PW_STEPS.get(leg)
+                                            if bname == "ones" else None),
+                       "converged": h.isconverged, "true_residual": res,
+                       "jax_true_residual": jres, "expected_launches": want,
+                       **row}
+                ok = (h.isconverged and abs(h.iters - jsteps) <= band
+                      and res <= PW_RES_FACTOR * jres
+                      and row["launches"] == want
+                      and bool(torch.isfinite(x).all()))
+                if bname == "ones":
+                    self.reset()
+                    x64, h64 = pw_solve(its, leg, A64, b64_built, b.double())
+                    d64 = self.rel(x, x64)
+                    row.update(f64_iters=h64.iters, x_rel_diff_f64=d64,
+                               jax_x_rel_diff_f64=JAX_PW_X[jleg],
+                               f64_launches=self.counts())
+                    ok = (ok and h64.isconverged and not self.counts()
+                          and d64 <= PW_X_FACTOR * JAX_PW_X[jleg])
+                    if leg == "rb_reduced to_dia":
+                        out = x
+                    del x64
+                self.record(f"precond_win {leg} {bname}", row, ok, "f32")
+            self.eager_legs(leg, built[leg], A)
+            if leg not in ("rb_reduced", "rb_reduced to_dia"):
+                del built[leg]
+            del b64_built
+        del self.f64_reduced
+        return out
+
+    def eager_legs(self, leg, built, A):
+        """The shift sums of the red-black applies at 216^3 against their
+        byte bounds (the coefficient streams, the operand read and the
+        result written once, at the card's memory rate)."""
+        torch = self.torch
+        from iterativesolvers_tpu_torch.operators.preconditioners import (
+            shift_sum)
+
+        n = A.shape[0]
+        g = torch.Generator(device=self.dev).manual_seed(16)
+        x = torch.randn(n, generator=g, device=self.dev)
+        vec = [x, x]                           # read once, written once
+        if leg == "rbic":
+            P = built["P"]
+            offs = [o for (o, _, _) in P.terms]
+            self.apply_timing("rbic shift_sum",
+                              lambda: shift_sum(offs, P.mcs, x),
+                              stream_bytes(P.mcs, vec))
+            self.apply_timing("rbic ldiv", lambda: P.ldiv(x), stream_bytes(
+                P.mcs, [P.s_inv, P.red], vec))
+        elif leg == "eisenstat":
+            Ah = built["Ah"]
+            offs = [o for (o, _, _) in Ah.terms]
+            self.apply_timing("eisenstat shift_sum",
+                              lambda: shift_sum(offs, Ah.mcs, x),
+                              stream_bytes(Ah.mcs, vec))
+            self.apply_timing("eisenstat mv", lambda: Ah.mv(x),
+                              stream_bytes(Ah.mcs, [Ah.red], vec))
+        elif leg == "rb_reduced":
+            R = built["R"]
+            xb = x[:R.nh]
+            half = [xb, xb]
+            self.apply_timing("rb_reduced to_red", lambda: R.to_red(xb),
+                              stream_bytes(R.sr_streams, half))
+            self.apply_timing("rb_reduced to_black", lambda: R.to_black(xb),
+                              stream_bytes(R.sb_streams, half))
+            self.apply_timing("rb_reduced mv", lambda: R.mv(xb), stream_bytes(
+                R.sr_streams, R.sb_streams, half))
+        elif leg == "rb_reduced to_dia":
+            S = built["S"]
+            xb = x[:S.shape[0]]
+            self.apply_timing("rb_reduced to_dia mv (DIA kernel, 2 launches)",
+                              lambda: S.mv(xb),
+                              stream_bytes(S.diags, [xb, xb]))
+
+    # -- 2. tpu_cg_rbic_ab.py: the int8 Laplacian +- RB-IC ----------------------
+    def rbic_ab(self):
+        torch, its = self.torch, self.its
+        from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+        Ai = self.A_int8
+        n = Ai.shape[0]
+        side = round(n ** (1 / 3))
+        A64 = Ai.astype(torch.float64)
+        P = self.built(f"RedBlackICPreconditioner.from_stencil {side}^3",
+                       lambda: its.RedBlackICPreconditioner.from_stencil(
+                           its.laplacian(side, 3, device=self.dev)))
+        P64 = its.RedBlackICPreconditioner.from_stencil(
+            its.laplacian(side, 3, dtype=torch.float64, device=self.dev))
+        b = torch.ones(n, device=self.dev)
+        for tag, Pl, Pl64 in (("unpreconditioned", None, None),
+                              ("rbic", P, P64)):
+            (x, h), row = self.solve(
+                f"cg int8 {tag}", lambda cap: its.cg(
+                    Ai, b, Pl=Pl, log=True, **dict(
+                        RBIC_AB, maxiter=cap or RBIC_AB["maxiter"])),
+                lambda r: chunked_steps(r[1].iters))
+            x64 = its.cg(A64, b.double(), Pl=Pl64, **RBIC_AB)
+            want = {"dia_spmv_dot": chunked_steps(h.iters)}
+            res, d64 = self.true_res(A64, x, b), self.rel(x, x64)
+            row = {"iters": h.iters, "tpu_record_iters":
+                   TPU_RBIC_AB_STEPS[tag], "converged": h.isconverged,
+                   "true_residual": res, "x_rel_diff_f64": d64,
+                   "expected_launches": want, **row}
+            ok = (h.isconverged and res <= TRUE_RES_F32 and d64 <= X_F64_REL
+                  and row["launches"] == want)
+            self.record(f"tpu_cg_rbic_ab {tag} int8 {side}^3", row, ok,
+                        "int8")
+
+    # -- 3. LOBPCG with IC(0) at 101^3 ----------------------------------------
+    def lobpcg(self):
+        import numpy as np
+
+        torch, its = self.torch, self.its
+        from iterativesolvers_tpu_torch.utils.fixtures import laplace_dia
+
+        side = EIG_SIDE
+        A = laplace_dia(side, 3, dtype=np.float32, device=self.dev)
+        n = A.shape[0]
+        C = self.built(f"to_csr {side}^3", A.to_csr)
+        Pn = self.built(f"ICPreconditioner natural {side}^3",
+                        lambda: its.ICPreconditioner.from_operator(C))
+        Pm = self.built(f"ICPreconditioner multicolor {side}^3",
+                        lambda: its.ICPreconditioner.from_operator(
+                            C, ordering="multicolor"))
+        Prb = self.built(f"RedBlackICPreconditioner.from_stencil {side}^3",
+                         lambda: its.RedBlackICPreconditioner.from_stencil(
+                             its.laplacian(side, 3, device=self.dev)))
+        del C
+        levels = {"natural": Pn.nlevels, "multicolor": Pm.nlevels}
+        print(f"  IC(0) {side}^3: nlevels {levels} (the JAX package's "
+              f"{JAX_IC_NLEVELS}), level arrays "
+              f"{(Pn.lower_solve.nbytes + Pn.upper_solve.nbytes) / 1e6:.1f} "
+              f"MB natural", flush=True)
+        if levels != JAX_IC_NLEVELS:
+            self.bad.append(f"IC(0) nlevels {levels}")
+        # the eager level sweep: one apply, and a row panel of 8
+        g = torch.Generator(device=self.dev).manual_seed(16)
+        x = torch.randn(n, generator=g, device=self.dev)
+        X = torch.randn((EIG_P_BLOCK, n), generator=g, device=self.dev)
+        vec = [x, x]
+        for label, P in (("natural", Pn), ("multicolor", Pm)):
+            nlev = P.lower_solve.nlevels + P.upper_solve.nlevels
+            lv = [P.lower_solve.rows, P.lower_solve.cols, P.lower_solve.vals,
+                  P.upper_solve.rows, P.upper_solve.cols, P.upper_solve.vals]
+            self.apply_timing(f"IC(0) {label} ldiv {side}^3",
+                              lambda: P.ldiv(x), stream_bytes(lv, vec),
+                              levels=nlev)
+            self.apply_timing(
+                f"IC(0) {label} ldiv_rows ({EIG_P_BLOCK}, n) {side}^3",
+                lambda: P.ldiv_rows(X), stream_bytes(lv, [X, X]),
+                levels=nlev)
+        X0 = torch.from_numpy(np.random.default_rng(EIG_P_SEED).standard_normal(
+            (n, EIG_P_BLOCK)).astype(np.float32)).to(self.dev)
+        h = np.pi / (2 * (side + 1))
+        e1, e2 = 4 * np.sin(h) ** 2, 4 * np.sin(2 * h) ** 2
+        exact = np.sort([3 * e1, e2 + 2 * e1, e2 + 2 * e1, e2 + 2 * e1])
+        for tag, P in (("rbic", Prb), ("none", None), ("ic0 multicolor", Pm),
+                       ("ic0 natural", Pn)):
+            r, row = self.solve(
+                f"lobpcg {tag}", lambda cap: its.lobpcg(
+                    A, X0, largest=False, P=P, **dict(
+                        EIG_P, maxiter=cap or EIG_P["maxiter"])),
+                lambda r: r.iterations,
+                None if tag == "ic0 natural" else TRACE_ITERS)
+            lam = np.sort(r.lam.double().cpu().numpy())
+            err = float(np.max(np.abs(lam - exact) / exact))
+            want = {"dia_spmv": EIG_P_BLOCK * lobpcg_products(r.iterations)}
+            row = {"iters": r.iterations, "tpu_record_iters":
+                   TPU_EIG_P_ITERS[tag], "converged": r.converged,
+                   "eig_max_rel_err": err, "expected_launches": want, **row}
+            ok = (r.converged and err <= LAM_REL
+                  and row["launches"] == want)
+            self.record(f"lobpcg {tag} {side}^3 nev={EIG_P['nev']}", row, ok,
+                        "f32")
+
+    # -- 4. ILU(0) GMRES(20) and IC(0) GMRES on a .mtx matrix ---------------
+    def gmres_row(self, name, call, maxiter, want_of, trace_steps):
+        """(x, h, row) of a GMRES solve with its expected launches."""
+        (x, h), row = self.solve(
+            name, lambda cap: call(cap or maxiter),
+            lambda r: r[1].iters, trace_steps)
+        row = {"iters": h.iters, "restarts": h.restarts,
+               "converged": h.isconverged,
+               "expected_launches": want_of(h), **row}
+        return x, h, row
+
+    def ilu_gmres(self):
+        import numpy as np
+
+        torch, its = self.torch, self.its
+        from iterativesolvers_tpu_torch.utils.fixtures import (
+            advection_diffusion)
+
+        N = ILU_SIDE
+        m = ILU_GMRES["restart"]
+        A, b = advection_diffusion(N, dtype=np.float32, device=self.dev)
+        A64, b64 = advection_diffusion(N, dtype=np.float64, device=self.dev)
+        b, b64 = torch.from_numpy(b).to(self.dev), torch.from_numpy(
+            b64).to(self.dev)
+        C = self.built(f"to_csr advection_diffusion({N})", A.to_csr)
+        C64 = A64.to_csr()
+
+        def want(h):
+            cycles = h.restarts + 1
+            return {"dia_spmv": (m + 1) * cycles, "panel_mgs": m * cycles}
+
+        for ordering in ("natural", "multicolor"):
+            P = self.built(f"ILUPreconditioner {ordering} {N}^3",
+                           lambda: its.ILUPreconditioner.from_operator(
+                               C, ordering=ordering))
+            P64 = its.ILUPreconditioner.from_operator(C64, ordering=ordering)
+            x, h, row = self.gmres_row(
+                f"ilu gmres {ordering}", lambda mi: its.gmres(
+                    A, b, Pl=P, log=True, **dict(ILU_GMRES, maxiter=mi)),
+                ILU_GMRES["maxiter"], want,
+                None if ordering == "natural" else TRACE_STEPS)
+            self.reset()
+            x64 = its.gmres(A64, b64, Pl=P64, **ILU_GMRES)
+            jit_, jres, jx = JAX_ILU[ordering]
+            res, d64 = self.true_res(A64, x, b64), self.rel(x, x64)
+            row.update(nlevels=P.nlevels, jax_iters=jit_, true_residual=res,
+                       jax_true_residual=jres, x_rel_diff_f64=d64,
+                       jax_x_rel_diff_f64=jx, f64_launches=self.counts())
+            band = max(ILU_STEP_BAND, 0.1 * jit_)
+            ok = (h.isconverged and abs(h.iters - jit_) <= band
+                  and res <= PW_RES_FACTOR * jres
+                  and d64 <= PW_X_FACTOR * jx and not row["f64_launches"]
+                  and row["launches"] == row["expected_launches"])
+            self.record(f"ilu(0) gmres({m}) {ordering} {N}^3", row, ok, "f32")
+            if ordering == "natural":
+                v = torch.randn(A.shape[0], device=self.dev)
+                lv = [t for s in (P.lower_solve, P.upper_solve)
+                      for t in (s.rows, s.cols, s.vals)]
+                self.apply_timing(f"ILU(0) natural ldiv {N}^3",
+                                  lambda: P.ldiv(v), stream_bytes(lv, [v, v]),
+                                  levels=P.lower_solve.nlevels
+                                  + P.upper_solve.nlevels)
+            del P, P64
+
+    def mtx_gmres(self, tmp):
+        import numpy as np
+
+        torch, its = self.torch, self.its
+        from iterativesolvers_tpu_torch.utils.fixtures import (
+            laplace_matrix_coo)
+
+        side, m = MTX_P_SIDE, MTX_P_GMRES["restart"]
+        rows, cols, vals, n = laplace_matrix_coo(side, 2, dtype=np.float64)
+        path = tmp / "laplace_120.mtx"
+        with open(path, "w") as f:
+            f.write("%%MatrixMarket matrix coordinate real general\n")
+            f.write(f"{n} {n} {len(vals)}\n")
+            for r, c, v in zip(rows + 1, cols + 1, vals):
+                f.write(f"{r} {c} {v:.17g}\n")
+        A = its.load_matrix_market(path, dtype=np.float32, device=self.dev)
+        P = self.built(f"ICPreconditioner {side}^2 .mtx",
+                       lambda: its.ICPreconditioner.from_operator(A))
+        b = torch.ones(n, device=self.dev)
+        x, h, row = self.gmres_row(
+            f"ic gmres mtx {side}^2", lambda mi: its.gmres(
+                A, b, Pl=P, log=True, **dict(MTX_P_GMRES, maxiter=mi)),
+            MTX_P_GMRES["maxiter"],
+            lambda h: {"panel_mgs": m * (h.restarts + 1)}, None)
+        res = self.true_res(A.astype(torch.float64), x, b)
+        row.update(true_residual=res, nlevels=P.nlevels)
+        ok = (h.isconverged and res <= MTX_P_RES
+              and row["launches"] == row["expected_launches"])
+        self.record(f"run_all ic(0) gmres({m}) mtx {side}^2", row, ok)
+
+    # -- 5. the stationary methods ---------------------------------------------
+    def stationary_sprand(self):
+        import numpy as np
+
+        torch, its = self.torch, self.its
+        from iterativesolvers_tpu_torch.utils.fixtures import random_sparse
+
+        n = STAT_N
+        kw = dict(seed=2, symmetrize=True, shift=4.0, device=self.dev)
+        A = random_sparse(n, n, 5.0 / n, dtype=np.float32, **kw)
+        A64 = random_sparse(n, n, 5.0 / n, dtype=np.float64, **kw)
+        b = torch.ones(n, device=self.dev)
+        for name, fn, extra, okw in (
+                ("jacobi", its.jacobi, (), {}),
+                ("gauss_seidel", its.gauss_seidel, (), {}),
+                ("sor", its.sor, (1.1,), {}), ("ssor", its.ssor, (1.1,), {}),
+                ("gs_multicolor", its.gauss_seidel, (),
+                 {"ordering": "multicolor"}),
+                ("sor_multicolor", its.sor, (1.1,),
+                 {"ordering": "multicolor"})):
+            self.reset()
+            x, wall = timed_run(torch, lambda: fn(A, b, *extra,
+                                                   maxiter=STAT_SWEEPS, **okw))
+            c = self.counts()
+            x64 = fn(A64, b.double(), *extra, maxiter=STAT_SWEEPS, **okw)
+            j = JAX_STAT[name]
+            xh = x.double().cpu().numpy()
+            head = np.asarray(j["x_head"])
+            errs = {"x_norm2": abs(np.linalg.norm(xh) - j["x_norm2"])
+                    / j["x_norm2"],
+                    "x_norm1": abs(np.abs(xh).sum() - j["x_norm1"])
+                    / j["x_norm1"],
+                    "x_head": float(np.abs(xh[:STAT_HEAD] - head).max()
+                                    / np.abs(head).max())}
+            d64 = self.rel(x, x64)
+            lim = max(PW_X_FACTOR * j["x_rel_diff_f64"], STAT_REL)
+            row = {"sweeps": STAT_SWEEPS, "wall_ms": wall,
+                   "us_per_sweep": wall / STAT_SWEEPS * 1e3,
+                   "launches": c, "x_rel_diff_f64": d64,
+                   "jax_x_rel_diff_f64": j["x_rel_diff_f64"],
+                   **{f"{k}_rel_err_vs_jax": v for k, v in errs.items()}}
+            ok = (max(errs.values()) <= STAT_REL and d64 <= lim and not c
+                  and bool(torch.isfinite(x).all()))
+            self.record(f"stationary sprand {name}", row, ok)
+
+    def stationary_216(self, A):
+        """gauss_seidel and sor(1.1), natural and multicolor, 20 sweeps on
+        the 216^3 variable-diffusion CSR through the public calls; the same
+        sweeps in f64 on the card (the f32 split's level arrays and colors
+        with f64 values)."""
+        torch, its = self.torch, self.its
+        from iterativesolvers_tpu_torch.ops.triangular import (
+            LevelScheduledTriangular)
+        from iterativesolvers_tpu_torch.solvers import stationary as pst
+
+        C = self.built("to_csr 216^3 variable diffusion", A.to_csr)
+        n = C.shape[0]
+        b = torch.ones(n, device=self.dev)
+        split = self.built("stationary split natural 216^3",
+                           lambda: pst._split_matrix(
+                               C, need_lower_solve=True))
+        color, nc = self.built("greedy coloring 216^3",
+                               lambda: pst._color_classes(C))
+        color = torch.from_numpy(color).to(self.dev)
+        lo = split.lower_solve
+        lo64 = LevelScheduledTriangular(lo.rows, lo.cols,
+                                        lo.vals.double(), lo.diag.double(),
+                                        lo.n, device=self.dev)
+        split64 = split._replace(
+            diag=split.diag.double(),
+            lower_mv=split.lower_mv.astype(torch.float64),
+            upper_mv=split.upper_mv.astype(torch.float64),
+            lower_solve=lo64)
+        print(f"  stationary {PW_SIDE}^3: {lo.nlevels} levels a natural "
+              f"sweep, level arrays {lo.nbytes / 1e6:.1f} MB (f32), "
+              f"{nc} colors", flush=True)
+        x0 = torch.zeros(n, device=self.dev)
+        for method, omega in (("gauss_seidel", None), ("sor", 1.1)):
+            fn = getattr(its, method)
+            args = () if omega is None else (omega,)
+            for ordering in ("natural", "multicolor"):
+                self.reset()
+                x, wall = timed_run(torch, lambda: fn(
+                    C, b, *args, maxiter=STAT_SWEEPS, ordering=ordering))
+                c = self.counts()
+                om64 = pst._omega(omega, split64)
+                if ordering == "natural":
+                    sweep = pst._SWEEPS[method]
+                    x64 = pst._run(lambda v: sweep(split64, b.double(), v,
+                                                   om64),
+                                   STAT_SWEEPS, x0.double())
+                    om = pst._omega(omega, split)
+                    f32 = lambda k=STAT_SWEEPS: pst._run(  # noqa: E731
+                        lambda v: sweep(split, b, v, om), k, x0)
+                else:
+                    x64 = pst._run(lambda v: pst._mc_sweep(
+                        method, nc, split64, color, b.double(), v, om64),
+                        STAT_SWEEPS, x0.double())
+                    om = pst._omega(omega, split)
+                    f32 = lambda k=STAT_SWEEPS: pst._run(  # noqa: E731
+                        lambda v: pst._mc_sweep(method, nc, split, color, b,
+                                                v, om), k, x0)
+                # the sweeps alone (the public call's wall holds its build),
+                # and a trace of the first sweeps (all of them multicolor)
+                xs, sweeps_ms = timed_run(torch, f32)
+                traced = (STAT_SWEEPS if ordering == "multicolor"
+                          else STAT_TRACE_SWEEPS)
+                _, by_kernel, syncs = syncs_and_trace(
+                    torch, lambda: f32(traced), f"{method} {ordering}")
+                d64 = self.rel(x, x64)
+                row = {"sweeps": STAT_SWEEPS, "call_wall_ms": wall,
+                       "sweeps_ms": sweeps_ms,
+                       "us_per_sweep": sweeps_ms / STAT_SWEEPS * 1e3,
+                       "busy_share": sum(by_kernel.values()) / traced
+                       * STAT_SWEEPS / sweeps_ms, "traced_sweeps": traced,
+                       "host_syncs": syncs, "launches": c,
+                       "x_rel_diff_f64": d64,
+                       "public_equals_split": bool(torch.equal(x, xs))}
+                if ordering == "natural" and method == "gauss_seidel":
+                    row["us_per_level"] = (sweeps_ms * 1e3 / STAT_SWEEPS
+                                           / lo.nlevels)
+                ok = (d64 <= STAT_216_X_REL and not c and syncs == 0
+                      and row["public_equals_split"])
+                self.record(f"stationary {method} {ordering} {PW_SIDE}^3",
+                            row, ok)
+        self.apply_timing(
+            f"level sweep (lower solve) natural {PW_SIDE}^3",
+            lambda: lo.solve(b), stream_bytes(
+                [lo.rows, lo.cols, lo.vals, lo.diag], [b, b]),
+            levels=lo.nlevels)
+
+    # -- 6. distributed: block-Jacobi IC(0) and the reduced system's DIA form
+    def dist_checks(self, A, one, x1, R, x_red1, ranks, xs, secs):
+        """The ranks' solves against one card's: block-Jacobi IC(0) CG
+        against ``one`` (the one-card reference process's row) and its
+        ``x1`` (equal steps, x within twice phase 4's f32 limit), and the
+        reduced system's DIA form in a halo operator against the one-card
+        solve's ``x_red1`` (steps within the band, x)."""
+        torch = self.torch
+        from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+        n = A.shape[0]
+        A64 = A.astype(torch.float64)
+        b = torch.ones(n, device=self.dev)
+        chunk = PW_CHUNK["rbic"]
+        x1 = x1.to(self.dev)
+        r0 = ranks[0]
+        for r in ranks[1:]:
+            for key in ("block_jacobi_ic", "rb_reduced_to_dia"):
+                if r[key]["iters"] != r0[key]["iters"]:
+                    self.bad.append(f"ranks disagree on {key}")
+        d = r0["block_jacobi_ic"]
+        xd = xs["block_jacobi_ic"].to(self.dev)
+        dx = self.rel(xd, x1)
+        res = self.true_res(A64, xd, b)
+        want1 = {"dia_spmv_dot": chunked_steps(one["iters"], chunk)}
+        row = {"ranks": DIST_RANKS, "iters": d["iters"],
+               "one_card_iters": one["iters"], "nlevels": r0["nlevels"],
+               "one_card_nlevels": one["nlevels"],
+               "true_residual": res, "x_rel_diff_one_card": dx,
+               "one_card_us_per_step": one["us_per_step"],
+               "one_card_busy_share": one["busy_share"],
+               "one_card_launches": one["launches"],
+               "ranks_s": secs, "rank_host_s": [r["host_s"] for r in ranks],
+               **{k: v for k, v in d.items() if k != "launches"},
+               "launches": d["launches"]}
+        ok = (d["converged"] and one["converged"]
+              and d["iters"] == one["iters"] and dx <= 2 * X_F64_REL
+              and r0["nlevels"] == one["nlevels"] == 2
+              and not d["launches"] and one["launches"] == want1)
+        self.record(f"block-Jacobi IC(0) multicolor CG, {DIST_RANKS} ranks",
+                    row, ok)
+        s = r0["rb_reduced_to_dia"]
+        xb = xs["rb_reduced_to_dia"].to(self.dev)
+        one = self.runs["precond_win rb_reduced to_dia ones"]
+        x_dist = R.expand_solution(xb, R.reduce_rhs(b)[1])
+        dxb = self.rel(x_dist, x_red1)
+        row = {"ranks": DIST_RANKS, "iters": s["iters"],
+               "one_card_iters": one["iters"], "x_rel_diff_one_card": dxb,
+               **{k: v for k, v in s.items() if k != "launches"},
+               "launches": s["launches"]}
+        ok = (s["converged"] and abs(s["iters"] - one["iters"])
+              <= pw_band("rb_reduced") and dxb <= 2 * X_F64_REL
+              and not s["launches"])
+        self.record(f"rb_reduced to_dia CG in HaloDIAOperator, "
+                    f"{DIST_RANKS} ranks", row, ok)
+
+
 def panel_ortho_entries(ptimes, perr, r0):
     """The kernels-line entries of the two sweeps: f32 panel (the main
     path's), the bf16 panel beside it."""
@@ -2763,12 +3841,21 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--dist-rank", type=int, default=None,
                     help="run one rank of phase 12 (the script starts them)")
+    ap.add_argument("--precond-rank", type=int, default=None,
+                    help="run one rank of phase 16 (the script starts them)")
+    ap.add_argument("--precond-one-card", action="store_true",
+                    help="run phase 16's one-card reference (the script "
+                         "starts it)")
     ap.add_argument("--world", type=int, default=DIST_RANKS)
     ap.add_argument("--rendezvous")
     ap.add_argument("--out")
     args = ap.parse_args()
     if args.dist_rank is not None:
         return dist_rank(args)
+    if args.precond_rank is not None:
+        return precond_rank(args)
+    if args.precond_one_card:
+        return precond_one_card(args)
     t_start = time.perf_counter()
     import torch
 
@@ -3252,6 +4339,26 @@ def main():
     for k in kernels:
         if k["name"] in p15_keys:
             k["phase15_launches"] = p15.get(p15_keys[k["name"]], {})
+
+    # ---- 16. preconditioners, the reduced system, the stationary methods --
+    p16 = PrecondPhase(torch, its, dias["int8"],
+                       gcounters + (cuda_panel_ortho.panel_dots,
+                                    cuda_panel_ortho.panel_update),
+                       bound).run().launches
+    # phase 16's launches by run, joined to the kernels entries by kernel
+    # and diagonal dtype (its GMRES runs orthogonalize f32 panels: the
+    # panel_mgs entry's f32 row)
+    p16_keys = {"dia_spmv_dot[f32 diagonals]": "dia_spmv_dot[f32]",
+                "dia_spmv_dot[int8 diagonals]": "dia_spmv_dot[int8]",
+                "dia_spmv[f32 diagonals]": "dia_spmv[f32]",
+                "dia_spmv[int8 diagonals]": "dia_spmv[int8]",
+                "panel_mgs[bf16 panel]": "panel_mgs"}
+    if not set(p16) <= set(p16_keys.values()):
+        raise AssertionError(f"phase 16 launched {sorted(p16)}, expected "
+                             f"only {sorted(p16_keys.values())}")
+    for k in kernels:
+        if k["name"] in p16_keys:
+            k["phase16_launches"] = p16.get(p16_keys[k["name"]], {})
 
     for k in kernels:
         if "bytes" in k:

@@ -22,12 +22,16 @@ row) and block CG, LSQR, LSMR, LOBPCG and svdl on them, with the matrix-free
 ``GradientOperator``; the stored formats CSR, ELL, HYB and BSR with
 ``auto_format`` (which sends banded matrices to the DIA kernel), the native
 host layer (``native``, built by g++ at first use) and the MatrixMarket
-loader.
+loader; the ILU(0), IC(0), red-black IC and Eisenstat-SSOR preconditioners
+on ``LevelScheduledTriangular``, ``RBReducedSystem``, the stationary methods
+(jacobi, gauss_seidel, sor, ssor, their iterables and ``SingularError``) and
+the shard-local ``parallel.ShardedBlockJacobiPreconditioner``.
 
-Still to port (the JAX package's names this package lacks): the ILU, IC,
-red-black IC and Eisenstat preconditioners, ``LevelScheduledTriangular``,
-``RBReducedSystem`` and the stationary methods (jacobi, gauss_seidel, sor,
-ssor, their iterables and ``SingularError``).
+Every public name of the JAX package's ``__init__`` is here.  Still to port
+(``ROADMAP.md``, Queue A item 8): the rest of ``parallel/`` (the halo
+operators' ``mv_rows`` and the mesh forms of the block solvers,
+``RowShardedELLOperator``, ``DenseMeshOperator``, ``slice_mesh``,
+``shard_dia`` / ``shard_ell``) and ``utils/profiling.py``.
 """
 
 from .operators.linear_operator import (
@@ -40,11 +44,16 @@ from .operators.linear_operator import (
 from .operators.preconditioners import (
     DensePreconditioner,
     DiagonalPreconditioner,
+    EisenstatSSOROperator,
     FunctionPreconditioner,
+    ICPreconditioner,
+    ILUPreconditioner,
     IdentityPreconditioner,
     Preconditioner,
+    RedBlackICPreconditioner,
     as_preconditioner,
 )
+from .operators.rb_reduce import RBReducedSystem
 from .operators.stencil import (
     GradientOperator,
     StencilOperator,
@@ -76,9 +85,21 @@ from .solvers.lsqr import lsqr
 from .solvers.qmr import qmr, qmr_iterator
 from .solvers.simple import invpowm, powm, powm_iterator
 from .solvers.svdl import svdl, svdl_iterator
+from .solvers.stationary import (
+    SingularError,
+    gauss_seidel,
+    gauss_seidel_iterable,
+    jacobi,
+    jacobi_iterable,
+    sor,
+    sor_iterable,
+    ssor,
+    ssor_iterable,
+)
 from .ops.givens import givens
 from .ops.hessenberg import hessenberg_lstsq
 from .ops.orthogonalize import ORTH_METHODS, orthogonalize_and_normalize
+from .ops.triangular import LevelScheduledTriangular
 from .utils.dtypes import zerox
 from .utils.history import ConvergenceHistory
 from .utils.io import load_matrix_market

@@ -742,6 +742,8 @@ class DIAMatrix(LinearOperator):
 
     def to_csr(self) -> "CSRMatrix":
         n, m = self._shape
+        if len(set(self.offsets)) == len(self.offsets):
+            return self._to_csr_by_rows()
         all_rows, all_cols, all_vals = [], [], []
         i = np.arange(n)
         for dk, off in zip(self.diags, self.offsets):
@@ -755,6 +757,25 @@ class DIAMatrix(LinearOperator):
             np.concatenate(all_rows), np.concatenate(all_cols),
             _on(np.concatenate(all_vals), "cpu", self.dtype), self._shape,
             device=self.device)
+
+    def _to_csr_by_rows(self) -> "CSRMatrix":
+        """``to_csr`` of distinct offsets without a sort: the diagonals laid
+        side by side in ascending offset order are each row's entries in
+        ascending column order, so dropping the zeros and the columns off
+        the matrix leaves the sorted CSR that ``from_coo`` of the same
+        triplets gives (no two share a position)."""
+        n, m = self._shape
+        order = np.argsort(self.offsets, kind="stable")
+        offs = np.asarray(self.offsets, np.int64)[order]
+        vals = torch.stack([self.diags[k] for k in order], dim=1).cpu()
+        cols = np.arange(n, dtype=np.int64)[:, None] + offs[None, :]
+        keep = (cols >= 0) & (cols < m) & (_host(vals) != 0)
+        counts = keep.sum(axis=1)
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        row_ids = np.repeat(np.arange(n, dtype=np.int32), counts)
+        return CSRMatrix(vals[torch.from_numpy(keep)], cols[keep], indptr,
+                         self._shape, row_ids=row_ids, device=self.device)
 
     def diagonal(self):
         """(main diagonal, presence mask ``d != 0``) as tensors on the

@@ -1,6 +1,7 @@
 """Multi-device distribution over ``torch.distributed`` (port of
 ``iterativesolvers_tpu/parallel``): a 1-D mesh of ranks, row-partitioned
-halo operators, and the sharded-panel CGS2 of distributed GMRES."""
+halo operators, the sharded-panel CGS2 of distributed GMRES and the
+shard-local block-Jacobi ILU(0) / IC(0) preconditioner."""
 
 from .panel_ortho import (
     PanelLayout,
@@ -9,6 +10,7 @@ from .panel_ortho import (
     panel_row_to_vec,
     vec_to_panel_row,
 )
+from .precond import ShardedBlockJacobiPreconditioner
 from .sharded import (
     HaloDIAOperator,
     HaloStencilOperator,
@@ -32,4 +34,5 @@ __all__ = [
     "dist_panel_ortho",
     "vec_to_panel_row",
     "panel_row_to_vec",
+    "ShardedBlockJacobiPreconditioner",
 ]

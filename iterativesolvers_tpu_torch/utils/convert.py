@@ -4,7 +4,10 @@ The port's counterpart of loading a model's weights: an operator of the JAX
 package is taken apart into numpy arrays and Python tuples (for example
 ``np.asarray(A.diags[k])``, ``A.offsets``, ``St.terms``,
 ``float(St.center)``) and rebuilt here on ``device``, or row-sharded on a
-mesh of ranks (``parallel/sharded.py``).  Nothing of the JAX
+mesh of ranks (``parallel/sharded.py``).  The preconditioners and the
+reduced red-black system are carried across the same way, from the arrays
+the JAX package built (its level schedules, factors and shift streams), so
+the port applies the JAX package's own factorization.  Nothing of the JAX
 package is imported: the caller hands over plain data.  Values keep their
 dtype (an ``ml_dtypes`` bfloat16 array becomes a bfloat16 tensor); index
 arrays are stored as the formats store them.
@@ -16,18 +19,26 @@ import numpy as np
 import torch
 
 from ..operators.linear_operator import ScaledIdentityPlusOperator
+from ..operators.preconditioners import (EisenstatSSOROperator,
+                                         ICPreconditioner, ILUPreconditioner,
+                                         RedBlackICPreconditioner)
+from ..operators.rb_reduce import RBReducedSystem
 from ..operators.sparse import (BSRMatrix, CSRMatrix, DIAMatrix, ELLMatrix,
                                 HYBMatrix)
 from ..operators.stencil import GradientOperator, StencilOperator
+from ..ops.triangular import LevelScheduledTriangular
 from .dtypes import host_tensor
 
 __all__ = ["dia_from_arrays", "stencil_from_arrays", "csr_from_arrays",
            "ell_from_arrays", "hyb_from_arrays", "bsr_from_arrays",
            "operator_from_arrays", "halo_dia_from_arrays",
-           "halo_stencil_from_arrays", "host_tensor"]
+           "halo_stencil_from_arrays", "triangular_from_arrays",
+           "factors_from_arrays", "rbic_from_arrays",
+           "eisenstat_from_arrays", "rb_reduced_from_arrays", "host_tensor"]
 
 KINDS = ("dia", "stencil", "gradient", "scaled_identity_plus", "csr", "ell",
-         "hyb", "bsr")
+         "hyb", "bsr", "triangular", "ilu", "ic", "rbic", "eisenstat",
+         "rb_reduced")
 
 
 def dia_from_arrays(diags, offsets, shape, device="cuda") -> DIAMatrix:
@@ -105,6 +116,67 @@ def halo_stencil_from_arrays(n, center, terms, coeffs, dtype, mesh):
                             device=mesh.device), mesh)
 
 
+def triangular_from_arrays(rows, cols, vals, diag, n,
+                           device="cuda") -> LevelScheduledTriangular:
+    """A ``LevelScheduledTriangular`` from its padded level arrays (the JAX
+    object's ``rows``, ``cols``, ``vals``), diagonal and row count."""
+    return LevelScheduledTriangular(np.asarray(rows), np.asarray(cols),
+                                    host_tensor(vals), host_tensor(diag), n,
+                                    device=device)
+
+
+def factors_from_arrays(kind, lower, upper, perm=None, inv=None,
+                        device="cuda"):
+    """An ``ILUPreconditioner`` (``kind="ilu"``) or ``ICPreconditioner``
+    (``"ic"``) from its two sweeps (each the keys of
+    :func:`triangular_from_arrays`) and its multicolor permutation, or
+    None."""
+    cls = {"ilu": ILUPreconditioner, "ic": ICPreconditioner}[kind]
+    return cls(triangular_from_arrays(device=device, **lower),
+               triangular_from_arrays(device=device, **upper),
+               None if perm is None else np.array(perm),
+               None if inv is None else np.array(inv))
+
+
+def _terms(terms):
+    return tuple(tuple(int(v) for v in t) for t in terms)
+
+
+def _on(a, device, dtype=None):
+    return host_tensor(a).to(device=device, dtype=dtype)
+
+
+def rbic_from_arrays(terms, mcs, center, s_inv, red,
+                     device="cuda") -> RedBlackICPreconditioner:
+    """A ``RedBlackICPreconditioner`` from its (offset, stride, extent)
+    terms, masked coefficient streams, center, pivot scales and parity."""
+    return RedBlackICPreconditioner(
+        _terms(terms), tuple(_on(m, device) for m in mcs),
+        _on(center, device), _on(s_inv, device),
+        _on(red, device, torch.bool))
+
+
+def eisenstat_from_arrays(terms, mcs, s, red,
+                          device="cuda") -> EisenstatSSOROperator:
+    """An ``EisenstatSSOROperator`` from its terms, scaled streams,
+    ``D^{-1/2}`` and parity."""
+    return EisenstatSSOROperator(
+        _terms(terms), tuple(_on(m, device) for m in mcs), _on(s, device),
+        _on(red, device, torch.bool))
+
+
+def rb_reduced_from_arrays(shape3, s_red, s_black, sr_offsets, sr_streams,
+                           sb_offsets, sb_streams, lane_red,
+                           device="cuda") -> RBReducedSystem:
+    """An ``RBReducedSystem`` from its compact layout, scales and the two
+    sets of (offset, stream) couplings."""
+    return RBReducedSystem(
+        tuple(shape3), _on(s_red, device), _on(s_black, device),
+        tuple(sr_offsets), tuple(_on(c, device) for c in sr_streams),
+        tuple(sb_offsets), tuple(_on(c, device) for c in sb_streams),
+        _on(lane_red, device, torch.bool))
+
+
 def _scalar(c):
     a = np.asarray(c)
     return complex(a) if np.iscomplexobj(a) else float(a)
@@ -118,7 +190,11 @@ def operator_from_arrays(spec: dict, device="cuda", mesh=None):
     :func:`hyb_from_arrays` and :func:`bsr_from_arrays`, ``"gradient"`` a
     ``GradientOperator``'s ``dims`` and ``dtype``,
     ``"scaled_identity_plus"`` the spec of the ``inner`` operator and
-    ``sigma`` (a ``ScaledIdentityPlusOperator``).  With a ``mesh`` a
+    ``sigma`` (a ``ScaledIdentityPlusOperator``); ``"triangular"``,
+    ``"ilu"`` / ``"ic"``, ``"rbic"``, ``"eisenstat"`` and ``"rb_reduced"``
+    the keys of :func:`triangular_from_arrays`, :func:`factors_from_arrays`,
+    :func:`rbic_from_arrays`, :func:`eisenstat_from_arrays` and
+    :func:`rb_reduced_from_arrays`.  With a ``mesh`` a
     ``"dia"`` or ``"stencil"`` operator is the row-sharded halo operator of
     that kind on the mesh (``device`` is then the mesh's)."""
     kind = spec.get("kind")
@@ -130,6 +206,8 @@ def operator_from_arrays(spec: dict, device="cuda", mesh=None):
         return ScaledIdentityPlusOperator(
             operator_from_arrays(args["inner"], device, mesh),
             _scalar(args["sigma"]))
+    if kind in ("ilu", "ic"):
+        return factors_from_arrays(kind, device=device, **args)
     if mesh is not None:
         if kind not in ("dia", "stencil"):
             raise ValueError(f"a {kind!r} operator has no row-sharded form")
@@ -139,5 +217,7 @@ def operator_from_arrays(spec: dict, device="cuda", mesh=None):
     build = {"dia": dia_from_arrays, "stencil": stencil_from_arrays,
              "gradient": GradientOperator, "csr": csr_from_arrays,
              "ell": ell_from_arrays, "hyb": hyb_from_arrays,
-             "bsr": bsr_from_arrays}[kind]
+             "bsr": bsr_from_arrays, "triangular": triangular_from_arrays,
+             "rbic": rbic_from_arrays, "eisenstat": eisenstat_from_arrays,
+             "rb_reduced": rb_reduced_from_arrays}[kind]
     return build(device=device, **args)

@@ -28,9 +28,9 @@ import torch
 
 import iterativesolvers_tpu_torch as pits
 from iterativesolvers_tpu_torch.parallel import panel_ortho as po
-from iterativesolvers_tpu_torch.parallel import (dist_panel_ortho,
-                                                 gather_vector, panel_layout,
-                                                 row_mesh, shard_vector)
+from iterativesolvers_tpu_torch.parallel import (
+    ShardedBlockJacobiPreconditioner, dist_panel_ortho, gather_vector,
+    panel_layout, row_mesh, shard_vector)
 from iterativesolvers_tpu_torch.solvers import gmres as pgm
 from iterativesolvers_tpu_torch.utils import convert
 
@@ -188,8 +188,32 @@ def setup(c, a, mesh):
     return out
 
 
+def bjacobi(c, a, mesh):
+    """ShardedBlockJacobiPreconditioner.<factor> (``c["factor"]``, "ilu" or
+    "ic", with ``c["ordering"]``) of the case's whole DIA matrix: its ldiv
+    of x gathered, its nlevels and this rank's own; with ``c["kw"]``, CG
+    on the halo DIA operator with it as ``Pl``."""
+    n = len(a["x"])
+    whole = convert.dia_from_arrays(
+        [a[f"diag{i}"] for i in range(c["op"]["ndiags"])],
+        c["op"]["offsets"], (n, n), device="cpu")
+    build = getattr(ShardedBlockJacobiPreconditioner, c["factor"])
+    P = build(whole, mesh, ordering=c["ordering"])
+    x = shard_vector(a["x"], mesh)
+    out = {"ldiv": _np(gather_vector(P.ldiv(x), mesh)),
+           "nlevels": np.array(P.nlevels),
+           "local_nlevels": np.array(P.local.nlevels)}
+    if "kw" in c:
+        op = _operator(c, a, mesh)
+        xs, h = pits.cg(op, shard_vector(a["b"], mesh), Pl=P, log=True,
+                        **c["kw"])
+        out.update(_history(xs, h, mesh))
+    return out
+
+
 CASES = {"halo_ops": halo_ops, "interior": interior, "panel": panel,
-         "gmres": gmres, "cg": cg, "pipecg": pipecg, "setup": setup}
+         "gmres": gmres, "cg": cg, "pipecg": pipecg, "setup": setup,
+         "bjacobi": bjacobi}
 
 
 MESHES = {"gloo": ("gloo", lambda r: "cpu"),

@@ -91,3 +91,47 @@ def port_sparse(A):
     """The port's operator on the CPU with the arrays of the JAX stored
     matrix ``A`` (any of CSR, ELL, HYB, BSR, DIA)."""
     return convert.operator_from_arrays(sparse_spec(A), device=CPU)
+
+
+def triangular_spec(T):
+    """The arrays of a JAX ``LevelScheduledTriangular`` (the keys of
+    ``convert.triangular_from_arrays``)."""
+    a = np.asarray
+    return dict(rows=a(T.rows), cols=a(T.cols), vals=a(T.vals),
+                diag=a(T.diag), n=T.n)
+
+
+def precond_spec(P):
+    """The carry-across spec of a JAX ``LevelScheduledTriangular``, ILU /
+    IC / red-black IC preconditioner, ``EisenstatSSOROperator`` or
+    ``RBReducedSystem``: its arrays as numpy."""
+    name = type(P).__name__
+    a = np.asarray
+    if name == "LevelScheduledTriangular":
+        return dict(kind="triangular", **triangular_spec(P))
+    if name in ("ILUPreconditioner", "ICPreconditioner"):
+        return dict(kind="ilu" if name == "ILUPreconditioner" else "ic",
+                    lower=triangular_spec(P.lower_solve),
+                    upper=triangular_spec(P.upper_solve),
+                    perm=None if P.perm is None else a(P.perm),
+                    inv=None if P.inv is None else a(P.inv))
+    if name == "RedBlackICPreconditioner":
+        return dict(kind="rbic", terms=P.terms, mcs=[a(m) for m in P.mcs],
+                    center=a(P.center), s_inv=a(P.s_inv), red=a(P.red))
+    if name == "EisenstatSSOROperator":
+        return dict(kind="eisenstat", terms=P.terms,
+                    mcs=[a(m) for m in P.mcs], s=a(P.s), red=a(P.red))
+    if name == "RBReducedSystem":
+        return dict(kind="rb_reduced", shape3=P.shape3, s_red=a(P.s_red),
+                    s_black=a(P.s_black), sr_offsets=P.sr_offsets,
+                    sr_streams=[a(c) for c in P.sr_streams],
+                    sb_offsets=P.sb_offsets,
+                    sb_streams=[a(c) for c in P.sb_streams],
+                    lane_red=a(P.lane_red))
+    raise TypeError(name)
+
+
+def port_precond(P):
+    """The port's object on the CPU with the arrays of the JAX ``P``
+    (see :func:`precond_spec`)."""
+    return convert.operator_from_arrays(precond_spec(P), device=CPU)

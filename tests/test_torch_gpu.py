@@ -734,3 +734,101 @@ def test_cuda_auto_format_of_laplacian_coo_lands_on_the_dia_kernel(cuda):
     assert hc.isconverged and abs(hc.iters - h.iters) <= 5
     assert float(torch.linalg.vector_norm(xc - x)
                  / torch.linalg.vector_norm(x)) <= 1e-4
+
+
+# ---- preconditioners and stationary sweeps (eager torch on the card) -----------
+
+def _precond_applies(device):
+    """name -> (build on ``device``, apply(P, x)) of every apply of the
+    preconditioner slice, f64 on a 10^3 / 10^2 variable-coefficient grid."""
+    def vd(side, dims):
+        return pfix.variable_diffusion(side, dims, contrast=1e3, seed=3,
+                                       device=device)
+
+    def csr(side, dims):
+        return vd(side, dims).to_csr()
+
+    from iterativesolvers_tpu_torch.solvers import stationary as pst
+
+    def sweep(method, ordering):
+        def build():
+            A = csr(10, 3)
+            multicolor = ordering == "multicolor"
+            split = pst._split_matrix(A, need_lower_solve=not multicolor,
+                                      need_upper_solve=not multicolor)
+            om = pst._omega(1.1, split)
+            if not multicolor:
+                return lambda x: pst._SWEEPS[method](split, x, x, om)
+            color, nc = pst._color_classes(A)
+            color = torch.from_numpy(color).to(device)
+            return lambda x: pst._mc_sweep(method, nc, split, color, x, x, om)
+        return build, lambda P, x: P(x)
+
+    return {
+        "level sweep": (lambda: pits.ICPreconditioner.from_operator(
+            csr(10, 3)).lower_solve, lambda P, x: P.solve(x, omega=1.2)),
+        "ilu natural ldiv_rows": (lambda: pits.ILUPreconditioner.from_operator(
+            csr(10, 3)), lambda P, x: P.ldiv_rows(torch.stack([x, 2 * x]))),
+        "ic multicolor ldiv": (lambda: pits.ICPreconditioner.from_operator(
+            csr(10, 3), ordering="multicolor"), lambda P, x: P.ldiv(x)),
+        "rbic from_dia ldiv": (lambda: pits.RedBlackICPreconditioner.from_dia(
+            vd(10, 3), 10, 3), lambda P, x: P.ldiv(x)),
+        "rbic from_stencil ldiv_rows": (
+            lambda: pits.RedBlackICPreconditioner.from_stencil(
+                pits.laplacian(10, 3, dtype=torch.float64, device=device)),
+            lambda P, x: P.ldiv_rows(torch.stack([x, -x]))),
+        "eisenstat mv": (lambda: pits.EisenstatSSOROperator.from_dia(
+            vd(10, 3), 10, 3), lambda P, x: P.solution_transform(
+                P.mv(P.rhs_transform(x)))),
+        "rb_reduced mv": (lambda: pits.RBReducedSystem.from_dia(
+            vd(10, 3), 10, 3), lambda P, x: P.expand_solution(
+                *(lambda bb, br: (P.mv(bb), br))(*P.reduce_rhs(x)))),
+        "ssor sweep": sweep("ssor", "natural"),
+        "sor multicolor sweep": sweep("sor", "multicolor"),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_precond_applies("cpu")))
+def test_cuda_precond_applies_match_cpu_without_host_reads(cuda, name):
+    """Each apply on CUDA tensors against the same call on CPU tensors
+    (f64, another order of the same sums: 1e-12), and with CUDA's sync
+    debug mode at "error" around it: an ldiv, mv or sweep reads nothing
+    back to the host (CG's masking and run_chunked rely on that)."""
+    build, apply = _precond_applies(cuda)[name]
+    build_cpu, _ = _precond_applies("cpu")[name]
+    P, Pc = build(), build_cpu()
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(1000, generator=g, dtype=torch.float64)
+    apply(P, x.to(cuda))                  # warm-up outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = apply(P, x.to(cuda, non_blocking=True))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    yc = apply(Pc, x)
+    assert float((y.cpu() - yc).abs().max()) <= 1e-12 * float(
+        yc.abs().max())
+
+
+@pytest.mark.gpu
+def test_cuda_preconditioned_cg_launches_the_dia_kernel(cuda):
+    """f32 CG on a variable-diffusion DIA matrix with RB-IC as Pl, and on
+    the reduced system's explicit DIA form (25 diagonals): one dia_spmv_dot
+    launch a step, two a step past 16 diagonals; the CPU solve's steps
+    within 2."""
+    A = pfix.variable_diffusion(16, 3, contrast=1e2, seed=7,
+                                dtype=np.float32, device=cuda)
+    b = torch.ones(A.shape[0], device=cuda)
+    P = pits.RedBlackICPreconditioner.from_dia(A, 16, 3)
+    R = pits.RBReducedSystem.from_dia(A, 16, 3)
+    S = R.to_dia()
+    assert len(S.offsets) > cuda_spmv.MAX_DIAGS
+    for op, rhs, kw, per_step in ((A, b, {"Pl": P}, 1),
+                                  (S, R.reduce_rhs(b)[0], {}, 2)):
+        before = cuda_spmv.dia_spmv_dot.launches
+        x, h = pits.cg(op, rhs, reltol=1e-5, log=True, **kw)
+        steps = pits.solvers.common.chunked_steps(h.iters)
+        assert h.isconverged
+        assert cuda_spmv.dia_spmv_dot.launches - before == per_step * steps

@@ -120,6 +120,16 @@ PIPECG = {  # name: (operator, dtype, keywords), on D = 2 ranks
     "stencil_f32": ("laplacian(16,2)", F32, dict(reltol=1e-5, maxiter=600)),
 }
 
+# shard-local block-Jacobi on D = 2 ranks: name: (factor, ordering, matrix,
+# CG keywords or None)
+BJ = {
+    "ilu natural": ("ilu", "natural", "advection_diffusion(8)", None),
+    "ic natural": ("ic", "natural", "variable_diffusion(8,3)",
+                   dict(reltol=1e-10, maxiter=500)),
+    "ic multicolor": ("ic", "multicolor", "variable_diffusion(8,3)",
+                      dict(reltol=1e-10, maxiter=500)),
+}
+
 GATES = [("float64", "mgs"), ("float32", "cgs2"), ("float32", "cgs"),
          ("float64", "dgks"), ("complex128", "mgs")]
 
@@ -142,6 +152,14 @@ def _complex_stencil():
                                 dtype=np.complex128)
 
 
+def _rb_reduced():
+    """test_parallel.py's reduced system (side 16, 2-D, contrast 100) and
+    its explicit DIA form."""
+    A = jfix.variable_diffusion(16, 2, contrast=100, seed=4, dtype=F64)
+    R = jits.RBReducedSystem.from_dia(A, 16, 2)
+    return R, R.to_dia()
+
+
 def _operator(name, dtype):
     """The JAX operator of a case and its port spec and arrays."""
     if name in STENCILS:
@@ -157,8 +175,13 @@ def _operator(name, dtype):
     if name == "laplacian(16,2)":
         St = jits.laplacian(16, 2, dtype=dtype)
         return St, _stencil_spec(St), {}
-    A = (jfix.laplace_dia(16, 2, dtype=dtype) if name == "laplace_dia(16,2)"
-         else DIAS[name]())
+    if name == "variable_diffusion(8,3)":
+        A = jfix.variable_diffusion(8, 3, contrast=1e3, seed=5, dtype=F64)
+    elif name == "rb_reduced(16,2).to_dia()":
+        A = _rb_reduced()[1]
+    else:
+        A = (jfix.laplace_dia(16, 2, dtype=dtype)
+             if name == "laplace_dia(16,2)" else DIAS[name]())
     spec, arrays = _dia_spec(A)
     return A, spec, arrays
 
@@ -200,6 +223,20 @@ def _cases(D):
             out.append(({"name": f"pipecg/{name}", "kind": "pipecg",
                          "op": spec, "kw": kw},
                         {**arrays, "b": np.ones(A.shape[0], dt)}))
+        for name, (factor, ordering, opname, kw) in BJ.items():
+            A, spec, arrays = _operator(opname, F64)
+            case = {"name": f"bj/{name}", "kind": "bjacobi", "op": spec,
+                    "factor": factor, "ordering": ordering}
+            if kw is not None:
+                case["kw"] = kw
+            out.append((case, {**arrays, "x": _x(A.shape[0], F64),
+                               "b": np.ones(A.shape[0])}))
+        R, S = _rb_reduced()
+        _, spec, arrays = _operator("rb_reduced(16,2).to_dia()", F64)
+        bb = np.asarray(R.reduce_rhs(jnp.ones(256))[0])
+        out.append(({"name": "cg/rb_reduced_dia", "kind": "cg", "op": spec,
+                     "kw": dict(reltol=1e-11, maxiter=2000)}, {**arrays,
+                                                               "b": bb}))
     if D in (2, 4):
         for name in STENCILS:
             for dt in (F64, F32):
@@ -570,3 +607,65 @@ def test_single_rank_mesh_takes_single_device_routes(port):
                       maxiter=400, log=True)
     assert abs(int(got["iters"]) - h.iters) <= 1
     assert rel(got["x"], np.asarray(x)) <= 1e-4
+
+
+# ---- shard-local block-Jacobi and the reduced system on a mesh ----------------
+
+@pytest.mark.parametrize("name", list(BJ))
+def test_sharded_block_jacobi_matches_jax(port, name):
+    """ShardedBlockJacobiPreconditioner on 2 ranks, each rank factoring only
+    its diagonal block: ldiv within 1e-12 of the JAX package's sharded
+    preconditioner on row_mesh(2) and, for ILU, of
+    ``ILUPreconditioner.block_jacobi(csr, 2)`` on one device; nlevels equal
+    (the maximum over the ranks); CG with it as ``Pl`` on the halo DIA
+    operator takes the JAX package's steps with its residual series within
+    1e-10."""
+    from iterativesolvers_tpu.operators.preconditioners import (
+        ILUPreconditioner)
+    from iterativesolvers_tpu.parallel.precond import (
+        ShardedBlockJacobiPreconditioner)
+
+    factor, ordering, opname, kw = BJ[name]
+    ranks = port(2)
+    got = _out(ranks, f"bj/{name}")
+    A = _operator(opname, F64)[0]
+    csr = A.to_csr()
+    mesh = _mesh(2)
+    P = getattr(ShardedBlockJacobiPreconditioner, factor)(csr, mesh,
+                                                         ordering=ordering)
+    x = _x(A.shape[0], F64)
+    want = np.asarray(P.ldiv(jsh.shard_vector(jnp.asarray(x), mesh)))
+    assert rel(got["ldiv"], want) <= 1e-12
+    assert int(got["nlevels"]) == P.nlevels
+    assert max(int(r[f"bj/{name}/local_nlevels"]) for r in ranks) \
+        == P.nlevels
+    if factor == "ilu":
+        one = ILUPreconditioner.block_jacobi(csr, 2)
+        assert rel(got["ldiv"], np.asarray(one.ldiv(jnp.asarray(x)))) \
+            <= 1e-12
+    if kw is not None:
+        op = jsh.HaloDIAOperator(A, mesh)
+        xj, h = jits.cg(op, jsh.shard_vector(jnp.ones(A.shape[0]), mesh),
+                        Pl=P, log=True, **kw)
+        assert h.isconverged and bool(got["converged"])
+        assert int(got["iters"]) == h.iters
+        np.testing.assert_allclose(got["resnorm"], h["resnorm"], rtol=1e-10,
+                                   atol=1e-12 * h["resnorm"][0])
+        assert rel(got["x"], np.asarray(xj)) <= 1e-10
+
+
+def test_rb_reduced_to_dia_on_a_mesh_matches_jax(port):
+    """The reduced system's explicit DIA form (test_parallel.py:487-514) in
+    a halo DIA operator on 2 ranks: CG takes the JAX package's steps on
+    row_mesh(2), and its x solves the one-device reduced system."""
+    got = _out(port(2), "cg/rb_reduced_dia")
+    R, S = _rb_reduced()
+    mesh = _mesh(2)
+    bb = R.reduce_rhs(jnp.ones(256))[0]
+    xj, h = jits.cg(jsh.HaloDIAOperator(S, mesh), jsh.shard_vector(bb, mesh),
+                    reltol=1e-11, maxiter=2000, log=True)
+    assert h.isconverged and bool(got["converged"])
+    assert int(got["iters"]) == h.iters
+    assert rel(got["x"], np.asarray(xj)) <= 1e-10
+    xb_ref = jits.cg(R, bb, reltol=1e-11, maxiter=2000)
+    assert rel(got["x"], np.asarray(xb_ref)) <= 1e-8
