@@ -122,6 +122,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
     product, time a step, the card's busy share of its first 64 steps and
     its builders' host seconds; the eager level sweep (us a level) and
     shift passes against their byte bounds.
+17. The rest of ``parallel/``: two rank processes (``--mesh-rank``) on the
+    card over gloo run ``mv_rows`` of a (16, n) panel through the halo
+    stencil (the stencil kernel once a row a rank, one exchange a panel)
+    and the halo DIA operator at 216^3, each rank's rows against one card's
+    ``mv_rows``; block CG (k = 8) at 216^3; LOBPCG (16 smallest) on the
+    100^3 stencil; svdl (6 largest) at 216^3; LSQR and LSMR on the shifted
+    216^3 stencil; CG on phase 15's 1M-row scrambled ELL pick and LSQR on
+    the 100^3 gradient's ELL (with its adjoint and with the reduce-scatter
+    adjoint) through ``RowShardedELLOperator``; GMRES(20) on an 8191 x 8191
+    dense f32 ``DenseMeshOperator`` (the padded last shard, the CGS2
+    kernels) with its witness; CG through ``shard_dia`` (the halo DIA
+    operator itself) and through ``shard_ell`` (the ELL operator itself)
+    beside one card's CG on the same ELL matrix; then four ranks
+    (``--slice-rank``) on a (2, 2) ``slice_mesh`` run CG at 216^3 with its
+    all-reduces counted at both levels.  Each run against the same run on
+    one card made in the phase, its f64 or analytic reference and true
+    residual, with its launches, collectives a step, ms a step and the
+    ranks' set-up seconds; ``measure_bandwidth``'s triad beside the data
+    sheet's 3.35 TB/s.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It imports no JAX and nothing of the JAX package.
@@ -253,18 +272,47 @@ def laplace_csr(torch, A):
                                    check_invariants=False)
 
 
-def device_ms(torch, prof, name):
-    """Device time (ms) by kernel name (cut to 60 characters) in a
-    ``torch.profiler`` trace; raises if the trace holds none."""
-    by_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            key = e.name[:60]
-            by_kernel[key] = (by_kernel.get(key, 0.0)
-                              + e.time_range.elapsed_us() / 1e3)
-    if not by_kernel:
-        raise AssertionError(f"the trace of {name} holds no device time")
-    return by_kernel
+# a trace that comes back with no device time is taken again, up to this
+# many times in all: CUPTI at times hands back a whole session with no device
+# activity (a 24-step trace of pipelined CG on the H100, PERF.md)
+TRACE_TRIES = 3
+
+
+def profiled(torch, fn, name, mesh=None):
+    """Run ``fn`` once under ``torch.profiler`` (CPU and CUDA activity):
+    (result, device time (ms) by kernel name cut to 60 characters).  A trace
+    that holds no device time is taken again, up to TRACE_TRIES runs, then
+    raises.  With a ``mesh``, rank 0 traces and the other ranks run ``fn``
+    untraced for its collectives; the ranks agree on a retry through one
+    all-reduce, and the others get None for the device times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    tracing = mesh is None or mesh.rank == 0
+    for _ in range(TRACE_TRIES):
+        by_kernel = None
+        if tracing:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                out = fn()
+                torch.cuda.synchronize()
+            by_kernel = {}
+            for e in prof.events():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    key = e.name[:60]
+                    by_kernel[key] = (by_kernel.get(key, 0.0)
+                                      + e.time_range.elapsed_us() / 1e3)
+        else:
+            out = fn()
+        again = tracing and not by_kernel
+        if mesh is not None:
+            flag = torch.tensor([float(again)], device="cuda")
+            again = bool(mesh.all_reduce(flag).item())
+        if not again:
+            return out, by_kernel
+        print(f"  (the trace of {name} holds no device time: taken again)",
+              flush=True)
+    raise AssertionError(f"the trace of {name} holds no device time "
+                         f"in {TRACE_TRIES} runs")
 
 
 # ---- the dot's rounding: the spread of sound orders (phase 4) ---------------
@@ -373,9 +421,15 @@ def check_spread(table):
     return {f"{o} / {b}": row for (o, b), row in table.items()}
 
 
+# steps of phase 6's traced CG solves (a trace's cost grows with its
+# events): the chunked loop's first five phases, 8 + 16 + ... + 128, which
+# it runs whole (a maxiter between runs to the end of its phase, masked)
+CG_TRACE = 248
+
 # ---- GMRES (phases 7-11) ---------------------------------------------------
 GM_RESTART = 20
 GM_LONG, GM_SHORT = 500, 240      # bench.py's differential: 25 and 12 cycles
+GM_TRACE = 2 * GM_RESTART         # steps of a traced GMRES(20) twin: 2 cycles
 # Witness limits (phase 8): each kernel route against the same solve with
 # the kernels routed off.  Over the first cycle the residual estimates agree
 # within WITNESS_EST_REL of the largest and x within WITNESS_X_REL on both
@@ -779,14 +833,14 @@ def gmres_main_path(torch, its, gm, counters, ops, b, true_res, rel_diff,
     spread = gmres_rounding_spread(torch, gm, counters, routes, solve,
                                    true_res, rel_diff, runs, b)
     # the step is host-bound and its host time varies from solve to solve:
-    # 5 solves of each length, and the mean step of the 500-step solve
+    # 3 solves of each length, and the mean step of the 500-step solve
     # beside the differential
     per_iter, per_step = {}, {}
     for name, (op, panel) in routes.items():
         t_long = timed(f"gmres {name} maxiter={GM_LONG}",
-                       lambda: solve(op, GM_LONG, panel), 1, 5)
+                       lambda: solve(op, GM_LONG, panel), 1, 3)
         t_short = timed(f"gmres {name} maxiter={GM_SHORT}",
-                        lambda: solve(op, GM_SHORT, panel), 1, 5)
+                        lambda: solve(op, GM_SHORT, panel), 1, 3)
         per_iter[name] = (t_long - t_short) / (GM_LONG - GM_SHORT) * 1e3
         per_step[name] = t_long / GM_LONG * 1e3
     out = {"gmres_us_per_iter": per_iter,
@@ -859,9 +913,9 @@ def gmres_fused_ab(torch, gm, counters, St, solve, timed):
             f.launches = 0
         with routed(gm, **decisions):
             t_long = timed(f"ab {name} {GM_LONG}",
-                           lambda: solve(St, GM_LONG, panel), 1, 3)
+                           lambda: solve(St, GM_LONG, panel), 1, 2)
             t_short = timed(f"ab {name} {GM_SHORT}",
-                            lambda: solve(St, GM_SHORT, panel), 1, 3)
+                            lambda: solve(St, GM_SHORT, panel), 1, 2)
         launched = {f.__name__: f.launches for f in counters}
         if not launched[kernel] or launched[
                 {"fused_arnoldi": "stencil_panel_mv",
@@ -892,28 +946,25 @@ def dispatch_count(torch, fn):
 
 
 def gmres_trace(torch, solve, routes, samples):
-    """Where the time of a GMRES step goes: one profiled 240-step solve per
-    route, device busy time against the untraced solve's median; and the
-    torch ops a step dispatches (two cycles less one, over a cycle's steps:
+    """Where the time of a GMRES step goes: one profiled GM_TRACE-step
+    solve per route, its device busy time a step against the untraced
+    240-step solve's median time a step; and the torch ops a step
+    dispatches (two cycles less one, over a cycle's steps:
     a cycle boundary's share included)."""
-    from torch.profiler import ProfilerActivity, profile
-
     trace = {}
     for name, (op, panel) in routes.items():
         ops = [dispatch_count(torch, lambda c=c: solve(op, c * GM_RESTART,
                                                        panel))
                for c in (1, 2)]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            solve(op, GM_SHORT, panel)
-            torch.cuda.synchronize()
-        by_kernel = device_ms(torch, prof, name)
+        _, by_kernel = profiled(
+            torch, lambda: solve(op, GM_TRACE, panel), name)
         busy = sum(by_kernel.values())
         wall = statistics.median(samples[f"gmres {name} maxiter={GM_SHORT}"])
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
-        trace[name] = {"steps": GM_SHORT, "wall_ms": wall,
-                       "device_busy_ms": busy, "busy_share": busy / wall,
-                       "device_us_per_step": busy / GM_SHORT * 1e3,
+        trace[name] = {"steps": GM_TRACE, "wall_ms_240": wall,
+                       "device_busy_ms": busy,
+                       "busy_share": busy / GM_TRACE / (wall / GM_SHORT),
+                       "device_us_per_step": busy / GM_TRACE * 1e3,
                        "torch_ops_per_step": (ops[1] - ops[0]) / GM_RESTART,
                        "top_device_ms": dict(top)}
     print(json.dumps({"gmres_trace": trace}))
@@ -929,7 +980,7 @@ def gmres_trace(torch, solve, routes, samples):
 DIST_RANKS = 2
 DIST_COLLECTIVE_TIMEOUT = 300     # seconds a collective may wait
 DIST_TIMEOUT = 900                # seconds the ranks may take in all
-DIST_REPS = 3                     # timed solves of each length
+DIST_REPS = 2                     # timed solves of each length
 # the 500-step f32 route against the same solve with the two sweeps routed
 # to their plain versions on the card: WITNESS_RES_FACTOR, WITNESS_X_REL.
 # The converging solves against their distributed witness: +-1 step and
@@ -1056,7 +1107,6 @@ def dist_solves(torch, mesh):
     witness, its timing and a trace), converging GMRES(10) on the shifted
     Laplacian, and CG, all on the row-sharded 216^3 stencil.  Returns the
     results and (rank 0) the gathered solutions, on the host."""
-    from torch.profiler import ProfilerActivity, profile
 
     import iterativesolvers_tpu_torch as its
     from iterativesolvers_tpu_torch.ops import cuda_panel_ortho as cpo
@@ -1133,27 +1183,23 @@ def dist_solves(torch, mesh):
                      "us_per_iter": (t_long - t_short)
                      / (GM_LONG - GM_SHORT) * 1e6,
                      "us_per_step_of_500": t_long / GM_LONG * 1e6}
-    # one traced 240-step solve (rank 0 traces; rank 1 runs it alongside)
+    # one traced GM_TRACE-step solve (rank 0 traces; rank 1 runs it
+    # alongside), against the 240-step solve's time a step
     sync()
+    _, by_kernel = profiled(torch, lambda: bench(GM_TRACE),
+                            "distributed gmres", mesh)
     if mesh.rank == 0:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            bench(GM_SHORT)
-            torch.cuda.synchronize()
-        by_kernel = device_ms(torch, prof, "distributed gmres")
         busy = sum(by_kernel.values())
         sweeps = {name: sum(v for k, v in by_kernel.items() if name in k)
                   for name in ("panel_dots_kernel", "reduce_rows",
                                "panel_update_kernel", "stencil_kernel")}
         res["trace"] = {
-            "steps": GM_SHORT, "wall_ms": t_short * 1e3,
+            "steps": GM_TRACE, "wall_ms_240": t_short * 1e3,
             "rank0_device_busy_ms": busy, "rank0_busy_share": busy
-            / (t_short * 1e3),
-            "us_per_step": {k: v / GM_SHORT * 1e3 for k, v in sweeps.items()},
+            / GM_TRACE / (t_short * 1e3 / GM_SHORT),
+            "us_per_step": {k: v / GM_TRACE * 1e3 for k, v in sweeps.items()},
             "top_device_ms": dict(sorted(by_kernel.items(),
                                          key=lambda kv: -kv[1])[:8])}
-    else:
-        bench(GM_SHORT)
     sync()
     # converging GMRES(10) on the shifted Laplacian, f32 and bf16 panels
     Sh = HaloStencilOperator(its.StencilOperator(St.n, 7.0, St.terms,
@@ -1426,10 +1472,11 @@ def powm_expected(side, steps):
 
 
 def krylov_cases(torch, its, St, Ad):
-    """Phase 13's runs: name -> (solve(op) -> (x, h), operator, b, the f64
-    operator of the true residual, kernel, launches(steps run), kind:
-    "laplacian" (held, against x64), "shifted" (held), "recorded" or
-    "powm").  One kernel launch a product, masked steps included."""
+    """Phase 13's runs: name -> (solve(op, cap) -> (x, h) (``cap`` steps
+    at most, by default the run's own), operator, b, the f64 operator of
+    the true residual, kernel, launches(steps run), kind: "laplacian"
+    (held, against x64), "shifted" (held), "recorded" or "powm").  One
+    kernel launch a product, masked steps included."""
     n = St.n
     b1 = torch.ones(n, device="cuda")
     A64 = its.StencilOperator(n, St.center, St.terms, St.coeffs,
@@ -1449,42 +1496,47 @@ def krylov_cases(torch, its, St, Ad):
     x0 = torch.randn(n, generator=g, device="cuda")
     x0 /= torch.linalg.vector_norm(x0)
 
-    def powm(op):
-        lam, x, h = its.powm(op, x0=x0, tol=0.0, maxiter=POWM_STEPS - 1,
-                             log=True)
+    def powm(op, cap=POWM_STEPS - 1):
+        lam, x, h = its.powm(op, x0=x0, tol=0.0, maxiter=cap, log=True)
         h.lam = float(lam)
         return x, h
 
-    conv = dict(reltol=RELTOL, maxiter=KRYLOV_MAXITER, log=True)
-    bicg = dict(reltol=RELTOL, max_mv_products=4 * KRYLOV_MAXITER, log=True)
+    K = KRYLOV_MAXITER
+    conv = dict(reltol=RELTOL, log=True)
     one, two, four = (lambda s: s), (lambda s: 2 * s), (lambda s: 4 * s)
     return {
-        "minres stencil": (lambda op: its.minres(op, b1, **conv), St, b1,
-                           A64, "stencil_apply", one, "laplacian"),
-        "minres int8 DIA": (lambda op: its.minres(op, b1, **conv), Ad, b1,
-                            A64, "dia_spmv", one, "laplacian"),
-        "qmr stencil": (lambda op: its.qmr(op, b1, **conv), St, b1, A64,
-                        "stencil_apply", two, "laplacian"),
-        "bicgstabl(2) stencil": (lambda op: its.bicgstabl(op, b1, 2, **bicg),
-                                 St, b1, A64, "stencil_apply", four,
-                                 "laplacian"),
+        "minres stencil": (
+            lambda op, cap=K: its.minres(op, b1, maxiter=cap, **conv), St,
+            b1, A64, "stencil_apply", one, "laplacian"),
+        "minres int8 DIA": (
+            lambda op, cap=K: its.minres(op, b1, maxiter=cap, **conv), Ad,
+            b1, A64, "dia_spmv", one, "laplacian"),
+        "qmr stencil": (
+            lambda op, cap=K: its.qmr(op, b1, maxiter=cap, **conv), St, b1,
+            A64, "stencil_apply", two, "laplacian"),
+        "bicgstabl(2) stencil": (
+            lambda op, cap=K: its.bicgstabl(op, b1, 2,
+                                            max_mv_products=4 * cap, **conv),
+            St, b1, A64, "stencil_apply", four, "laplacian"),
         "idrs(8) shifted stencil": (
-            lambda op: its.idrs(op, b1, s=8, **conv), Sh, b1, Sh64,
-            "stencil_apply", one, "shifted"),
+            lambda op, cap=K: its.idrs(op, b1, s=8, maxiter=cap, **conv),
+            Sh, b1, Sh64, "stencil_apply", one, "shifted"),
         "pipelined_cg shifted stencil": (
-            lambda op: its.pipelined_cg(op, b1, **conv), Sh, b1, Sh64,
-            "stencil_apply", lambda s: 1 + s, "shifted"),
+            lambda op, cap=K: its.pipelined_cg(op, b1, maxiter=cap, **conv),
+            Sh, b1, Sh64, "stencil_apply", lambda s: 1 + s, "shifted"),
         "pipelined_cg shifted int8 DIA": (
-            lambda op: its.pipelined_cg(op, b1, **conv), ShD, b1, Sh64,
-            "dia_spmv", lambda s: 1 + s, "shifted"),
+            lambda op, cap=K: its.pipelined_cg(op, b1, maxiter=cap, **conv),
+            ShD, b1, Sh64, "dia_spmv", lambda s: 1 + s, "shifted"),
         "chebyshev shifted stencil": (
-            lambda op: its.chebyshev(op, b1, lmin, lmax, **conv), Sh, b1,
-            Sh64, "stencil_apply", one, "shifted"),
+            lambda op, cap=K: its.chebyshev(op, b1, lmin, lmax, maxiter=cap,
+                                            **conv), Sh, b1, Sh64,
+            "stencil_apply", one, "shifted"),
         "pipelined_cg stencil": (
-            lambda op: its.pipelined_cg(op, b1, **conv), St, b1, A64,
-            "stencil_apply", lambda s: 1 + s, "recorded"),
-        "idrs(8) stencil": (lambda op: its.idrs(op, b1, s=8, **conv), St, b1,
-                            A64, "stencil_apply", one, "recorded"),
+            lambda op: its.pipelined_cg(op, b1, maxiter=K, **conv), St, b1,
+            A64, "stencil_apply", lambda s: 1 + s, "recorded"),
+        "idrs(8) stencil": (
+            lambda op: its.idrs(op, b1, s=8, maxiter=K, **conv), St, b1, A64,
+            "stencil_apply", one, "recorded"),
         "qmr advection stencil": (
             lambda op: its.qmr(op, b_adv, maxiter=KRYLOV_CAP, log=True), Adv,
             b_adv, Adv64, "stencil_apply", two, "recorded"),
@@ -1506,8 +1558,7 @@ def krylov_phase(torch, its, St, Ad, x64, counters):
     public calls: launches, true residual (f64), distance from x64 (f64 CG,
     phase 4) on the Laplacian, witness, us per step (l-cycle for BiCGStab;
     CUDA events around the solve) and, for the held runs, the card's busy
-    share from a trace of the same solve."""
-    from torch.profiler import ProfilerActivity, profile
+    share from a trace of its first TRACE_STEPS steps."""
 
     from iterativesolvers_tpu_torch.ops.cuda_spmv import dia_spmv_plain
     from iterativesolvers_tpu_torch.ops.cuda_stencil import stencil_apply_plain
@@ -1559,13 +1610,12 @@ def krylov_phase(torch, its, St, Ad, x64, counters):
                "witness_iters": hw.iters, "witness_x_rel_diff": dw}
         ok = counts == want and bool(torch.isfinite(x).all())
         if kind != "recorded":
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                solve(op)
-                torch.cuda.synchronize()
-            by_kernel = device_ms(torch, prof, name)
+            (_, ht), by_kernel, _ = syncs_and_trace(
+                torch, lambda: solve(op, TRACE_STEPS), name)
+            tsteps = chunked_steps(ht.iters)
             busy = sum(by_kernel.values())
-            row.update(device_busy_ms=busy, busy_share=busy / wall,
+            row.update(traced_steps=tsteps, device_busy_ms=busy,
+                       busy_share=busy / tsteps * ran / wall,
                        top_device_ms=dict(sorted(by_kernel.items(),
                                                  key=lambda kv: -kv[1])[:5]))
             ok = ok and abs(h.iters - hw.iters) <= CG_STEP_SPREAD
@@ -1657,25 +1707,24 @@ def svdl_products(iters, k, j):
 
 
 def syncs_and_trace(torch, fn, name):
-    """Run ``fn`` once under ``torch.profiler`` with CUDA's sync debug mode
-    on: (result, device busy ms by kernel, host synchronisations counted by
-    torch's sync warnings)."""
+    """Run ``fn`` once under ``torch.profiler`` (``profiled``) with CUDA's
+    sync debug mode on: (result, device busy ms by kernel, host
+    synchronisations counted by torch's sync warnings)."""
     import warnings
 
-    from torch.profiler import ProfilerActivity, profile
+    def counted():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+                torch.cuda.synchronize()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return out, sum("synchroniz" in str(w.message) for w in caught)
 
-    with warnings.catch_warnings(record=True) as caught, \
-            profile(activities=[ProfilerActivity.CPU,
-                                ProfilerActivity.CUDA]) as prof:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-            torch.cuda.synchronize()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    syncs = sum("synchroniz" in str(w.message) for w in caught)
-    return out, device_ms(torch, prof, name), syncs
+    (out, syncs), by_kernel = profiled(torch, counted, name)
+    return out, by_kernel, syncs
 
 
 def timed_run(torch, fn):
@@ -2257,8 +2306,9 @@ def formats_phase(torch, its, A32, runs4, x64, counters, bound):
     """Phase 15.  ``A32`` the f32 ``laplace_dia(216, 3)`` (the phase runs on
     its device), ``runs4`` phase 4's CG runs by path ((x, history,
     launches)), ``x64`` its f64 x; ``counters`` every kernel wrapper.
-    Returns the runs by name, the product timings and the launches of the
-    phase by kernel key and run."""
+    Returns the runs by name, the product timings, the launches of the
+    phase by kernel key and run, and the 1M-row scrambled CSR matrix with
+    its ELL pick."""
     t_start = time.perf_counter()
     # scipy's svds of item 4's BSR matrix takes ~35 s of one host core:
     # started first, in a process of its own, and read at the end
@@ -2508,6 +2558,8 @@ def _formats_phase(torch, its, A32, runs4, x64, counters, bound, reference,
         yo = product(f"mv {picked} {tag} 1M", op, lambda: op.mv(xr), lib=lib,
                      x=xr)
         hold_pick(f"mv {picked} {tag} 1M", op, xr, yo, yc)
+        if tag == "scrambled":
+            scrambled = csr, op        # phase 17's ELL operator
         del csr, op, lib, xf, xr, yc, yo
 
     # -- 2b. a 27-point stencil (a hexahedral Q1 mesh's pattern): auto_format
@@ -2759,7 +2811,7 @@ def _formats_phase(torch, its, A32, runs4, x64, counters, bound, reference,
     print(f"  phase 15: {elapsed():.1f} s")
     if bad:
         raise AssertionError(f"phase 15 runs off their limits: {bad}")
-    return runs, products, launches
+    return runs, products, launches, scrambled
 
 
 # ---- phase 16: preconditioners, the reduced system, the stationary methods ---
@@ -2973,7 +3025,6 @@ def precond_rank(args):
 
 def precond_rank_solves(torch, mesh, tmp):
     """Phase 16 on one rank: returns its results and (gathered) x's."""
-    from torch.profiler import ProfilerActivity, profile
 
     import iterativesolvers_tpu_torch as its
     from iterativesolvers_tpu_torch.ops.cuda_spmv import dia_spmv, dia_spmv_dot
@@ -3008,6 +3059,8 @@ def precond_rank_solves(torch, mesh, tmp):
            "level_bytes": P.local.lower_solve.nbytes
            + P.local.upper_solve.nbytes}
     xs = {}
+    if mesh.rank == 0:
+        warm_profiler(torch, dev)
     # the card's timed work waits until the main process has done its own
     _wait_for(tmp / "p16go")
     for name, o, rhs, Pl, chunk in (
@@ -3033,17 +3086,25 @@ def precond_rank_solves(torch, mesh, tmp):
         # same capped solve for its collectives)
         torch.cuda.synchronize()
         mesh.all_reduce(torch.zeros(1, device=dev))
+        t0 = time.perf_counter()
+        (_, twall), by_kernel = profiled(
+            torch, lambda: timed_run(torch, lambda: call(TRACE_STEPS)), name,
+            mesh)
         if mesh.rank == 0:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                (_, ht), twall = timed_run(torch, lambda: call(TRACE_STEPS))
-            busy = sum(device_ms(torch, prof, name).values())
-            row["busy_share"] = busy / twall
-        else:
-            call(TRACE_STEPS)
+            row.update(busy_share=sum(by_kernel.values()) / twall,
+                       trace_s=time.perf_counter() - t0)
         res[name] = row
         xs[name] = gather_vector(x, mesh).cpu()
     return res, xs
+
+
+def warm_profiler(torch, dev):
+    """One trace of a trivial op: ``torch.profiler``'s first trace in a
+    process costs seconds (PERF.md), paid here while the process waits."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device=dev).add_(1).cpu()
 
 
 def _wait_for(path):
@@ -3051,7 +3112,7 @@ def _wait_for(path):
     t0 = time.perf_counter()
     while not path.exists():
         if time.perf_counter() - t0 > PRECOND_RANK_WAIT:
-            raise TimeoutError(f"phase 16 waited too long for {path.name}")
+            raise TimeoutError(f"a rank waited too long for {path.name}")
         time.sleep(0.2)
 
 
@@ -3088,6 +3149,7 @@ def precond_one_card(args):
     del blk
     torch.cuda.synchronize()
     host_s = time.perf_counter() - t0
+    warm_profiler(torch, dev)
     _wait_for(tmp / "p16go1")
     b = torch.ones(n, device=dev)
     chunk = PW_CHUNK["rbic"]
@@ -3099,8 +3161,10 @@ def precond_one_card(args):
     dia_spmv_dot.launches = 0
     (x, h), wall = timed_run(torch, call)
     launches = dia_spmv_dot.launches
+    t0 = time.perf_counter()
     (_, ht), by_kernel, syncs = syncs_and_trace(
         torch, lambda: call(TRACE_STEPS), "block-Jacobi IC(0) one card")
+    trace_s = time.perf_counter() - t0
     steps = chunked_steps(h.iters, chunk)
     tsteps = chunked_steps(ht.iters, chunk)
     row = {"iters": h.iters, "converged": h.isconverged, "steps_run": steps,
@@ -3108,7 +3172,7 @@ def precond_one_card(args):
            "launches": {"dia_spmv_dot": launches} if launches else {},
            "busy_share": sum(by_kernel.values()) / tsteps * steps / wall,
            "host_syncs_per_step": syncs / tsteps, "nlevels": P.nlevels,
-           "host_s": host_s}
+           "host_s": host_s, "trace_s": trace_s}
     (tmp / "p16one.json").write_text(json.dumps(row))
     torch.save(x.cpu(), tmp / "p16one_x.pt")
 
@@ -3793,7 +3857,8 @@ class PrecondPhase:
                "one_card_us_per_step": one["us_per_step"],
                "one_card_busy_share": one["busy_share"],
                "one_card_launches": one["launches"],
-               "ranks_s": secs, "rank_host_s": [r["host_s"] for r in ranks],
+               "one_card_trace_s": one["trace_s"], "ranks_s": secs,
+               "rank_host_s": [r["host_s"] for r in ranks],
                **{k: v for k, v in d.items() if k != "launches"},
                "launches": d["launches"]}
         ok = (d["converged"] and one["converged"]
@@ -3816,6 +3881,807 @@ class PrecondPhase:
               and not s["launches"])
         self.record(f"rb_reduced to_dia CG in HaloDIAOperator, "
                     f"{DIST_RANKS} ranks", row, ok)
+
+
+# ---- phase 17: the rest of parallel/ on ranks over gloo (one card) ----------
+# Two rank processes of this script (``--mesh-rank``) on the one card over
+# gloo, as phases 12 and 16 run theirs, then four (``--slice-rank``) on a
+# (2, 2) slice mesh.  Each run is held against the same run on one card, made
+# in this phase, and its f64 or analytic reference.  The 216^3 operators of
+# the main path; LOBPCG at 100^3 (10^6 rows: the halo operators need D to
+# divide n, and 101^3 is odd); phase 15's 1M-row scrambled ELL pick; the
+# 100^3 gradient's ELL (3 x 10^6 x 10^6) with and without its adjoint; a
+# dense f32 matrix of odd n (8191 x 8191, 268 MB) on the padded shard.
+MESH_RANKS = 2
+SLICE = (2, 2)
+MESH_TIMEOUT = 600                 # seconds the ranks of one launch may take
+MESH_EIG_SIDE = 100
+MESH_DENSE_N = 8191
+MESH_GMRES = dict(restart=GM_RESTART, reltol=1e-5, maxiter=400)
+MESH_REPS = 5                      # timed mv_rows panels
+# a distributed f32 solve that stops well above the rounding floor (LSQR,
+# LSMR on the shifted stencil and the gradient's ELL) against the same
+# solve on one card: x within MESH_X_REL, steps within CG_STEP_SPREAD.
+# Only the sum order of a reduction differs: the readings reach 1.6e-7
+# (PERF.md).  The control is the one-card solve cut one step short, which
+# the limit must reject.  CG on the scrambled ELL is held to MESH_X_REL
+# too, but stops near f32's rounding floor, where one step moves x about
+# as much as rounding: its control is recorded, and its steps and true
+# residual hold it.  The CG runs at 216^3 stop at that floor: x within
+# X_F64_REL of f64 (phase 4's spread), and shard_ell's CG within twice
+# that of one card's CG on the same ELL matrix; GMRES on the dense
+# operator as phase 12's.
+MESH_X_REL = 1e-6
+
+
+def dia_as_ell(its, A):
+    """The DIA matrix ``A`` as an ELLMatrix of width len(offsets) on its
+    device: row i holds (A[i, i + o], i + o) for each offset o, its column
+    clamped into range where the diagonal is structurally zero there."""
+    import torch
+
+    n = A.shape[0]
+    i = torch.arange(n, device=A.diags[0].device)
+    cols = torch.stack([(i + o).clamp(0, n - 1) for o in A.offsets], dim=1)
+    data = torch.stack([d.float() for d in A.diags], dim=1)
+    return its.ELLMatrix(data, cols.int(), A.shape, device=data.device)
+
+
+def mesh_rank(args):
+    """One rank of phase 17 (``--mesh-rank``, or ``--slice-rank`` on the
+    slice mesh): runs the distributed solves on the card and writes its
+    results (rank 0 also the gathered solutions) under ``args.out``."""
+    t0 = time.perf_counter()
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke rank: torch.cuda.is_available() is false")
+    from iterativesolvers_tpu_torch.parallel import row_mesh, slice_mesh
+
+    common = dict(init_method=f"file://{args.rendezvous}",
+                  timeout=DIST_COLLECTIVE_TIMEOUT)
+    if args.slice_rank is not None:
+        rank = args.slice_rank
+        mesh = slice_mesh(*SLICE, "gloo", "cuda:0", rank=rank,
+                          world_size=SLICE[0] * SLICE[1], **common)
+    else:
+        rank = args.mesh_rank
+        mesh = row_mesh("gloo", "cuda:0", rank=rank,
+                        world_size=args.world, **common)
+    # the rank's own start: torch, the package and the process group
+    init_s = time.perf_counter() - t0
+    try:
+        if args.slice_rank is not None:
+            # started beside the two-rank launch: wait until it has ended
+            _wait_for(pathlib.Path(args.out) / "go")
+        res, xs = MeshRank(torch, mesh, args.out).run(
+            slice_only=args.slice_rank is not None)
+        res["setup_s"]["rank start (imports, process group)"] = init_s
+    finally:
+        mesh.close()
+    with open(f"{args.out}/rank{rank}.json", "w") as f:
+        json.dump(res, f)
+    if rank == 0:
+        torch.save(xs, f"{args.out}/x.pt")
+
+
+class MeshRank:
+    """Phase 17 on one rank: every run with the kernels' counts set to 0
+    just before it and read after, its collectives counted
+    (``utils/profiling.collective_counts``), timed on this rank's clock
+    between barriers; the gathered solutions kept on rank 0."""
+
+    def __init__(self, torch, mesh, tmp):
+        from iterativesolvers_tpu_torch.ops import cuda_panel_ortho as cpo
+        from iterativesolvers_tpu_torch.ops.cuda_spmv import (dia_spmv,
+                                                              dia_spmv_dot)
+        from iterativesolvers_tpu_torch.ops.cuda_stencil import stencil_apply
+
+        self.torch, self.mesh, self.tmp = torch, mesh, tmp
+        self.dev = mesh.device
+        self.counters = (stencil_apply, dia_spmv, dia_spmv_dot,
+                         cpo.panel_dots, cpo.panel_update)
+        self.res = {"rank": mesh.rank, "setup_s": {}}
+        self.xs = {}
+
+    def sync(self):
+        self.torch.cuda.synchronize()
+        self.mesh.all_reduce(self.torch.zeros(1, device=self.dev))
+
+    def built(self, label, fn):
+        """fn() (an operator's set-up), its host seconds recorded."""
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        self.res["setup_s"][label] = time.perf_counter() - t0
+        return out
+
+    def run(self, slice_only=False):
+        import iterativesolvers_tpu_torch as its
+
+        self.its = its
+        St = its.laplacian(SIDE, 3, device=self.dev)
+        Hs = self.built("halo stencil 216^3", lambda: self.halo(St))
+        if slice_only:
+            self.cg_runs(Hs, ())
+            return self.res, self.xs
+        self.rows_and_block(St, Hs)
+        self.eigen_svd_lsq(St, Hs)
+        self.ell_runs()
+        self.dense_gmres()
+        self.cg_runs(Hs, ("dia", "ell"))
+        return self.res, self.xs
+
+    def halo(self, St):
+        from iterativesolvers_tpu_torch.parallel import HaloStencilOperator
+
+        return HaloStencilOperator(St, self.mesh)
+
+    def timed(self, name, fn, steps_of):
+        """fn() with the counts set to 0 just before and read after."""
+        from iterativesolvers_tpu_torch.utils.profiling import (
+            collective_counts)
+
+        torch = self.torch
+        for f in self.counters:
+            f.launches = 0
+        self.sync()
+        levels = dict(getattr(self.mesh, "level_counts", {}))
+        t0 = time.perf_counter()
+        with collective_counts(self.mesh) as coll:
+            out = fn()
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        steps = max(int(steps_of(out)), 1)
+        self.res[name] = {
+            "steps_run": steps, "s": secs, "ms_per_step": secs / steps * 1e3,
+            "launches": {f.__name__: f.launches for f in self.counters
+                         if f.launches},
+            "collectives": coll,
+            "collectives_per_step": {k: v / steps for k, v in coll.items()
+                                     if v}}
+        if levels:
+            # the slice mesh's all-reduces by level (one of each a sum)
+            self.res[name]["level_all_reduces"] = {
+                k: v - levels[k] for k, v in self.mesh.level_counts.items()}
+        return out
+
+    def keep(self, name, x):
+        from iterativesolvers_tpu_torch.parallel import gather_vector
+
+        full = gather_vector(x, self.mesh)
+        if self.mesh.rank == 0:
+            self.xs[name] = full.cpu()
+
+    def history(self, name, h, **extra):
+        self.res[name].update(iters=h.iters, converged=h.isconverged,
+                              **extra)
+
+    def rows_and_block(self, St, Hs):
+        """a. mv_rows of a (16, n) panel, stencil and f32 DIA, each rank's
+        rows against one card's mv_rows of the whole panel; b. block CG."""
+        from iterativesolvers_tpu_torch.parallel import HaloDIAOperator
+        from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+        from iterativesolvers_tpu_torch.utils.fixtures import laplace_dia
+
+        torch, its, mesh = self.torch, self.its, self.mesh
+        n = St.n
+        lo, hi = mesh.rows(n)
+        self.A = laplace_dia(SIDE, 3, dtype="float32", device=self.dev)
+        self.Hd = self.built("halo dia 216^3",
+                             lambda: HaloDIAOperator(self.A, mesh))
+        g = torch.Generator(device=self.dev).manual_seed(17)
+        X = torch.randn(ROWS, n, generator=g, device=self.dev)
+        Xl = X[:, lo:hi].contiguous()
+        for tag, op, one in (("stencil", Hs, St), ("dia_f32", self.Hd,
+                                                   self.A)):
+            name = f"mv_rows {tag}"
+            Y = self.timed(name, lambda: op.mv_rows(Xl), lambda _: 1)
+            Y1 = one.mv_rows(X)[:, lo:hi]
+            err = float((Y - Y1).abs().max())
+            # a panel's time on the ranks (host clock: each exchange waits
+            # for the host) and, on rank 0 alone, one card's mv_rows of the
+            # whole panel between CUDA events
+            self.sync()
+            t0 = time.perf_counter()
+            for _ in range(MESH_REPS):
+                op.mv_rows(Xl)
+            torch.cuda.synchronize()
+            ms = {"ms_panel": (time.perf_counter() - t0) / MESH_REPS * 1e3}
+            if mesh.rank == 0:
+                ms["one_card_ms_panel"] = timed_run(torch, lambda: [
+                    one.mv_rows(X) for _ in range(MESH_REPS)])[1] / MESH_REPS
+            self.sync()
+            self.res[name].update(max_abs_err=err,
+                                  max_abs_y=float(Y1.abs().max()), **ms)
+            del Y, Y1
+        del X, Xl
+        # b. block CG, k = 8: column 0 = 1, the rest normal from seed 171
+        g = torch.Generator(device=self.dev).manual_seed(171)
+        B = torch.randn(n, BLOCK_K, generator=g, device=self.dev)
+        B[:, 0] = 1.0
+        Bl = B[lo:hi].contiguous()
+        del B
+        X, h = self.timed("block_cg", lambda: its.block_cg(
+            Hs, Bl, reltol=RELTOL, log=True),
+            lambda o: chunked_steps(o[1].iters))
+        self.history("block_cg", h,
+                     all_columns=bool(h["converged_per_rhs"].all()))
+        self.keep("block_cg", X)
+
+    def eigen_svd_lsq(self, St, Hs):
+        """c. LOBPCG at 100^3; d. svdl on the 216^3 stencil, LSQR and LSMR
+        on the shifted 216^3 stencil."""
+        import numpy as np
+
+        from iterativesolvers_tpu_torch.parallel import shard_vector
+        from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+        torch, its, mesh = self.torch, self.its, self.mesh
+        S100 = its.laplacian(MESH_EIG_SIDE, 3, device=self.dev)
+        H100 = self.built("halo stencil 100^3", lambda: self.halo(S100))
+        X0 = shard_vector(np.random.default_rng(0).standard_normal(
+            (S100.n, ROWS)).astype(np.float32), mesh)
+        r = self.timed("lobpcg", lambda: its.lobpcg(
+            H100, X0, tol=LOBPCG_TOL, maxiter=LOBPCG_MAXITER),
+            lambda r: r.iterations)
+        self.res["lobpcg"].update(
+            iters=r.iterations, converged=r.converged,
+            lam=r.lam.double().tolist(),
+            max_residual_norm=float(r.residual_norms.max()))
+        vals, _, h = self.timed("svdl", lambda: its.svdl(
+            Hs, nsv=SVDL_NSV, tol=SVDL_TOL, maxiter=SVDL_MAXITER, log=True,
+            key=torch.Generator(device=self.dev).manual_seed(0)),
+            lambda o: o[2].iters)
+        self.history("svdl", h, values=vals.double().tolist())
+        Sh = self.built("halo shifted stencil 216^3", lambda: self.halo(
+            its.StencilOperator(St.n, 7.0, St.terms, St.coeffs,
+                                device=self.dev)))
+        b = torch.ones(Sh.n_local, device=self.dev)
+        for solver in ("lsqr", "lsmr"):
+            x, h = self.timed(solver, lambda: getattr(its, solver)(
+                Sh, b, atol=LSQ_TOL, btol=LSQ_TOL, maxiter=LSQ_MAXITER,
+                log=True), lambda o: chunked_steps(o[1].iters))
+            self.history(solver, h, istop=h["istop"])
+            self.keep(solver, x)
+
+    def ell_runs(self):
+        """e. CG on the 1M-row scrambled ELL pick; LSQR on the 100^3
+        gradient's ELL with its adjoint and with the reduce-scatter rmv."""
+        from iterativesolvers_tpu_torch.parallel import (RowShardedELLOperator,
+                                                         shard_vector)
+        from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+        torch, its, mesh = self.torch, self.its, self.mesh
+        inp = torch.load(f"{self.tmp}/ell.pt")
+
+        def ell(key, adj=None):
+            return its.ELLMatrix(inp[f"{key}_data"], inp[f"{key}_cols"],
+                                 tuple(inp[f"{key}_shape"].tolist()),
+                                 adj=adj, device=self.dev)
+
+        Es = self.built("ell scrambled 1M", lambda: RowShardedELLOperator(
+            ell("scr"), mesh))
+        b = torch.ones(Es.local.shape[0], device=self.dev)
+        x, h = self.timed("cg ell scrambled", lambda: its.cg(
+            Es, b, reltol=FS_RELTOL, maxiter=FS_MAXITER, log=True),
+            lambda o: chunked_steps(o[1].iters))
+        self.history("cg ell scrambled", h)
+        self.keep("cg ell scrambled", x)
+        bg = shard_vector(inp["bg"], mesh)
+        for tag, adj in (("adjoint", ell("gadj")), ("reduce-scatter", None)):
+            name = f"lsqr gradient ell {tag}"
+            Eg = self.built(name, lambda: RowShardedELLOperator(
+                ell("grad", adj), mesh))
+            x, h = self.timed(name, lambda: its.lsqr(
+                Eg, bg, damp=1.0, maxiter=GRAD_LSQ_MAXITER, log=True),
+                lambda o: chunked_steps(o[1].iters))
+            self.history(name, h, istop=h["istop"])
+            self.keep(name, x)
+            del Eg
+
+    def dense_gmres(self):
+        """f. GMRES(20) on the dense f32 operator at odd n: the sharded-panel
+        route with the padded last shard, and its witness (the two sweeps'
+        plain versions)."""
+        from iterativesolvers_tpu_torch.ops import cuda_panel_ortho as cpo
+        from iterativesolvers_tpu_torch.parallel import DenseMeshOperator
+        from iterativesolvers_tpu_torch.parallel import panel_ortho as po
+
+        torch, its, mesh = self.torch, self.its, self.mesh
+        Dm = self.built("dense 8191", lambda: DenseMeshOperator(
+            dense_matrix(torch, self.dev), mesh))
+        b = torch.ones(Dm.mat.shape[0], device=self.dev)
+        x, h = self.timed("gmres dense", lambda: its.gmres(
+            Dm, b, log=True, **MESH_GMRES), lambda o: o[1].iters)
+        self.history("gmres dense", h, restarts=h.restarts)
+        self.keep("gmres dense", x)
+        with routed(po, panel_dots=cpo.panel_dots_plain,
+                    panel_update=cpo.panel_update_plain):
+            xw, hw = self.timed("gmres dense witness", lambda: its.gmres(
+                Dm, b, log=True, **MESH_GMRES), lambda o: o[1].iters)
+        self.history("gmres dense witness", hw, restarts=hw.restarts)
+        self.keep("gmres dense witness", xw)
+
+    def cg_runs(self, Hs, shards):
+        """CG on the 216^3 stencil (the slice mesh's run, and the two-rank
+        one it is held against); h. CG through shard_dia / shard_ell, which
+        return the halo DIA and ELL operators themselves: one run serves
+        each and its counterpart."""
+        from iterativesolvers_tpu_torch.parallel import (HaloDIAOperator,
+                                                         RowShardedELLOperator,
+                                                         shard_dia, shard_ell)
+        from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+        torch, its, mesh = self.torch, self.its, self.mesh
+        b = torch.ones(Hs.n_local, device=self.dev)
+        ops = [("cg stencil", Hs)]
+        if "dia" in shards:
+            Hd = self.built("shard_dia 216^3", lambda: shard_dia(self.A, mesh))
+            if type(Hd) is not HaloDIAOperator:
+                raise AssertionError(f"shard_dia gave {type(Hd).__name__}")
+            ops.append(("cg shard_dia", Hd))
+            del Hd
+        if "ell" in shards:
+            # its one-card twin is the same ELL matrix's CG on one card
+            E = self.built("laplacian ell 216^3",
+                           lambda: dia_as_ell(its, self.A))
+            Es = self.built("shard_ell 216^3", lambda: shard_ell(E, mesh))
+            if type(Es) is not RowShardedELLOperator:
+                raise AssertionError(f"shard_ell gave {type(Es).__name__}")
+            ops.append(("cg shard_ell", Es))
+            del E, Es
+        for name, op in ops:
+            x, h = self.timed(name, lambda: its.cg(
+                op, b, reltol=RELTOL, log=True, chunk=CHUNK,
+                maxiter=KRYLOV_MAXITER), lambda o: chunked_steps(o[1].iters))
+            self.history(name, h)
+            self.keep(name, x)
+            del x
+
+
+def dense_matrix(torch, dev):
+    """phase 17's dense f32 matrix: 4 I + 0.5 N / sqrt(n), N normal from
+    seed 1717 drawn on the card (the same on every process)."""
+    n = MESH_DENSE_N
+    g = torch.Generator(device=dev).manual_seed(1717)
+    M = torch.randn(n, n, generator=g, device=dev).mul_(0.5 / n**0.5)
+    M.diagonal().add_(4.0)
+    return M
+
+
+def start_ranks(world, tmp, flag):
+    """``world`` rank processes of this script with ``flag`` (file
+    rendezvous under ``tmp``): the Popen objects and their start time."""
+    cmd = [sys.executable, str(pathlib.Path(__file__).resolve()),
+           "--world", str(world), "--rendezvous", f"{tmp}/rendezvous",
+           "--out", tmp]
+    t0 = time.perf_counter()
+    return [subprocess.Popen(cmd + [flag, str(r)], stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT)
+            for r in range(world)], t0
+
+
+def wait_ranks(torch, procs, t0, tmp, label):
+    """Each rank's results and rank 0's gathered solutions; a rank that
+    fails or outlasts MESH_TIMEOUT fails the phase."""
+    logs = []
+    try:
+        for p in procs:
+            left = MESH_TIMEOUT - (time.perf_counter() - t0)
+            logs.append(p.communicate(timeout=max(left, 1))[0].decode())
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            print(f"phase 17 {label} rank {r} output:\n{log[-6000:]}")
+            raise AssertionError(f"phase 17 {label} rank {r} exited "
+                                 f"{p.returncode}")
+    ranks = []
+    for r in range(len(procs)):
+        with open(f"{tmp}/rank{r}.json") as f:
+            ranks.append(json.load(f))
+    return ranks, torch.load(f"{tmp}/x.pt"), secs
+
+
+class MeshPhase:
+    """Phase 17 (``run``).  ``St`` the 216^3 stencil, ``A`` its f32 DIA
+    matrix (the f64 one's product runs no kernel), ``x64`` the f64 CG
+    solution of b = 1, ``cg1`` phase 4's one-card CG on the stencil (x,
+    history) and ``res_pl`` its plain-version true residual;
+    ``scrambled`` phase 15's 1M-row scrambled CSR and its ELL pick.
+    ``run`` returns the ranks' launches by kernel and run."""
+
+    def __init__(self, torch, its, St, A, x64, cg1, res_pl, scrambled):
+        self.torch, self.its, self.St, self.A = torch, its, St, A
+        self.A64 = A.astype(torch.float64)
+        self.x64, self.cg1, self.res_pl = x64, cg1, res_pl
+        self.scrambled = scrambled
+        self.rows, self.bad, self.host_s = {}, [], {}
+        self.launches = {}
+
+    # -- helpers -----------------------------------------------------------
+    def rel(self, x, ref):
+        torch = self.torch
+        return float(torch.linalg.vector_norm(x.double() - ref.double())
+                     / torch.linalg.vector_norm(ref.double()))
+
+    def true_res(self, op64, x, b):
+        torch = self.torch
+        r = b.double() - op64(x.double())
+        return float(torch.linalg.vector_norm(r)
+                     / torch.linalg.vector_norm(b.double()))
+
+    def record(self, name, ranks, ok, as_name=None, **row):
+        """The run's row (under ``as_name``, by default ``name``): rank 0's
+        record beside ``row``; the ranks must agree on the steps."""
+        r0 = ranks[0][name]
+        same = all(r[name].get("iters") == r0.get("iters") for r in ranks)
+        row = {**{k: v for k, v in r0.items() if k != "lam"}, **row,
+               "ranks_agree": same}
+        name = as_name or name
+        print(f"  {name}: " + ", ".join(
+            f"{k} {v:.4e}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items() if not isinstance(v, (dict, list))),
+            flush=True)
+        self.rows[name] = row
+        for kernel, count in r0["launches"].items():
+            self.launches.setdefault(kernel, {})[name] = count
+        if not (ok and same):
+            self.bad.append(name)
+
+    def one_step_short(self, label, solve, x1, iters):
+        """The control of MESH_X_REL: ``solve(iters - 1)`` on one card, the
+        solve whose x is ``x1`` cut one step short; its x against ``x1``."""
+        xc = self.timed(f"{label} one step short", lambda: solve(iters - 1))
+        return self.rel(xc, x1)
+
+    def timed(self, label, fn):
+        """fn() on one card and its seconds, kept under ``host_s``."""
+        t0 = time.perf_counter()
+        out = fn()
+        self.torch.cuda.synchronize()
+        self.host_s[label] = time.perf_counter() - t0
+        return out
+
+    # -- the phase ---------------------------------------------------------
+    def run(self):
+        import tempfile
+
+        torch = self.torch
+        t_start = time.perf_counter()
+        print(f"phase 17: the rest of parallel/ on {MESH_RANKS} ranks over "
+              f"gloo on one card, and slice_mesh{SLICE} on four:")
+        torch.cuda.empty_cache()
+        with tempfile.TemporaryDirectory() as tmp, \
+                tempfile.TemporaryDirectory() as stmp:
+            self.inputs(tmp)
+            procs, t0 = start_ranks(MESH_RANKS, tmp, "--mesh-rank")
+            # the slice mesh's ranks start now (their imports and process
+            # group beside the two ranks' start) and wait for "go"
+            sprocs, st0 = start_ranks(SLICE[0] * SLICE[1], stmp,
+                                      "--slice-rank")
+            try:
+                ranks, xs, secs = wait_ranks(torch, procs, t0, tmp, "mesh")
+            except BaseException:
+                for p in sprocs:
+                    p.kill()
+                    p.wait()
+                raise
+            print(f"  {MESH_RANKS} ranks took {secs:.1f} s", flush=True)
+            (pathlib.Path(stmp) / "go").touch()
+            t_go = time.perf_counter()
+            sranks, sxs, ssecs = wait_ranks(torch, sprocs, st0, stmp,
+                                            "slice")
+            ssecs = time.perf_counter() - t_go
+        print(f"  {SLICE[0] * SLICE[1]} ranks took {ssecs:.1f} s after the "
+              "go", flush=True)
+        dev = self.x64.device
+        xs = {k: v.to(dev) for k, v in xs.items()}
+        sxs = {k: v.to(dev) for k, v in sxs.items()}
+        self.check_rows_block(ranks, xs)
+        self.check_eigen_svd_lsq(ranks, xs)
+        self.check_ell(ranks, xs)
+        self.check_dense(ranks, xs)
+        self.check_cg(ranks, xs, sranks, sxs)
+        self.bandwidth()
+        out = {"ranks_s": secs, "slice_ranks_s": ssecs,
+               "rank_setup_s": [r["setup_s"] for r in ranks],
+               "slice_rank_setup_s": [r["setup_s"] for r in sranks],
+               "one_card_s": self.host_s, "runs": self.rows,
+               "phase_s": time.perf_counter() - t_start}
+        print(json.dumps({"phase17": out}))
+        print(f"  phase 17: {out['phase_s']:.1f} s")
+        if self.bad:
+            raise AssertionError(f"phase 17 runs off their limits: "
+                                 f"{self.bad}")
+        return self.launches
+
+    def inputs(self, tmp):
+        """The ELL inputs the ranks load: phase 15's scrambled 1M-row pick
+        (auto_format of the permuted banded matrix) and the 100^3
+        gradient's ELL with its adjoint, and the gradient's right-hand
+        side; the one-card operators kept for the checks."""
+        torch, its = self.torch, self.its
+        self.csr_scr, self.ell_scr = self.scrambled
+        if not isinstance(self.ell_scr, its.ELLMatrix):
+            raise AssertionError(f"the scrambled pick is "
+                                 f"{type(self.ell_scr).__name__}")
+        t0 = time.perf_counter()
+        N = MESH_EIG_SIDE**3
+        self.G = its.GradientOperator((MESH_EIG_SIDE,) * 3,
+                                      device="cuda")
+        self.ell_grad = self.G.to_csr().to_ell().with_adjoint()
+        g = torch.Generator(device="cuda").manual_seed(1701)
+        xt = torch.randn(N, generator=g, device="cuda")
+        xt -= xt.mean()
+        self.bg = self.G.mv(xt)
+        self.host_s["gradient ell with adjoint"] = time.perf_counter() - t0
+        arrays = {"bg": self.bg.cpu()}
+        for key, E in (("scr", self.ell_scr), ("grad", self.ell_grad),
+                       ("gadj", self.ell_grad.adj)):
+            arrays.update({f"{key}_data": E.data.cpu(),
+                           f"{key}_cols": E.cols.cpu(),
+                           f"{key}_shape": torch.tensor(E.shape)})
+        torch.save(arrays, f"{tmp}/ell.pt")
+        del arrays
+
+    def check_rows_block(self, ranks, xs):
+        """a. mv_rows; b. block CG against one card and f64 solves."""
+        torch, its, St = self.torch, self.its, self.St
+        n = St.n
+        for tag in ("stencil", "dia_f32"):
+            name = f"mv_rows {tag}"
+            err = max(r[name]["max_abs_err"] for r in ranks)
+            scale = ranks[0][name]["max_abs_y"]
+            want = ({"stencil_apply": ROWS} if tag == "stencil" else {})
+            ok = (err <= TOL_Y_F32 * scale
+                  and all(r[name]["launches"] == want for r in ranks)
+                  and ranks[0][name]["collectives_per_step"]
+                  == {"collective-permute": 2})
+            self.record(name, ranks, ok, max_abs_err=err,
+                        limit=TOL_Y_F32 * scale, expected_launches=want)
+        g = torch.Generator(device="cuda").manual_seed(171)
+        B = torch.randn(n, BLOCK_K, generator=g, device="cuda")
+        B[:, 0] = 1.0
+        X1, h1 = self.timed("block_cg", lambda: its.block_cg(
+            St, B, reltol=RELTOL, log=True))
+        St64 = its.StencilOperator(n, St.center, St.terms, St.coeffs,
+                                   dtype=torch.float64, device="cuda")
+        x64_1 = its.cg(St64, B[:, 1].double(), reltol=RELTOL)
+        X = xs["block_cg"]
+        r0 = ranks[0]["block_cg"]
+        xerr = [self.rel(X[:, 0], self.x64), self.rel(X[:, 1], x64_1)]
+        d1 = self.rel(X, X1)
+        want = BLOCK_K * (1 + r0["steps_run"])
+        ok = (r0["converged"] and r0["all_columns"]
+              and abs(r0["iters"] - h1.iters) <= CG_STEP_SPREAD
+              and max(xerr) <= X_F64_REL
+              and all(r["block_cg"]["launches"] == {"stencil_apply": want}
+                      for r in ranks)
+              and bool(torch.isfinite(X).all()))
+        self.record("block_cg", ranks, ok, one_card_iters=h1.iters,
+                    x_rel_diff_f64_columns_0_1=xerr,
+                    x_rel_diff_one_card=d1, expected_launches=want)
+        del X, X1, B
+
+    def check_eigen_svd_lsq(self, ranks, xs):
+        """c. LOBPCG at 100^3; d. svdl, LSQR and LSMR at 216^3."""
+        import numpy as np
+
+        torch, its, St = self.torch, self.its, self.St
+        S100 = its.laplacian(MESH_EIG_SIDE, 3, device="cuda")
+        X0 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (S100.n, ROWS)).astype(np.float32)).to("cuda")
+        r1 = self.timed("lobpcg", lambda: its.lobpcg(
+            S100, X0, tol=LOBPCG_TOL, maxiter=LOBPCG_MAXITER))
+        c = 2 - 2 * np.cos(np.pi * np.arange(1, MESH_EIG_SIDE + 1)
+                           / (MESH_EIG_SIDE + 1))
+        exact = np.sort((c[:, None, None] + c[None, :, None]
+                         + c[None, None, :]).ravel())[:ROWS]
+        r0 = ranks[0]["lobpcg"]
+        lam = np.asarray(r0["lam"])
+        lam1 = r1.lam.double().cpu().numpy()
+        d1 = float(np.max(np.abs(lam - lam1) / np.abs(lam1)))
+        dex = np.abs(lam - exact) / exact
+        want = ROWS * lobpcg_products(r0["iters"])
+        ok = (dex[0] <= LAM_REL and d1 <= WITNESS_LAM_REL
+              and all(r["lobpcg"]["launches"] == {"stencil_apply": want}
+                      for r in ranks) and np.isfinite(lam).all())
+        self.record("lobpcg", ranks, ok, one_card_iters=r1.iterations,
+                    lam_rel_diff_one_card=d1, lam0_rel_err=float(dex[0]),
+                    max_lam_rel_err_16=float(dex.max()),
+                    expected_launches=want)
+        del X0
+        vals1, _, h1 = self.timed("svdl", lambda: its.svdl(
+            St, nsv=SVDL_NSV, tol=SVDL_TOL, maxiter=SVDL_MAXITER, log=True,
+            key=torch.Generator(device="cuda").manual_seed(0)))
+        r0 = ranks[0]["svdl"]
+        vals = np.asarray(r0["values"])
+        v1 = vals1.double().cpu().numpy()
+        sig = 6 * (1 - np.cos(SIDE * np.pi / (SIDE + 1)))
+        d1 = float(np.max(np.abs(vals - v1)) / v1[0])
+        want = 2 * svdl_products(r0["iters"], 2 * SVDL_NSV, SVDL_NSV)
+        ok = (abs(vals[0] - sig) <= SIGMA_REL * sig
+              and d1 <= WITNESS_SIGMA_REL
+              and all(r["svdl"]["launches"] == {"stencil_apply": want}
+                      for r in ranks))
+        self.record("svdl", ranks, ok, one_card_iters=h1.iters,
+                    values_rel_diff_one_card=d1,
+                    sigma_max_rel_err=abs(vals[0] - sig) / sig,
+                    expected_launches=want)
+        n = St.n
+        Sh = its.StencilOperator(n, 7.0, St.terms, St.coeffs,
+                                 device="cuda")
+        Sh64 = its.StencilOperator(n, 7.0, St.terms, St.coeffs,
+                                   dtype=torch.float64, device="cuda")
+        b = torch.ones(n, device="cuda")
+        for solver in ("lsqr", "lsmr"):
+            x1, h1 = self.timed(solver, lambda: getattr(its, solver)(
+                Sh, b, atol=LSQ_TOL, btol=LSQ_TOL, maxiter=LSQ_MAXITER,
+                log=True))
+            ctl = self.one_step_short(solver, lambda m: getattr(its, solver)(
+                Sh, b, atol=LSQ_TOL, btol=LSQ_TOL, maxiter=m), x1, h1.iters)
+            r0, x = ranks[0][solver], xs[solver]
+            res, res1 = (self.true_res(Sh64.mv, v, b) for v in (x, x1))
+            d1 = self.rel(x, x1)
+            want = 2 * (1 + r0["steps_run"])
+            ok = (r0["istop"] in (1, 2)
+                  and abs(r0["iters"] - h1.iters) <= CG_STEP_SPREAD
+                  and res <= LSQ_RES_FACTOR * res1 and d1 <= MESH_X_REL
+                  and ctl > MESH_X_REL
+                  and all(r[solver]["launches"] == {"stencil_apply": want}
+                          for r in ranks))
+            self.record(solver, ranks, ok, one_card_iters=h1.iters,
+                        true_residual=res, one_card_true_residual=res1,
+                        x_rel_diff_one_card=d1, control_x_rel_diff=ctl,
+                        expected_launches=want)
+
+    def check_ell(self, ranks, xs):
+        """e. CG on the scrambled ELL pick; LSQR on the gradient's ELL."""
+        torch, its = self.torch, self.its
+        b = torch.ones(self.ell_scr.shape[0], device="cuda")
+        x1, h1 = self.timed("cg ell scrambled", lambda: its.cg(
+            self.ell_scr, b, reltol=FS_RELTOL, maxiter=FS_MAXITER, log=True))
+        name = "cg ell scrambled"
+        # recorded, not held (MESH_X_REL)
+        ctl = self.one_step_short(name, lambda m: its.cg(
+            self.ell_scr, b, reltol=FS_RELTOL, maxiter=m), x1, h1.iters)
+        r0, x = ranks[0][name], xs[name]
+        res = self.true_res(lambda v: self.csr_scr.mv(v.float()).double(),
+                            x, b)
+        coll = r0["collectives_per_step"]
+        ok = (r0["converged"] and res <= FS_TRUE_RES
+              and abs(r0["iters"] - h1.iters) <= CG_STEP_SPREAD
+              and self.rel(x, x1) <= MESH_X_REL
+              and coll.get("all-gather") == 1
+              and not coll.get("collective-permute")
+              and all(not r[name]["launches"] for r in ranks))
+        self.record(name, ranks, ok, one_card_iters=h1.iters,
+                    true_residual=res, x_rel_diff_one_card=self.rel(x, x1),
+                    control_x_rel_diff=ctl)
+        G64 = its.GradientOperator((MESH_EIG_SIDE,) * 3, dtype=torch.float64,
+                                   device="cuda")
+        bg64 = self.bg.double()
+
+        def grad_res(v):
+            # the damped normal equations' residual, relative to |G^T b|
+            v = v.double()
+            r = G64.rmv(bg64 - G64.mv(v)) - v
+            return float(torch.linalg.vector_norm(r)
+                         / torch.linalg.vector_norm(G64.rmv(bg64)))
+
+        x1, h1 = self.timed("lsqr gradient", lambda: its.lsqr(
+            self.G, self.bg, damp=1.0, maxiter=GRAD_LSQ_MAXITER, log=True))
+        res1 = grad_res(x1)
+        ctl = self.one_step_short("lsqr gradient", lambda m: its.lsqr(
+            self.G, self.bg, damp=1.0, maxiter=m), x1, h1.iters)
+        for tag, kind in (("adjoint", "all-gather"),
+                          ("reduce-scatter", "reduce-scatter")):
+            name = f"lsqr gradient ell {tag}"
+            r0, x = ranks[0][name], xs[name]
+            res, d1 = grad_res(x), self.rel(x, x1)
+            coll = r0["collectives_per_step"]
+            ok = (r0["converged"] or r0["istop"] == 7) \
+                and abs(r0["iters"] - h1.iters) <= CG_STEP_SPREAD \
+                and res <= LSQ_RES_FACTOR * res1 + 1e-12 \
+                and d1 <= MESH_X_REL < ctl \
+                and all(not r[name]["launches"] for r in ranks) \
+                and (tag == "adjoint" or coll.get("reduce-scatter", 0) >= 1)
+            self.record(name, ranks, ok, one_card_iters=h1.iters,
+                        damped_normal_residual=res,
+                        one_card_damped_normal_residual=res1,
+                        x_rel_diff_one_card=d1, control_x_rel_diff=ctl)
+        del self.ell_grad, self.G, self.bg
+
+    def check_dense(self, ranks, xs):
+        """f. GMRES on the dense operator: the CGS2 kernels' launches, the
+        witness, one card's MGS solve and the true residual."""
+        torch, its = self.torch, self.its
+        M = dense_matrix(torch, "cuda")
+        b = torch.ones(MESH_DENSE_N, device="cuda")
+        x1, h1 = self.timed("gmres dense", lambda: its.gmres(
+            M, b, log=True, **MESH_GMRES))
+        r0, rw = ranks[0]["gmres dense"], ranks[0]["gmres dense witness"]
+        x, xw = xs["gmres dense"], xs["gmres dense witness"]
+        steps = MESH_GMRES["restart"] * (r0["restarts"] + 1)
+        want = {"panel_dots": 2 * steps, "panel_update": 2 * steps}
+        res = self.true_res(lambda v: M.double() @ v, x, b)
+        dw, d1 = self.rel(x, xw), self.rel(x, x1)
+        ok = (r0["converged"] and rw["converged"]
+              and abs(r0["iters"] - rw["iters"]) <= 1 and dw <= CONV_X_REL
+              and d1 <= DIST_CONV_X_REL["f32"]
+              and all(r["gmres dense"]["launches"] == want
+                      and not r["gmres dense witness"]["launches"]
+                      for r in ranks))
+        self.record("gmres dense", ranks, ok, n=MESH_DENSE_N,
+                    true_residual=res, witness_iters=rw["iters"],
+                    x_rel_diff_witness=dw, one_card_iters=h1.iters,
+                    x_rel_diff_one_card=d1, expected_launches=want)
+        del M
+
+    def check_cg(self, ranks, xs, sranks, sxs):
+        """g. CG on the slice mesh against the two-rank and one-card CG;
+        h. shard_dia / shard_ell against their counterparts."""
+        b = self.torch.ones(self.St.n, device="cuda")
+        x1, h1 = self.cg1
+
+        def held(name, rks, x, extra=None, as_name=None, **row):
+            r0 = rks[0][name]
+            res = self.true_res(self.A64.mv, x, b)
+            d64 = self.rel(x, self.x64)
+            ok = (r0["converged"]
+                  and res <= min(TRUE_RES_F32, PLAIN_RES_FACTOR * self.res_pl)
+                  and d64 <= X_F64_REL
+                  and abs(r0["iters"] - h1.iters) <= CG_STEP_SPREAD
+                  and (extra is None or extra(r0)))
+            self.record(name, rks, ok, as_name, true_residual=res,
+                        x_rel_diff_f64=d64, one_card_iters=h1.iters, **row)
+            return r0
+
+        two = held("cg stencil", ranks, xs["cg stencil"],
+                   lambda r: r["launches"] == {"stencil_apply":
+                                               r["steps_run"]})
+        def slice_held(r):
+            # every sum ran at both levels: one all-reduce of each a sum
+            lv = r["level_all_reduces"]
+            return (lv["chip"] == lv["slice"] > 0
+                    and lv["chip"] + lv["slice"] == r["collectives"][
+                        "all-reduce"]
+                    and abs(r["iters"] - two["iters"]) <= CG_STEP_SPREAD
+                    and r["launches"] == {"stencil_apply": r["steps_run"]})
+
+        held("cg stencil", sranks, sxs["cg stencil"], slice_held,
+             as_name=f"cg stencil slice_mesh{SLICE}",
+             two_rank_iters=two["iters"])
+        held("cg shard_dia", ranks, xs["cg shard_dia"])
+        # shard_ell's twin: the same ELL matrix's CG on one card
+        E1 = dia_as_ell(self.its, self.A)
+        xe, he = self.timed("cg ell 216^3", lambda: self.its.cg(
+            E1, b, reltol=RELTOL, log=True, chunk=CHUNK,
+            maxiter=KRYLOV_MAXITER))
+        del E1
+        held("cg shard_ell", ranks, xs["cg shard_ell"],
+             lambda r: abs(r["iters"] - he.iters) <= CG_STEP_SPREAD
+             and self.rel(xs["cg shard_ell"], xe) <= 2 * X_F64_REL,
+             one_card_ell_iters=he.iters,
+             x_rel_diff_one_card_ell=self.rel(xs["cg shard_ell"], xe))
+
+    def bandwidth(self):
+        """j. measure_bandwidth on the card beside the data sheet's."""
+        from iterativesolvers_tpu_torch.utils.profiling import (
+            measure_bandwidth)
+
+        bw = measure_bandwidth(1 << 26, reps=3, device="cuda")
+        self.rows["measure_bandwidth"] = {
+            "bytes_per_s": bw, "data_sheet_bytes_per_s": H100_SXM[1],
+            "share": bw / H100_SXM[1], "n": 1 << 26}
+        print(f"  measure_bandwidth (triad, 2^26 f32): {bw / 1e12:.3f} TB/s "
+              f"against the data sheet's {H100_SXM[1] / 1e12:.2f}")
 
 
 def panel_ortho_entries(ptimes, perr, r0):
@@ -3846,6 +4712,11 @@ def main():
     ap.add_argument("--precond-one-card", action="store_true",
                     help="run phase 16's one-card reference (the script "
                          "starts it)")
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help="run one rank of phase 17 (the script starts them)")
+    ap.add_argument("--slice-rank", type=int, default=None,
+                    help="run one rank of phase 17's slice mesh (the script "
+                         "starts them)")
     ap.add_argument("--world", type=int, default=DIST_RANKS)
     ap.add_argument("--rendezvous")
     ap.add_argument("--out")
@@ -3856,14 +4727,14 @@ def main():
         return precond_rank(args)
     if args.precond_one_card:
         return precond_one_card(args)
+    if args.mesh_rank is not None or args.slice_rank is not None:
+        return mesh_rank(args)
     t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this script "
                  "drives the port on a GPU and has nothing to run here")
-
-    from torch.profiler import ProfilerActivity, profile
 
     import iterativesolvers_tpu_torch as its
     from iterativesolvers_tpu_torch import native
@@ -3876,6 +4747,10 @@ def main():
     from iterativesolvers_tpu_torch.solvers import gmres as gmres_mod
     from iterativesolvers_tpu_torch.solvers.common import chunked_steps
     from iterativesolvers_tpu_torch.utils.fixtures import laplace_dia
+
+    def clock(label):
+        """The script's seconds so far, before ``label``."""
+        print(f"[{time.perf_counter() - t_start:.1f} s] {label}", flush=True)
 
     # ---- 1. card ----------------------------------------------------------
     smi = subprocess.run(
@@ -3903,6 +4778,7 @@ def main():
     spmv_resources(_build)
 
     # ---- 3. kernel parity at 216^3 ----------------------------------------
+    clock("phase 3")
     print("parity at 216^3:")
     g = torch.Generator(device="cuda").manual_seed(0)
     n = SIDE**3
@@ -3967,6 +4843,7 @@ def main():
     torch.cuda.synchronize()
 
     # ---- 4. the main path: CG at 216^3 on the four operator paths ---------
+    clock("phase 4")
     St = its.laplacian(SIDE, 3)
     paths = {"stencil": St, "dia_f32": dias["f32"], "dia_bf16": dias["bf16"],
              "dia_int8": dias["int8"]}
@@ -4049,6 +4926,7 @@ def main():
     spread = check_spread(dot_order_spread(torch, its, St, A64, grid))
 
     # ---- 5. timing --------------------------------------------------------
+    clock("phase 5")
     samples = {}
 
     def timed(label, fn, reps=20, batches=5):
@@ -4062,8 +4940,10 @@ def main():
 
     per_iter = {}
     for name, op in paths.items():
-        t_long = timed(f"cg {name} maxiter=504", lambda: solve(op, 504), 1)
-        t_short = timed(f"cg {name} maxiter=248", lambda: solve(op, 248), 1)
+        t_long = timed(f"cg {name} maxiter=504", lambda: solve(op, 504), 1,
+                       3)
+        t_short = timed(f"cg {name} maxiter=248", lambda: solve(op, 248), 1,
+                        3)
         per_iter[name] = (t_long - t_short) / (504 - 248) * 1e3
     print(json.dumps({
         "cg_us_per_iter": per_iter, "timed_iters": 504 - 248,
@@ -4073,40 +4953,49 @@ def main():
         "n": n, "device": kind}))
 
     # ---- 6. trace: where the time of a CG step goes ------------------------
-    # one profiled 504-step solve per path; the device's busy time is the sum
-    # of its kernels' times, set against the untimed solve's median above
+    clock("phase 6")
+    # one profiled CG_TRACE-step solve per path; the device's busy time is
+    # the sum of its kernels' times, a step against the untimed 504-step
+    # solve's median above
     trace = {}
     for name, op in paths.items():
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        def traced(op=op):
             t0 = time.perf_counter()
-            solve(op, 504)
+            solve(op, CG_TRACE)
             torch.cuda.synchronize()
-            traced_ms = (time.perf_counter() - t0) * 1e3
-        by_kernel = device_ms(torch, prof, name)
+            return (time.perf_counter() - t0) * 1e3
+
+        traced_ms, by_kernel = profiled(torch, traced, name)
         busy = sum(by_kernel.values())
         wall = statistics.median(samples[f"cg {name} maxiter=504"])
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-        trace[name] = {"steps": 504, "wall_ms": wall,
+        trace[name] = {"steps": CG_TRACE, "wall_ms_504": wall,
                        "traced_wall_ms": traced_ms, "device_busy_ms": busy,
-                       "busy_share": busy / wall, "top_device_ms": dict(top)}
+                       "busy_share": busy / CG_TRACE * 504 / wall,
+                       "top_device_ms": dict(top)}
     print(json.dumps({"trace": trace}))
 
     # ---- 7-10. GMRES -------------------------------------------------------
+    clock("phase 7")
     panels, w_gm, gerr, gres = gmres_parity(torch, its, cuda_mgs, cuda_arnoldi,
                                             n)
     gcounters = counters + (cuda_mgs.panel_mgs, cuda_arnoldi.stencil_panel_mv,
                             cuda_arnoldi.fused_arnoldi)
+    clock("phase 8")
     gruns, gout, gsolve, groutes = gmres_main_path(
         torch, its, gmres_mod, gcounters, paths, b, true_res, rel_diff, timed)
+    clock("phase 9")
     conv, conv_x = gmres_converging(torch, its, gmres_mod, St, b)
+    clock("phase 10")
     ab = gmres_fused_ab(torch, gmres_mod, gcounters, St, gsolve, timed)
+    clock("phase 10 trace")
     gtrace = gmres_trace(torch, gsolve,
                          {k: groutes[k] for k in ("stencil_bf16",
                                                   "stencil_f32", "dia_f32")},
                          samples)
 
     # ---- 11. every kernel beside its bound ----------------------------------
+    clock("phase 11")
     csr = laplace_csr(torch, A)
     library_ms = timed("torch.sparse CSR @ x", lambda: csr @ x32)
     nnz_off = sum(n - abs(o) for o in A.offsets if o != 0)
@@ -4275,6 +5164,7 @@ def main():
                                    max_abs_err=gerr[f"{name} {other}"]),
         })
     # ---- 12. distributed GMRES and CG on DIST_RANKS ranks ------------------
+    clock("phase 12")
     blocks, w_sh, perr = panel_ortho_parity(torch, cuda_panel_ortho, panels,
                                             n, DIST_RANKS)
     ptimes = panel_ortho_timing(torch, cuda_panel_ortho, blocks, w_sh, timed,
@@ -4288,6 +5178,7 @@ def main():
     kernels += panel_ortho_entries(ptimes, perr, r0)
 
     # ---- 13. the Krylov solvers at 216^3 -------------------------------------
+    clock("phase 13")
     t0 = time.perf_counter()
     krylov = krylov_phase(torch, its, St, dias["int8"], x64, counters)
     print(f"  phase 13: {time.perf_counter() - t0:.1f} s")
@@ -4301,6 +5192,7 @@ def main():
                                     if ("DIA" in name) == dia}
 
     # ---- 14. mv_rows, block CG, LOBPCG, svdl, LSQR and LSMR ----------------
+    clock("phase 14")
     t0 = time.perf_counter()
     _, rows_ab, p14 = block_phase(torch, its, St, A64, x64, counters, bound)
     print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
@@ -4323,8 +5215,9 @@ def main():
             k["mv_rows"] = rows_ab[key]
 
     # ---- 15. the stored formats, auto_format, MatrixMarket I/O -----------
+    clock("phase 15")
     t0 = time.perf_counter()
-    _, p15_products, p15 = formats_phase(
+    _, p15_products, p15, scrambled = formats_phase(
         torch, its, A, runs, x64,
         gcounters + (cuda_panel_ortho.panel_dots,
                      cuda_panel_ortho.panel_update), bound)
@@ -4341,6 +5234,7 @@ def main():
             k["phase15_launches"] = p15.get(p15_keys[k["name"]], {})
 
     # ---- 16. preconditioners, the reduced system, the stationary methods --
+    clock("phase 16")
     p16 = PrecondPhase(torch, its, dias["int8"],
                        gcounters + (cuda_panel_ortho.panel_dots,
                                     cuda_panel_ortho.panel_update),
@@ -4359,6 +5253,24 @@ def main():
     for k in kernels:
         if k["name"] in p16_keys:
             k["phase16_launches"] = p16.get(p16_keys[k["name"]], {})
+
+    # ---- 17. the rest of parallel/ on ranks -------------------------------
+    clock("phase 17")
+    p17 = MeshPhase(torch, its, St, A, x64, runs["stencil"][:2], res_pl,
+                    scrambled).run()
+    # phase 17's launches by run (rank 0's; every rank's are held), joined
+    # to the kernels entries by kernel: the stencil kernel (with and without
+    # its dot: one counter) and the two CGS2 sweeps
+    p17_keys = {"stencil_apply": "stencil_apply",
+                "panel_dots[f32 panel]": "panel_dots",
+                "panel_update[f32 panel]": "panel_update"}
+    if not set(p17) <= set(p17_keys.values()) or not {
+            "stencil_apply", "panel_dots", "panel_update"} <= set(p17):
+        raise AssertionError(f"phase 17 launched {sorted(p17)}, expected "
+                             f"{sorted(p17_keys.values())}")
+    for k in kernels:
+        if k["name"] in p17_keys:
+            k["phase17_launches"] = p17[p17_keys[k["name"]]]
 
     for k in kernels:
         if "bytes" in k:

@@ -13,25 +13,27 @@ on the stencil and DIA operators, and the Givens, Hessenberg and
 orthogonalization ops GMRES uses; MINRES, QMR, BiCGStab(l), IDR(s),
 Chebyshev (with ``gershgorin_bounds`` / ``power_bound``), pipelined CG and
 the power method (``powm``, ``invpowm``); the identity, diagonal, dense and
-function preconditioners; the row-sharded halo operators and GMRES's
-sharded-panel CGS2 route over ``torch.distributed``
+function preconditioners; the row-sharded halo, ELL and dense operators
+on 1-D and ``(slice, chip)`` meshes, ``shard_dia`` / ``shard_ell`` and
+GMRES's sharded-panel CGS2 route over ``torch.distributed``
 (``iterativesolvers_tpu_torch.parallel``, one process per rank), with
 GMRES's mesh-reduced orthogonalization where that route does not apply;
 the row-panel products ``mv_rows`` (the stencil and DIA kernels once per
-row) and block CG, LSQR, LSMR, LOBPCG and svdl on them, with the matrix-free
+row, on one device and on each rank) and block CG, LSQR, LSMR, LOBPCG and
+svdl on them, on one device or a mesh, with the matrix-free
 ``GradientOperator``; the stored formats CSR, ELL, HYB and BSR with
 ``auto_format`` (which sends banded matrices to the DIA kernel), the native
 host layer (``native``, built by g++ at first use) and the MatrixMarket
 loader; the ILU(0), IC(0), red-black IC and Eisenstat-SSOR preconditioners
 on ``LevelScheduledTriangular``, ``RBReducedSystem``, the stationary methods
-(jacobi, gauss_seidel, sor, ssor, their iterables and ``SingularError``) and
-the shard-local ``parallel.ShardedBlockJacobiPreconditioner``.
+(jacobi, gauss_seidel, sor, ssor, their iterables and ``SingularError``),
+the shard-local ``parallel.ShardedBlockJacobiPreconditioner``, and
+``utils/profiling.py`` (traces on ``torch.profiler``, the triad bandwidth,
+roofline reports and a mesh's collective counts).
 
-Every public name of the JAX package's ``__init__`` is here.  Still to port
-(``ROADMAP.md``, Queue A item 8): the rest of ``parallel/`` (the halo
-operators' ``mv_rows`` and the mesh forms of the block solvers,
-``RowShardedELLOperator``, ``DenseMeshOperator``, ``slice_mesh``,
-``shard_dia`` / ``shard_ell``) and ``utils/profiling.py``.
+Every public name of the JAX package's ``__init__`` and ``parallel``
+package is here; ``utils/compat.py`` is a JAX-only shim with no
+counterpart.
 """
 
 from .operators.linear_operator import (

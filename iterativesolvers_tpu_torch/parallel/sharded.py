@@ -12,13 +12,27 @@ exchange of the operators' products.  No ``DTensor``: the kernels take raw
 pointers, and every collective of a step is written out where it happens.
 
 Row blocks: rank r owns rows ``[r * nloc, min((r + 1) * nloc, n))`` with
-``nloc = ceil(n / D)``; the halo operators need ``n % D == 0``.
+``nloc = ceil(n / D)``; the halo and ELL operators need ``n % D == 0``,
+``DenseMeshOperator`` takes any n (the last blocks short or empty).
 
-Ported: ``row_mesh``, ``shard_vector``, ``replicate``, ``HaloDIAOperator``,
-``HaloStencilOperator``, and ``gather_vector`` (the counterpart of
-``np.asarray`` on a sharded JAX array).  Not yet: ``mv_rows``,
-``RowShardedELLOperator``, ``DenseMeshOperator``, ``slice_mesh``,
-``shard_dia`` / ``shard_ell`` (ROADMAP.md, Queue A item 8).
+Every name of the JAX module is here, and ``gather_vector`` (the
+counterpart of ``np.asarray`` on a sharded JAX array) besides.  A 2-D
+``(slice, chip)`` mesh (:func:`slice_mesh`) partitions rows over the
+flattened slice-major rank order, as the JAX one does, and reduces in two
+levels: within each slice, then across the slices.
+
+``shard_dia`` / ``shard_ell``.  The JAX package places a DIA or ELL
+matrix's arrays row-sharded under GSPMD and lets XLA partition the ordinary
+product: the shifted reads of a DIA product lower to collective-permutes,
+the gather of an ELL product to an all-gather of x
+(``tests/test_hlo_collectives.py``).  ``torch.distributed`` has no
+partitioner, so here they return the operators that issue exactly those
+collectives, :class:`HaloDIAOperator` and :class:`RowShardedELLOperator`;
+the ordinary solvers take them unchanged.  Where D does not divide n the
+JAX package's ``device_put`` raises ``ValueError`` (an uneven
+``NamedSharding``), and so do they.  One case differs: a DIA halo wider
+than a rank's block, which GSPMD partitions and ``HaloDIAOperator``
+refuses (``ValueError``: use fewer ranks).
 """
 
 from __future__ import annotations
@@ -30,20 +44,29 @@ import torch
 import torch.distributed as dist
 
 from ..operators.linear_operator import LinearOperator
-from ..operators.sparse import DIAMatrix
+from ..operators.sparse import DIAMatrix, ELLMatrix
 from ..operators.stencil import StencilOperator, _conj
-from ..ops.cuda_stencil import stencil_apply
+from ..ops.cuda_stencil import stencil_apply, stencil_apply_rows
 from ..utils.convert import host_tensor
 
 __all__ = [
     "RowMesh",
+    "SliceMesh",
     "row_mesh",
+    "slice_mesh",
     "shard_vector",
+    "shard_dia",
+    "shard_ell",
     "replicate",
     "gather_vector",
     "HaloDIAOperator",
     "HaloStencilOperator",
+    "RowShardedELLOperator",
+    "DenseMeshOperator",
 ]
+
+# the collectives a mesh issues, counted by kind in ``RowMesh.counts``
+COLLECTIVES = ("exchange", "all_reduce", "all_gather", "reduce_scatter")
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -70,16 +93,24 @@ class RowMesh:
         self.device = torch.device(device)
         self.backend = backend
         self._owns_group = owns_group
+        # collectives issued, by kind (COLLECTIVES); a one-rank mesh issues
+        # none.  utils/profiling.collective_counts reads them over a window.
+        self.counts = dict.fromkeys(COLLECTIVES, 0)
 
     def __repr__(self):
         return (f"RowMesh(rank={self.rank}, size={self.size}, "
                 f"device={self.device}, backend={self.backend!r})")
+
+    def rows(self, n: int):
+        """``(lo, hi)``: this rank's global rows of a length-n vector."""
+        return row_block(n, self.size, self.rank)
 
     def all_reduce(self, t):
         """Sum ``t`` over the ranks, in place; returns ``t``.  Every rank
         gets the same bits, so replicated state computed from the result
         agrees across ranks."""
         if self.size > 1:
+            self.counts["all_reduce"] += 1
             dist.all_reduce(t)
         return t
 
@@ -104,6 +135,7 @@ class RowMesh:
         reaction to a failure."""
         if self.size == 1:
             return last, first
+        self.counts["exchange"] += 1
         nxt = (self.rank + 1) % self.size
         prv = (self.rank - 1) % self.size
         s_last, s_first = self._host(last), self._host(first)
@@ -121,10 +153,33 @@ class RowMesh:
         on ``t``'s device."""
         if self.size == 1:
             return [t]
+        self.counts["all_gather"] += 1
         src = self._host(t)
         out = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(out, src)
         return [o.to(t.device) for o in out]
+
+    def gather_rows(self, t):
+        """The whole vector (or row panel along axis 0) from every rank's
+        equal-sized block ``t``: one all-gather (``all_gather(tiled=True)``
+        in the JAX package)."""
+        return torch.cat(self.all_gather(t))
+
+    def reduce_scatter(self, t):
+        """Sum ``t`` (``size * nloc`` rows along axis 0, the same shape on
+        every rank) over the ranks and return this rank's block of ``nloc``
+        rows: one reduce-scatter (``psum_scatter(tiled=True)`` in the JAX
+        package).  On gloo a CUDA tensor goes through a host buffer."""
+        if self.size == 1:
+            return t
+        if t.shape[0] % self.size:
+            raise ValueError(f"{t.shape[0]} rows do not split over "
+                             f"{self.size} ranks")
+        self.counts["reduce_scatter"] += 1
+        src = self._host(t)
+        out = src.new_empty((t.shape[0] // self.size,) + tuple(t.shape[1:]))
+        dist.reduce_scatter_tensor(out, src)
+        return out.to(t.device)
 
     def close(self):
         """Destroy the process group if :func:`row_mesh` created it."""
@@ -133,18 +188,51 @@ class RowMesh:
         self._owns_group = False
 
 
-def row_mesh(backend: str, device=None, *, init_method: str = "env://",
-             rank: int | None = None, world_size: int | None = None,
-             timeout: float = 300.0) -> RowMesh:
-    """The 1-D mesh over every rank of ``torch.distributed``'s default
-    process group, created here (with ``init_method``, ``rank``,
-    ``world_size`` and ``timeout`` seconds, after which a hung collective
-    raises) unless it exists.
+class SliceMesh(RowMesh):
+    """A 2-D ``(slice, chip)`` mesh of ``n_slices * chips_per_slice``
+    ranks: rank ``r = s * chips_per_slice + c`` is chip c of slice s, so row
+    blocks are slice-major and the halo ring is the 1-D ring over the ranks
+    in order (one hop across a slice boundary per slice pair).  A sum runs
+    in two levels, as XLA decomposes the JAX package's reduction over
+    ``(slice, chip)``: within the slice (the ranks of one s), then across
+    the slices (the ranks of one c).  Every rank ends with the same bits:
+    the first level leaves one value per slice on all its ranks, and each
+    second-level group sums those same values in the same order.  Made by
+    :func:`slice_mesh`; gathers and reduce-scatters run over all ranks."""
 
-    ``backend``: ``"nccl"`` when every rank has its own card, ``"gloo"``
-    when ranks share a card (NCCL refuses two ranks on one card) or run on
-    the CPU.  ``device``: where this rank's tensors live; by default the
-    card ``rank % device_count``."""
+    def __init__(self, rank, size, device, backend, n_slices,
+                 chips_per_slice, chip_group, slice_group, owns_group=False):
+        super().__init__(rank, size, device, backend, owns_group)
+        self.n_slices = int(n_slices)
+        self.chips_per_slice = int(chips_per_slice)
+        self._chip_group = chip_group
+        self._slice_group = slice_group
+        # the all-reduces of each level (counts["all_reduce"] holds both)
+        self.level_counts = {"chip": 0, "slice": 0}
+
+    @property
+    def shape(self):
+        return (self.n_slices, self.chips_per_slice)
+
+    def __repr__(self):
+        return (f"SliceMesh(rank={self.rank}, shape={self.shape}, "
+                f"device={self.device}, backend={self.backend!r})")
+
+    def all_reduce(self, t):
+        for level, group, width in (("chip", self._chip_group,
+                                     self.chips_per_slice),
+                                    ("slice", self._slice_group,
+                                     self.n_slices)):
+            if width > 1:
+                self.counts["all_reduce"] += 1
+                self.level_counts[level] += 1
+                dist.all_reduce(t, group=group)
+        return t
+
+
+def _init_group(backend, device, init_method, rank, world_size, timeout):
+    """The default process group (created here unless it exists, then
+    owned), this rank, the world size and this rank's device."""
     owns = False
     if not dist.is_initialized():
         dist.init_process_group(
@@ -160,7 +248,56 @@ def row_mesh(backend: str, device=None, *, init_method: str = "env://",
     device = torch.device(device)
     # fail here, not at the first product, when the device does not exist
     torch.empty(0, device=device)
+    return owns, r, D, device
+
+
+def row_mesh(backend: str, device=None, *, init_method: str = "env://",
+             rank: int | None = None, world_size: int | None = None,
+             timeout: float = 300.0) -> RowMesh:
+    """The 1-D mesh over every rank of ``torch.distributed``'s default
+    process group, created here (with ``init_method``, ``rank``,
+    ``world_size`` and ``timeout`` seconds, after which a hung collective
+    raises) unless it exists.
+
+    ``backend``: ``"nccl"`` when every rank has its own card, ``"gloo"``
+    when ranks share a card (NCCL refuses two ranks on one card) or run on
+    the CPU.  ``device``: where this rank's tensors live; by default the
+    card ``rank % device_count``."""
+    owns, r, D, device = _init_group(backend, device, init_method, rank,
+                                     world_size, timeout)
     return RowMesh(r, D, device, backend, owns_group=owns)
+
+
+def slice_mesh(n_slices: int, chips_per_slice: int | None = None,
+               backend: str = "gloo", device=None, *,
+               init_method: str = "env://", rank: int | None = None,
+               world_size: int | None = None,
+               timeout: float = 300.0) -> SliceMesh:
+    """The 2-D ``(slice, chip)`` mesh (:class:`SliceMesh`) over every rank
+    of the default process group, made as :func:`row_mesh` makes it; its
+    world must hold ``n_slices * chips_per_slice`` ranks
+    (``chips_per_slice`` defaults to world // n_slices).  Each level's
+    groups carry the same ``timeout``."""
+    owns, r, D, device = _init_group(backend, device, init_method, rank,
+                                     world_size, timeout)
+    S = int(n_slices)
+    C = int(chips_per_slice) if chips_per_slice is not None else D // S
+    if S < 1 or C < 1 or S * C != D:
+        raise ValueError(f"a ({S}, {C}) slice mesh needs {S * C} ranks, the "
+                         f"process group has {D}")
+    td = datetime.timedelta(seconds=float(timeout))
+    chip_group = slice_group = None
+    # every rank makes every group, in the same order
+    for s in range(S):
+        g = dist.new_group([s * C + c for c in range(C)], timeout=td)
+        if r // C == s:
+            chip_group = g
+    for c in range(C):
+        g = dist.new_group([s * C + c for s in range(S)], timeout=td)
+        if r % C == c:
+            slice_group = g
+    return SliceMesh(r, D, device, backend, S, C, chip_group, slice_group,
+                     owns_group=owns)
 
 
 def _as_tensor(v):
@@ -173,6 +310,22 @@ def shard_vector(v, mesh: RowMesh):
     t = _as_tensor(v)
     lo, hi = row_block(t.shape[0], mesh.size, mesh.rank)
     return t[lo:hi].to(mesh.device, copy=True)
+
+
+def shard_dia(A: DIAMatrix, mesh: RowMesh) -> "HaloDIAOperator":
+    """A DIA matrix row-sharded on the mesh, for the ordinary solvers: the
+    :class:`HaloDIAOperator` of ``A``, whose product exchanges the halos as
+    the collective-permutes XLA places for the JAX package's GSPMD form
+    (module docstring).  ``ValueError`` where D does not divide n."""
+    return HaloDIAOperator(A, mesh)
+
+
+def shard_ell(A: ELLMatrix, mesh: RowMesh) -> "RowShardedELLOperator":
+    """An ELL matrix row-sharded on the mesh (with its adjoint, if it
+    carries one): the :class:`RowShardedELLOperator` of ``A``, whose product
+    all-gathers x as XLA does for the JAX package's GSPMD form.
+    ``ValueError`` where D does not divide both dimensions."""
+    return RowShardedELLOperator(A, mesh)
 
 
 def replicate(x, mesh: RowMesh):
@@ -214,6 +367,15 @@ def _halo_slices(mesh, x, halo):
     if mesh.size > 1:
         return mesh.exchange(x[:halo], x[-halo:])
     return x[x.shape[0] - halo:], x[:halo]
+
+
+def _halo_rows(mesh, Xr, halo):
+    """(left, right) halos of a (k, n_local) row panel: its (k, halo) edge
+    slabs in one exchange (each direction one message for all k rows)."""
+    n_local = Xr.shape[1]
+    if mesh.size > 1:
+        return mesh.exchange(Xr[:, :halo], Xr[:, n_local - halo:])
+    return Xr[:, n_local - halo:], Xr[:, :halo]
 
 
 class HaloDIAOperator(_MeshOperator):
@@ -287,6 +449,25 @@ class HaloDIAOperator(_MeshOperator):
             elif off > 0:
                 y[n_local - off:] += col(d[n_local - off:]) * right[:off]
         return y
+
+    def mv_rows(self, Xr):
+        """Row-panel product: ``Xr`` is (k, n_local), this rank's columns of
+        k vectors as rows.  The same algebra as ``mv`` on the minor axis,
+        with one exchange of the (k, halo) edge slabs."""
+        halo, n_local = self.halo, self.n_local
+        if halo:
+            left, right = _halo_rows(self.mesh, Xr, halo)
+        z = Xr.new_zeros((Xr.shape[0], halo))
+        xz = torch.cat([z, Xr, z], dim=1)
+        Y = torch.zeros_like(Xr)
+        for d, off in zip(self.diags, self.offsets):
+            Y = Y + d * xz[:, halo + off:halo + off + n_local]
+        for d, off in zip(self.diags, self.offsets):
+            if off < 0:
+                Y[:, :-off] += d[:-off] * left[:, halo + off:]
+            elif off > 0:
+                Y[:, n_local - off:] += d[n_local - off:] * right[:, :off]
+        return Y
 
     def rmv(self, x):
         # (A^H x)[i] = sum_o conj(A[i - o, i]) x[i - o]
@@ -462,3 +643,129 @@ class HaloStencilOperator(_MeshOperator):
 
     def mv_dot(self, x):
         return self._apply(x, conj=False, with_dot=True)
+
+    def mv_rows(self, Xr):
+        """Row-panel product: ``Xr`` is (k, n_local), this rank's columns of
+        k vectors as rows.  One exchange of the (k, halo) edge slabs; the
+        interior is the stencil kernel once a row on the local block
+        (``stencil_apply_rows`` with ``n = n_local``) for a real f32 / bf16
+        panel, the masked shifted slices otherwise; then the edge
+        corrections under the global Dirichlet mask (``_edge_terms``)."""
+        halo, n_local = self.halo, self.n_local
+        center, eff, cs = self._stencil(False)
+        if halo:
+            left, right = _halo_rows(self.mesh, Xr, halo)
+        if Xr.dtype in _KERNEL_DTYPES and not self._dtype.is_complex:
+            Y = stencil_apply_rows(n_local, center, eff, cs, Xr)
+        else:
+            Y = self._local_interior(eff, cs, center, Xr.T).T
+        for off, c, valid in self._edge_terms(False):
+            if off < 0:
+                Y[:, :-off] += torch.where(valid, c * left[:, halo + off:], 0)
+            else:
+                Y[:, n_local - off:] += torch.where(valid, c * right[:, :off],
+                                                    0)
+        return Y.contiguous()
+
+
+class RowShardedELLOperator(_MeshOperator):
+    """Row-partitioned product of an unstructured ELL matrix.
+
+    A row block may read any entry of x, so ``mv`` all-gathers x (one
+    collective) and runs the ELL product of this rank's rows (the eager
+    ``ELLMatrix`` gather, sum and product).  A rectangular (m, n) operator
+    takes x sharded by its n columns and gives y sharded by its m rows; both
+    must divide over the ranks.  ``rmv`` runs the same product on this
+    rank's rows of the precomputed adjoint (``ELLMatrix.with_adjoint``), or
+    without one sums its rows' contributions into a full-length partial and
+    reduce-scatters it: one reduce-scatter, never an all-reduce of the
+    whole output.
+
+    ``ell`` is the port's :class:`ELLMatrix` of the whole matrix, on any
+    device; each rank keeps its rows on the mesh's device.
+    """
+
+    def __init__(self, ell: ELLMatrix, mesh: RowMesh):
+        m, n = ell.shape
+        D = mesh.size
+        if m % D != 0 or n % D != 0:
+            raise ValueError(
+                f"shape {tuple(ell.shape)} must divide evenly over {D} "
+                "devices")
+        self.mesh = mesh
+        self._shape = (int(m), int(n))
+        self.local = self._rows_of(ell)
+        self.local_adj = (self._rows_of(ell.adj) if ell.adj is not None
+                          else None)
+
+    def _rows_of(self, ell):
+        lo, hi = self.mesh.rows(ell.shape[0])
+        return ELLMatrix(ell.data[lo:hi], ell.cols[lo:hi],
+                         (hi - lo, ell.shape[1]),
+                         gather_chunk_rows=ell._gather_chunk_rows,
+                         device=self.mesh.device)
+
+    @property
+    def shape(self):
+        return self._shape
+
+    @property
+    def dtype(self):
+        return self.local.dtype
+
+    def mv(self, x):
+        return self.local.mv(self.mesh.gather_rows(x))
+
+    def rmv(self, x):
+        if self.local_adj is not None:
+            return self.local_adj.mv(self.mesh.gather_rows(x))
+        return self.mesh.reduce_scatter(self.local.rmv(x))
+
+
+class DenseMeshOperator(_MeshOperator):
+    """A dense square matrix row-partitioned over the mesh at any n.
+
+    The halo and ELL operators need ``n % D == 0``; this one takes the
+    :func:`row_block` split, ``nloc = ceil(n / D)`` rows a rank with the
+    last blocks short (or empty), so it carries the mesh-operator contract
+    where D does not divide n.  Its role, as in the JAX package, is the
+    sharded-panel GMRES route's zero-padded last shard
+    (``panel_ortho.panel_layout``).  ``mv`` all-gathers x (each block padded
+    to ``nloc``) and multiplies this rank's rows; ``rmv`` multiplies the
+    adjoint of this rank's rows into a full-length partial and
+    reduce-scatters the partials.
+    """
+
+    def __init__(self, mat, mesh: RowMesh):
+        mat = _as_tensor(mat)
+        if mat.ndim != 2 or mat.shape[0] != mat.shape[1]:
+            raise ValueError("DenseMeshOperator requires a square matrix")
+        n = int(mat.shape[0])
+        self.mesh = mesh
+        self._n = n
+        self.nloc = -(-n // mesh.size)
+        lo, hi = mesh.rows(n)
+        self.mat = mat[lo:hi].to(mesh.device, copy=True)
+
+    @property
+    def shape(self):
+        return (self._n, self._n)
+
+    @property
+    def dtype(self):
+        return self.mat.dtype
+
+    def _pad(self, x, rows):
+        if x.shape[0] == rows:
+            return x
+        z = x.new_zeros((rows - x.shape[0],) + tuple(x.shape[1:]))
+        return torch.cat([x, z])
+
+    def mv(self, x):
+        xg = self.mesh.gather_rows(self._pad(x, self.nloc))[: self._n]
+        return self.mat @ xg
+
+    def rmv(self, x):
+        part = self.mat.conj().T @ x
+        full = self._pad(part, self.nloc * self.mesh.size)
+        return self.mesh.reduce_scatter(full)[: self.mat.shape[0]]

@@ -12,6 +12,11 @@ iteration counts match single-RHS CG column for column, which keeps the
 semantics of looping ``cg`` over the columns.  A converged column freezes
 exactly: its step sizes are 0, so its X, R, residual and rho stay as they
 are, with no host read a step.
+
+On a row-sharded operator (``op.mesh``, ``parallel/``) B and X are each
+rank's rows and every column reduction (rho, sigma, the residual norms) is
+a rank-local sum and one ``mesh.all_reduce`` of its (k,) vector, so the
+per-column scalars, and the host's exit, agree on every rank.
 """
 
 from __future__ import annotations
@@ -25,8 +30,8 @@ from ..operators.linear_operator import as_operator
 from ..operators.preconditioners import as_preconditioner
 from ..utils.dtypes import real_dtype, solve_dtype
 from ..utils.history import ConvergenceHistory
-from .common import (SolverIterator, log_at, no_mesh, resolve_tols,
-                     run_chunked, with_highest_precision)
+from .common import (SolverIterator, allreduce, log_at, resolve_tols,
+                     row_norms, run_chunked, with_highest_precision)
 
 __all__ = ["block_cg", "block_cg_iterator"]
 
@@ -42,14 +47,15 @@ class BlockCGState(NamedTuple):
     resnorm_log: torch.Tensor  # (maxiter, k)
 
 
-def _row_norms(R):
-    return torch.sqrt(torch.sum((R.conj() * R).real, dim=1))
+def _row_dots(A, B, mesh=None):
+    """<a_i, b_i> of each row pair, summed over the mesh."""
+    return allreduce(torch.sum(A.conj() * B, dim=1), mesh)
 
 
 def _block_cg_init(op, Br, Xr, reltol, abstol, maxiter):
     dtype = Xr.dtype
     R = Br - op.mv_rows(Xr)
-    residual = _row_norms(R)
+    residual = row_norms(R, op.mesh)
     tol = torch.maximum(reltol * residual, abstol).to(real_dtype(dtype))
     k = Br.shape[0]
     dev = Br.device
@@ -73,16 +79,16 @@ def _block_cg_step(op, Pl, s: BlockCGState, maxiter: int, live=None,
     the mask."""
     cols = (s.residual > s.tol) & (s.it < maxiter)          # (k,)
     C = Pl.ldiv_rows(s.R)
-    rho = torch.sum(C.conj() * s.R, dim=1)
+    rho = _row_dots(C, s.R, op.mesh)
     beta = torch.where(cols, rho / torch.where(s.rho == 0, 1, s.rho), 0)
     U = C + beta[:, None] * s.U
     AU = op.mv_rows(U)
-    sigma = torch.sum(U.conj() * AU, dim=1)
+    sigma = _row_dots(U, AU, op.mesh)
     # alpha = 0 freezes converged columns exactly (X, R unchanged)
     alpha = torch.where(cols, rho / torch.where(sigma == 0, 1, sigma), 0)
     X = s.X + alpha[:, None] * U
     R = s.R - alpha[:, None] * AU
-    residual = torch.where(cols, _row_norms(R), s.residual)
+    residual = torch.where(cols, row_norms(R, op.mesh), s.residual)
     it = s.it + 1
     if live is not None:
         U = torch.where(live, U, s.U)
@@ -108,12 +114,12 @@ def _prepare(A, B, x0, Pl, reltol, abstol, maxiter, solver):
         raise ValueError(f"{solver} expects B of shape (n, k); "
                          "use cg() for a single right-hand side")
     op = as_operator(A, B[:, 0])
-    no_mesh(op, solver)
     dev = op.device
     B = B.to(dev)
     Pl = as_preconditioner(Pl, device=dev)
-    n, k = B.shape
-    maxiter = int(maxiter if maxiter is not None else n)
+    k = B.shape[1]
+    # the operator's n (B holds this rank's rows on a mesh)
+    maxiter = int(maxiter if maxiter is not None else op.shape[1])
     dtype = solve_dtype(op.dtype, B.dtype)
     Br = B.T.to(dtype).contiguous()              # (k, n) rows
     Xr = (torch.zeros_like(Br) if x0 is None

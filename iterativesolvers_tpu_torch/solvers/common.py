@@ -45,7 +45,9 @@ __all__ = [
     "log_at",
     "run_chunked",
     "chunked_steps",
-    "no_mesh",
+    "allreduce",
+    "row_norms",
+    "local_len",
 ]
 
 
@@ -113,15 +115,27 @@ def resolve_tols(dtype, reltol: Optional[float], abstol: Optional[float],
             torch.tensor(float(abstol), dtype=rt, device=device))
 
 
-def no_mesh(op, solver):
-    """Raise for an operator row-sharded over D > 1 ranks: the block and
-    least-squares solvers need the halo operators' ``mv_rows`` and mesh
-    reductions, which the port does not have yet."""
-    mesh = op.mesh
-    if mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            f"{solver} on a {mesh.size}-rank mesh operator: the port has no "
-            "mesh form of it yet (ROADMAP.md, Queue A item 8)")
+def allreduce(t, mesh=None):
+    """``t``, a rank-local partial of a sum over rows, summed over ``mesh``
+    (in place; every rank gets the same bits); ``t`` itself on one device.
+    The block solvers send each Gram, norm and projection through it."""
+    return t if mesh is None else mesh.all_reduce(t)
+
+
+def row_norms(R, mesh=None):
+    """The 2-norm of each row of a (k, n) panel; with a ``mesh``, of a
+    row-sharded panel (each rank's sums of squares allreduced)."""
+    return torch.sqrt(allreduce(torch.sum((R.conj() * R).real, dim=1),
+                                mesh))
+
+
+def local_len(n: int, mesh=None) -> int:
+    """Rows of a length-n vector this rank holds: n on one device, the
+    rank's block on a mesh."""
+    if mesh is None:
+        return int(n)
+    lo, hi = mesh.rows(n)
+    return hi - lo
 
 
 class Problem(NamedTuple):

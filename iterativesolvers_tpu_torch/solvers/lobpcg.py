@@ -30,6 +30,15 @@ src/lobpcg.jl:144-224) B-project the search directions out of span(Y);
 exactly like the reference (src/lobpcg.jl:928-961), each later batch started
 from a normal draw of a ``torch.Generator`` seeded 42 on the operator's
 device (the JAX package draws from ``PRNGKey(42)``).
+
+On a row-sharded operator (``A.mesh``, ``parallel/``) every panel is this
+rank's columns of the (k, n) rows, and every reduction over rows (each
+Gram, CholQR's, the projections of the deflation and of P against X, the
+unit B-norms and the residual norms) is a rank-local product and one
+``mesh.all_reduce``; the update that follows is local.  ``eigh``,
+``cholesky_ex`` and the ``alive`` masks then act on replicated values, so
+the host's reads (``run_chunked``'s exit, the batch loop's) agree on every
+rank.
 """
 
 from __future__ import annotations
@@ -43,8 +52,8 @@ from ..operators.linear_operator import as_operator
 from ..operators.preconditioners import as_preconditioner
 from ..utils.dtypes import real_dtype
 from ..utils.history import ConvergenceHistory
-from .common import (SolverIterator, log_at, no_mesh, run_chunked, select,
-                     with_highest_precision)
+from .common import (SolverIterator, allreduce, log_at, row_norms,
+                     run_chunked, select, with_highest_precision)
 
 __all__ = ["lobpcg", "lobpcg_iterator", "LOBPCGResults", "default_tolerance"]
 
@@ -77,20 +86,28 @@ class LOBPCGResults(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
-def _gram(Vr, Wr):
-    """(k, k) Gram G[i, j] = <v_i, w_j> of two row panels."""
-    return Vr.conj() @ Wr.T
+def _gram(Vr, Wr, mesh=None):
+    """(k, k) Gram G[i, j] = <v_i, w_j> of two row panels (summed over the
+    mesh)."""
+    return allreduce(Vr.conj() @ Wr.T, mesh)
+
+
+def _row_bnorms(Vr, BVr, mesh=None):
+    """sqrt(max(Re <v_i, Bv_i>, 0)) of each row pair (summed over the
+    mesh)."""
+    d = allreduce(torch.sum(Vr.conj() * BVr, dim=1), mesh).real
+    return torch.sqrt(torch.clamp(d, min=0.0))
 
 
 def _hermitize(G):
     return 0.5 * (G + G.conj().T)
 
 
-def _chol_factor(Vr, BVr):
+def _chol_factor(Vr, BVr, mesh=None):
     """Lower Cholesky factor of the (jittered, Hermitized) B-gram V'BV; all
     NaN where the Gram is not positive definite (``jnp.linalg.cholesky``'s
     answer), with no exception and no host read."""
-    G = _hermitize(_gram(Vr, BVr))
+    G = _hermitize(_gram(Vr, BVr, mesh))
     fi = torch.finfo(real_dtype(Vr.dtype))
     jitter = 10.0 * fi.eps * torch.abs(torch.trace(G)) / G.shape[1] + fi.tiny
     G = G + jitter * torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
@@ -115,7 +132,7 @@ def _apply_rinv(R, *mats):
     return out if len(out) > 1 else out[0]
 
 
-def _orthonormalize_masked(Vr, BVr, *images):
+def _orthonormalize_masked(Vr, BVr, *images, mesh=None):
     """B-orthonormalize (V, BV, images...) by vector-scaled CholQR, zeroing
     vectors that are numerically dependent (the static-shape analogue of the
     reference's dynamic block compression, src/lobpcg.jl:549-562).  All
@@ -129,15 +146,14 @@ def _orthonormalize_masked(Vr, BVr, *images):
     fi = torch.finfo(real_dtype(Vr.dtype))
     # scale vectors to unit B-norm so the Cholesky diagonal measures
     # independence
-    bn = torch.sqrt(torch.clamp(torch.sum(Vr.conj() * BVr, dim=1).real,
-                                min=0.0))
+    bn = _row_bnorms(Vr, BVr, mesh)
     ref = torch.clamp(torch.max(bn), min=fi.tiny)
     nonzero = bn > (fi.eps * ref)
     scale = torch.where(nonzero, 1.0 / torch.where(nonzero, bn, 1.0), 0.0)
     scale = scale.to(Vr.dtype)[:, None]
     Vr, BVr = Vr * scale, BVr * scale
     images = tuple(M * scale for M in images)
-    R = _chol_factor(Vr, BVr)
+    R = _chol_factor(Vr, BVr, mesh)
     # diag(R) in (0, 1]: sin of the angle to the span of previous vectors
     alive = nonzero & (torch.diagonal(R).real > 10.0 * float(np.sqrt(fi.eps)))
     mask = alive.to(Vr.dtype)[:, None]
@@ -192,34 +208,34 @@ def _bmv(opB, Vr):
     return opB.mv_rows(Vr) if opB is not None else Vr
 
 
-def _deflate(Yr, BYr, Vr):
+def _deflate(Yr, BYr, Vr, mesh=None):
     """B-project span(Y) out of the row panel: V - Y (BY^H V) in row layout
     is Vr - (Vr conj(BYr)^T) Yr."""
     if Yr is None:
         return Vr
-    return Vr - (Vr @ BYr.conj().T) @ Yr
+    return _project_out(Vr, Yr, BYr, mesh)
 
 
-def _project_out(Vr, Xr, BXr):
+def _project_out(Vr, Xr, BXr, mesh=None):
     """Vr minus its B-projection onto the rows of Xr (assumed B-orthonormal
-    against BXr): V - X (BX^H V) in row layout."""
-    return Vr - (Vr @ BXr.conj().T) @ Xr
+    against BXr): V - X (BX^H V) in row layout; the (k, k) coefficients
+    summed over the mesh, the update local."""
+    return Vr - allreduce(Vr @ BXr.conj().T, mesh) @ Xr
 
 
-def _ritz_and_split(Sbr, ASbr, BSbr, alive, k, largest):
+def _ritz_and_split(Sbr, ASbr, BSbr, alive, k, largest, mesh=None):
     """Rayleigh-Ritz on a B-orthonormal (possibly row-masked) basis;
     return new (X, AX, BX) and the B-orthonormalized direction block
     (P, AP, BP) from the W/P coefficients only (~ update_X_P!,
     src/lobpcg.jl:629-690).  All panels (rows = vectors)."""
-    G = _hermitize(_gram(Sbr, ASbr))
+    G = _hermitize(_gram(Sbr, ASbr, mesh))
     lam, C = _rayleigh_ritz(G, k, largest, alive=alive)
     # column update X = Sb C is the row update Xr = C^T Sbr
     Ct = C.T
     X, AX, BX = Ct @ Sbr, Ct @ ASbr, Ct @ BSbr
     # restore exact unit B-norm (selected pairs can carry a tiny dead-
     # coordinate weight in degenerate clusters)
-    xn = torch.sqrt(torch.clamp(torch.sum(X.conj() * BX, dim=1).real,
-                                min=0.0))
+    xn = _row_bnorms(X, BX, mesh)
     s = torch.where(xn > 0, 1.0 / torch.where(xn > 0, xn, 1.0), 0.0)
     s = s.to(X.dtype)[:, None]
     X, AX, BX = X * s, AX * s, BX * s
@@ -227,21 +243,22 @@ def _ritz_and_split(Sbr, ASbr, BSbr, alive, k, largest):
     P = Cpt @ Sbr[k:]
     AP = Cpt @ ASbr[k:]
     BP = Cpt @ BSbr[k:]
-    P, BP, AP, _ = _orthonormalize_masked(P, BP, AP)
+    P, BP, AP, _ = _orthonormalize_masked(P, BP, AP, mesh=mesh)
     return X, AX, BX, P, AP, BP, lam
 
 
 def _make_w(opA, opB, prec, Yr, BYr, S, extra_proj=None):
+    mesh = opA.mesh
     R_blk = S.AX - S.BX * S.lam[:, None]
-    resn = torch.linalg.vector_norm(R_blk, dim=1)
+    resn = row_norms(R_blk, mesh)
     W = prec.ldiv_rows(R_blk)
-    W = _deflate(Yr, BYr, W)
-    W = _project_out(W, S.X, S.BX)
+    W = _deflate(Yr, BYr, W, mesh)
+    W = _project_out(W, S.X, S.BX, mesh)
     if extra_proj is not None:
         Pb, BPb = extra_proj
-        W = _project_out(W, Pb, BPb)
+        W = _project_out(W, Pb, BPb, mesh)
     BW = _bmv(opB, W)
-    W, BW, alive_w = _orthonormalize_masked(W, BW)
+    W, BW, alive_w = _orthonormalize_masked(W, BW, mesh=mesh)
     AW = opA.mv_rows(W)
     return W, AW, BW, alive_w, resn
 
@@ -255,11 +272,12 @@ def _alive(k, dev):
 def _lobpcg_init(opA, opB, prec, Y, BY, X0r, largest, maxiter):
     # all panels (k, n): vectors as rows
     k = X0r.shape[0]
-    X = _deflate(Y, BY, X0r)
+    mesh = opA.mesh
+    X = _deflate(Y, BY, X0r, mesh)
     BX = _bmv(opB, X)
-    X, BX, _ = _orthonormalize_masked(X, BX)
+    X, BX, _ = _orthonormalize_masked(X, BX, mesh=mesh)
     AX = opA.mv_rows(X)
-    lam, C = _rayleigh_ritz(_hermitize(_gram(X, AX)), k, largest)
+    lam, C = _rayleigh_ritz(_hermitize(_gram(X, AX, mesh)), k, largest)
     Ct = C.T
     X, AX, BX = Ct @ X, Ct @ AX, Ct @ BX
     rt = real_dtype(X.dtype)
@@ -286,7 +304,7 @@ def _lobpcg_first(opA, opB, prec, Y, BY, S, largest):
     BSb = torch.cat([S.BX, BW])
     alive = torch.cat([_alive(k, Sb.device), alive_w])
     X, AX, BX, P, AP, BP, lam = _ritz_and_split(Sb, ASb, BSb, alive, k,
-                                                largest)
+                                                largest, opA.mesh)
     return _LState(
         X=X, AX=AX, BX=BX, P=P, AP=AP, BP=BP, lam=lam, resnorms=resn,
         it=S.it + 1, resnorm_log=log_at(S.resnorm_log, S.it, resn),
@@ -306,11 +324,12 @@ def _lobpcg_main_step(opA, opB, prec, Y, BY, S, largest, live=None,
     transform P -= X Cxp with Cxp = BX^H P becomes Pr -= Cxp^T Xr with
     Cxp^T = Pr conj(BXr)^T."""
     k = S.X.shape[0]
-    Cxpt = S.P @ S.BX.conj().T
+    mesh = opA.mesh
+    Cxpt = allreduce(S.P @ S.BX.conj().T, mesh)
     P = S.P - Cxpt @ S.X
     AP = S.AP - Cxpt @ S.AX
     BP = S.BP - Cxpt @ S.BX
-    P, BP, AP, alive_p = _orthonormalize_masked(P, BP, AP)
+    P, BP, AP, alive_p = _orthonormalize_masked(P, BP, AP, mesh=mesh)
     W, AW, BW, alive_w, resn = _make_w(opA, opB, prec, Y, BY, S,
                                        extra_proj=(P, BP))
     Sb = torch.cat([S.X, W, P])
@@ -318,7 +337,7 @@ def _lobpcg_main_step(opA, opB, prec, Y, BY, S, largest, live=None,
     BSb = torch.cat([S.BX, BW, BP])
     alive = torch.cat([_alive(k, Sb.device), alive_w, alive_p])
     X, AX, BX, Pn, APn, BPn, lam = _ritz_and_split(Sb, ASb, BSb, alive, k,
-                                                   largest)
+                                                   largest, mesh)
     new = _LState(
         X=X, AX=AX, BX=BX, P=Pn, AP=APn, BP=BPn, lam=lam, resnorms=resn,
         it=S.it + 1,
@@ -327,8 +346,8 @@ def _lobpcg_main_step(opA, opB, prec, Y, BY, S, largest, live=None,
     return select(live, new, S)
 
 
-def _residual_norms(S):
-    return torch.linalg.vector_norm(S.AX - S.BX * S.lam[:, None], dim=1)
+def _residual_norms(S, mesh=None):
+    return row_norms(S.AX - S.BX * S.lam[:, None], mesh)
 
 
 def _lobpcg_main(opA, opB, prec, Y, BY, S, tol, largest, maxiter):
@@ -339,7 +358,7 @@ def _lobpcg_main(opA, opB, prec, Y, BY, S, tol, largest, maxiter):
         lambda s, live: _lobpcg_main_step(opA, opB, prec, Y, BY, s, largest,
                                           live, log_in_place=True),
         done, S, chunk=8)
-    return S, _residual_norms(S)
+    return S, _residual_norms(S, opA.mesh)
 
 
 def _lobpcg_run(opA, opB, prec, X0r, Y, BY, largest, tol, maxiter):
@@ -348,7 +367,7 @@ def _lobpcg_run(opA, opB, prec, X0r, Y, BY, largest, tol, maxiter):
         S = _lobpcg_first(opA, opB, prec, Y, BY, S, largest)
     if maxiter >= 2 and bool(torch.any(S.resnorms > tol)):
         return _lobpcg_main(opA, opB, prec, Y, BY, S, tol, largest, maxiter)
-    return S, _residual_norms(S)
+    return S, _residual_norms(S, opA.mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -369,14 +388,14 @@ class _Setup(NamedTuple):
 
 @torch.no_grad()
 @with_highest_precision
-def _setup(A, X0, B, P, C, tol, solver) -> _Setup:
+def _setup(A, X0, B, P, C, tol) -> _Setup:
     opA = as_operator(A)
-    no_mesh(opA, solver)
     dev = opA.device
     X0 = torch.as_tensor(X0, device=dev)
     if X0.ndim != 2:
         raise ValueError("X0 must be (n, blocksize)")
-    n, bs = X0.shape
+    # the operator's n (X0 holds this rank's rows on a mesh)
+    n, bs = opA.shape[0], X0.shape[1]
     if 3 * bs > n:
         raise ValueError("3 * blocksize must be <= n (src/lobpcg.jl:834)")
     opB = as_operator(B, device=dev) if B is not None else None
@@ -387,15 +406,15 @@ def _setup(A, X0, B, P, C, tol, solver) -> _Setup:
     Y = BY = None
     if C is not None:
         Y, BY = _orthonormal_constraint(
-            opB, torch.as_tensor(C, device=dev).T.contiguous())
+            opB, torch.as_tensor(C, device=dev).T.contiguous(), opA.mesh)
     return _Setup(opA, opB, prec, X0, Y, BY, tol, tol_)
 
 
 @torch.no_grad()
 @with_highest_precision
-def _orthonormal_constraint(opB, Yr):
+def _orthonormal_constraint(opB, Yr, mesh=None):
     BYr = opB.mv_rows(Yr) if opB is not None else Yr
-    Rc = _chol_factor(Yr, BYr)
+    Rc = _chol_factor(Yr, BYr, mesh)
     return _apply_rinv(Rc, Yr, BYr)
 
 
@@ -423,9 +442,10 @@ def lobpcg(
     ``A``'s device (a host array goes to the card); ``X0``, ``B``, ``P``
     and ``C`` are moved there.
     """
-    st = _setup(A, X0, B, P, C, tol, "lobpcg")
+    st = _setup(A, X0, B, P, C, tol)
     X0 = st.X0
-    n, bs = X0.shape
+    n, bs = st.opA.shape[0], X0.shape[1]
+    mesh = st.opA.mesh
     nev = int(nev if nev is not None else bs)
     Y, BY = st.Y, st.BY
     rt = real_dtype(X0.dtype)
@@ -455,11 +475,15 @@ def lobpcg(
         if remaining > 0:
             newY = S.X[:take]
             Yfull = newY if Y is None else torch.cat([Y, newY])
-            Y, BY = _orthonormal_constraint(st.opB, Yfull)
+            Y, BY = _orthonormal_constraint(st.opB, Yfull, mesh)
             if gen is None:
                 gen = torch.Generator(device=X0.device).manual_seed(42)
+            # the whole draw on every rank, this rank's columns kept
             Xcur = torch.randn((bs, n), generator=gen, dtype=rt,
                                device=X0.device).to(X0.dtype)
+            if mesh is not None:
+                lo, hi = mesh.rows(n)
+                Xcur = Xcur[:, lo:hi].contiguous()
 
     lam = torch.cat(lam_out)
     X = torch.cat(X_out).T  # back to the (n, nev) public layout
@@ -507,7 +531,7 @@ def lobpcg_iterator(
     eigenvector block in the public column layout.  Covers one block
     (``nev == blocksize``).
     """
-    st = _setup(A, X0, B, P, C, tol, "lobpcg_iterator")
+    st = _setup(A, X0, B, P, C, tol)
     state0 = _lobpcg_init(st.opA, st.opB, st.prec, st.Y, st.BY,
                           st.X0.T.contiguous(), largest, maxiter)
 

@@ -9,7 +9,9 @@ takes one ``op.mv`` and one ``op.rmv``.
 
 istop protocol identical in structure to LSQR (src/lsmr.jl:274-281), but the
 reference *breaks* at the first satisfied test (priority 7 down to 1) and
-defines convergence as ``istop ∉ (3, 6, 7)`` (src/lsmr.jl:285).
+defines convergence as ``istop ∉ (3, 6, 7)`` (src/lsmr.jl:285).  On a
+row-sharded operator every norm is allreduced over ``op.mesh``, as in
+LSQR.
 """
 
 from __future__ import annotations
@@ -66,11 +68,11 @@ def _lsmr_step(op, lam, atol, btol, ctol, maxiter, s: LSMRState, live=None):
 
     # bidiagonalization step (src/lsmr.jl:166-176)
     u = op.mv(s.v) - s.alpha * s.u
-    beta = norm(u)
+    beta = norm(u, op.mesh)
     bpos = beta > 0
     u = u * safe_inv(beta)
     v_new = op.rmv(u) - beta * s.v
-    alpha_new = norm(v_new)
+    alpha_new = norm(v_new, op.mesh)
     v = torch.where(bpos, v_new * safe_inv(alpha_new), s.v)
     alpha = torch.where(bpos, alpha_new, s.alpha)
     mtvps = s.mtvps + bpos.to(s.mtvps.dtype)
@@ -135,7 +137,7 @@ def _lsmr_step(op, lam, atol, btol, ctol, maxiter, s: LSMRState, live=None):
 
     # convergence tests (src/lsmr.jl:247-281)
     normAr = torch.abs(zetabar)
-    normx = norm(x)
+    normx = norm(x, op.mesh)
     test1 = normr / s.normb
     test2 = normAr / (normA * normr)
     test3 = 1.0 / condA
@@ -177,10 +179,10 @@ def _lsmr_solve(op, b, x0, lam, atol, btol, ctol, maxiter, verbose):
 
     # beta*u = b - A x0 ; alpha*v = A'u (src/lsmr.jl:113-120)
     u = b.to(dtype) - op.mv(x0)
-    beta = norm(u)
+    beta = norm(u, op.mesh)
     u = u * safe_inv(beta)
     v = op.rmv(u)
-    alpha = norm(v)
+    alpha = norm(v, op.mesh)
     v = v * safe_inv(alpha)
     normAr0 = alpha * beta
 
@@ -253,8 +255,7 @@ def lsmr(
     ``conlim=1e8``, ``maxiter = max(m, n)`` (``maximum(size(A))``).  The
     solve runs on the operator's device; ``verbose`` prints as ``lsqr``.
     """
-    op, b, x0, maxiter, dtype, rt = least_squares_setup(A, b, x0, maxiter,
-                                                        "lsmr")
+    op, b, x0, maxiter, dtype, rt = least_squares_setup(A, b, x0, maxiter)
     ctol = 1.0 / conlim if conlim > 0 else 0.0
 
     def t(v):

@@ -20,6 +20,11 @@ reference's overwrite order src/lsqr.jl:256-269):
 ``isconverged`` is ``istop > 0`` exactly as the reference sets it
 (src/lsqr.jl:271: ``setconv(log, istop > 0)``).
 
+On a row-sharded operator (``op.mesh``, ``parallel/``) u lives in the row
+space and v, w and x in the column space, each this rank's block of its
+own length, and every norm is allreduced over the mesh: the scalars, and
+the host's exit, agree on every rank.
+
 Parity note: the reference accumulates ``ddnorm += norm(w/rho)`` *unsquared*
 (src/lsqr.jl:207 — a deviation from Paige-Saunders' ``+= norm^2``); it is
 kept so Acond estimates match.
@@ -34,7 +39,7 @@ import torch
 
 from ..operators.linear_operator import as_operator
 from ..utils.dtypes import eps, real_dtype, solve_dtype
-from .common import (SolveResult, log_at, make_history, no_mesh, norm,
+from .common import (SolveResult, local_len, log_at, make_history, norm,
                      run_chunked, safe_inv, select, with_highest_precision)
 
 __all__ = ["lsqr"]
@@ -83,14 +88,14 @@ def _lsqr_step(op, damp, atol, btol, ctol, maxiter, s: LSQRState, live=None):
 
     # bidiagonalization: beta*u = A v - alpha*u ; alpha*v = A'u - beta*v
     u = op.mv(s.v) - s.alpha * s.u
-    beta = norm(u)
+    beta = norm(u, op.mesh)
     bpos = beta > 0
     u = u * safe_inv(beta)
     anorm = torch.where(
         bpos, torch.sqrt(s.anorm**2 + s.alpha**2 + beta**2 + dampsq),
         s.anorm)
     v_new = op.rmv(u) - beta * s.v
-    alpha_new = norm(v_new)
+    alpha_new = norm(v_new, op.mesh)
     v_new = v_new * safe_inv(alpha_new)
     v = torch.where(bpos, v_new, s.v)
     alpha = torch.where(bpos, alpha_new, s.alpha)
@@ -116,7 +121,7 @@ def _lsqr_step(op, damp, atol, btol, ctol, maxiter, s: LSQRState, live=None):
     # update x, w (src/lsqr.jl:199-207)
     x = s.x + (phi / rho) * s.w
     w = (-theta / rho) * s.w + v
-    ddnorm = s.ddnorm + norm(w / rho)  # reference parity: unsquared
+    ddnorm = s.ddnorm + norm(w / rho, op.mesh)  # reference parity: unsquared
 
     # right rotation for ||x|| estimate (src/lsqr.jl:209-221)
     gambar = -s.cs2 * rho
@@ -188,11 +193,11 @@ def _lsqr_solve(op, b, x0, damp, atol, btol, ctol, maxiter, verbose):
     x0 = x0.to(dtype)
 
     u = b.to(dtype) - op.mv(x0)
-    beta = norm(u)
+    beta = norm(u, op.mesh)
     bpos = beta > 0
     u = u * safe_inv(beta)
     v_new = op.rmv(u)
-    alpha_new = norm(v_new)
+    alpha_new = norm(v_new, op.mesh)
     v = torch.where(bpos, v_new * safe_inv(alpha_new), x0)
     alpha = torch.where(bpos, alpha_new, 0.0)
     arnorm0 = alpha * beta
@@ -272,8 +277,7 @@ def lsqr(
     ``istop`` and the :resnorm/:rnorm/:anorm/:cnorm series
     (src/lsqr.jl:70-77,240-254).
     """
-    op, b, x0, maxiter, dtype, rt = least_squares_setup(A, b, x0, maxiter,
-                                                        "lsqr")
+    op, b, x0, maxiter, dtype, rt = least_squares_setup(A, b, x0, maxiter)
     sqrt_eps = float(np.sqrt(eps(dtype)))
     if atol is None:
         atol = sqrt_eps
@@ -301,18 +305,18 @@ def lsqr(
     return res.x, history
 
 
-def least_squares_setup(A, b, x0, maxiter, solver):
+def least_squares_setup(A, b, x0, maxiter):
     """The common set-up of ``lsqr`` and ``lsmr``: the operator, ``b`` and
     ``x0`` (zeros of the solve dtype when None) on the operator's device,
     ``maxiter`` (``max(m, n)`` when None), the solve dtype and its real
     dtype."""
     op = as_operator(A, b)
-    no_mesh(op, solver)
     dev = op.device
     b = torch.as_tensor(b, device=dev)
     m, n = op.shape
     maxiter = int(maxiter if maxiter is not None else max(m, n))
     dtype = solve_dtype(op.dtype, b.dtype)
-    x0 = (torch.zeros(n, dtype=dtype, device=dev) if x0 is None
-          else torch.as_tensor(x0, device=dev))
+    # x: all n on one device, this rank's block of the columns on a mesh
+    x0 = (torch.zeros(local_len(n, op.mesh), dtype=dtype, device=dev)
+          if x0 is None else torch.as_tensor(x0, device=dev))
     return op, b, x0, maxiter, dtype, real_dtype(dtype)

@@ -23,6 +23,14 @@ harmonic restart's ``lstsq`` is the minimum-norm solution through the SVD
 of the square part of B (the one the convergence check took), as
 ``jnp.linalg.lstsq`` computes it, so a singular B gives the JAX package's
 answer (``torch.linalg.lstsq`` on CUDA assumes full rank).
+
+On a row-sharded operator (``A.mesh``, ``parallel/``) ``P`` holds this
+rank's columns of the (k, m) left panel and ``Q`` of the (k+1, n) right
+one; the reductions over rows (the reorthogonalization's coefficients, the
+Golub-Kahan norms, the start vector's norm) are rank-local sums and one
+``mesh.all_reduce`` each, so B, and the ``svd`` / ``qr`` of its small
+matrices, are replicated and every rank takes the same exit.  The default
+start vector is the whole draw on every rank, each keeping its block.
 """
 
 from __future__ import annotations
@@ -35,8 +43,8 @@ import torch
 from ..operators.linear_operator import as_operator
 from ..utils.dtypes import real_dtype
 from ..utils.history import ConvergenceHistory
-from .common import (SolverIterator, log_at, no_mesh, norm, run_chunked,
-                     safe_inv, select, with_highest_precision)
+from .common import (SolverIterator, allreduce, local_len, log_at, norm,
+                     run_chunked, safe_inv, select, with_highest_precision)
 
 __all__ = ["svdl", "svdl_iterator", "PartialFactorization"]
 
@@ -53,12 +61,20 @@ class PartialFactorization(NamedTuple):
     beta: torch.Tensor   # coupling scalar == B[k-1, k]
 
 
-def _reorth(panel, v):
+def _reorth(panel, v, mesh=None):
     """Double classical Gram-Schmidt of v against the ROWS of panel (zeros
-    for stale rows).  ~ src/svdl.jl:565-577."""
-    v = v - (panel.conj() @ v) @ panel
-    v = v - (panel.conj() @ v) @ panel
+    for stale rows), the coefficients summed over the mesh.
+    ~ src/svdl.jl:565-577."""
+    v = v - allreduce(panel.conj() @ v, mesh) @ panel
+    v = v - allreduce(panel.conj() @ v, mesh) @ panel
     return v
+
+
+def _local_shape(op):
+    """The operator's (m, n) rows this rank holds of a left and a right
+    vector: (m, n) on one device."""
+    m, n = op.shape
+    return local_len(m, op.mesh), local_len(n, op.mesh)
 
 
 def _gkl_extend(op, P, Q, B, j0: int, k: int):
@@ -66,18 +82,19 @@ def _gkl_extend(op, P, Q, B, j0: int, k: int):
     rows of P and Q and entries of B in place (the caller's fresh panels).
     Assumes Q rows <= j0, P rows < j0 and B rows/cols < j0 are valid and the
     rest zero.  Returns (P, Q, B, beta)."""
+    mesh = op.mesh
     for j in range(j0, k):
         q_j = Q[j]
         # p = A q_j - B[:, j]' P  (B column j carries the arrow after restart)
         p = op.mv(q_j) - B[:, j] @ P
-        p = _reorth(P, p)
-        alpha = norm(p)
+        p = _reorth(P, p, mesh)
+        alpha = norm(p, mesh)
         P[j] = p * safe_inv(alpha)
         B[j, j] = alpha
         # r = A' p_j - alpha q_j
         r = op.rmv(P[j]) - alpha * q_j
-        r = _reorth(Q, r)
-        beta = norm(r)
+        r = _reorth(Q, r, mesh)
+        beta = norm(r, mesh)
         Q[j + 1] = r * safe_inv(beta)
         B[j, j + 1] = beta
     return P, Q, B, B[k - 1, k]
@@ -88,11 +105,11 @@ def _gkl_extend(op, P, Q, B, j0: int, k: int):
 def _build(op, v0, k: int) -> PartialFactorization:
     """Bootstrap the factorization from a start vector (~ build,
     src/svdl.jl:353-363)."""
-    m, n = op.shape
+    m, n = _local_shape(op)
     dtype, dev = v0.dtype, v0.device
     P = torch.zeros((k, m), dtype=dtype, device=dev)
     Q = torch.zeros((k + 1, n), dtype=dtype, device=dev)
-    Q[0] = v0 / norm(v0)
+    Q[0] = v0 / norm(v0, op.mesh)
     B = torch.zeros((k, k + 1), dtype=dtype, device=dev)
     return PartialFactorization(*_gkl_extend(op, P, Q, B, 0, k))
 
@@ -101,7 +118,7 @@ def _restart_core(op, L: PartialFactorization, U, s, V, conv_mask, l: int,
                   k: int, dolock: bool):
     """Thick restart to l columns then extend back to k
     (~ thickrestart! + extend!, src/svdl.jl:376-405,542-609)."""
-    m, n = op.shape
+    m, n = _local_shape(op)
     dtype, dev = L.P.dtype, L.P.device
     Ul = U[:, :l].to(dtype)
     Vl = V[:, :l].to(dtype)
@@ -144,7 +161,7 @@ def _harmonic_restart_core(op, L: PartialFactorization, U0, s, V0, l: int,
     triangular leading block in B; a GKL half-step then produces q_{l+2} so
     the standard extension loop can take over at j0 = l+1.
     """
-    m, n = op.shape
+    m, n = _local_shape(op)
     dtype, dev = L.P.dtype, L.P.device
     beta = L.beta
 
@@ -179,8 +196,8 @@ def _harmonic_restart_core(op, L: PartialFactorization, U0, s, V0, l: int,
 
     # continue the factorization: f = A q_{l+1} orthogonalized against P
     f = op.mv(Qn[l])
-    f = f - (Pn.conj() @ f) @ Pn
-    alpha = norm(f)
+    f = f - allreduce(Pn.conj() @ f, op.mesh) @ Pn
+    alpha = norm(f, op.mesh)
     f = f * safe_inv(alpha)
 
     P = torch.zeros((k, m), dtype=dtype, device=dev)
@@ -193,8 +210,8 @@ def _harmonic_restart_core(op, L: PartialFactorization, U0, s, V0, l: int,
     B[l, l] = alpha
 
     # GKL half-step: q_{l+2} from A'f, then the standard loop at j0 = l+1
-    g = _reorth(Q, op.rmv(f))
-    beta2 = norm(g)
+    g = _reorth(Q, op.rmv(f), op.mesh)
+    beta2 = norm(g, op.mesh)
     Q[l + 1] = g * safe_inv(beta2)
     B[l, l + 1] = beta2
     return PartialFactorization(*_gkl_extend(op, P, Q, B, l + 1, k))
@@ -332,11 +349,10 @@ class _Setup(NamedTuple):
     v0: torch.Tensor
 
 
-def _setup(A, nsv, k, j, v0, tol, reltol, maxiter, method, key, solver):
+def _setup(A, nsv, k, j, v0, tol, reltol, maxiter, method, key):
     if method not in ("ritz", "harmonic"):
         raise ValueError(f"unknown restart method {method!r}")
     op = as_operator(A)
-    no_mesh(op, solver)
     if method == "harmonic" and op.dtype.is_complex:
         raise ValueError(
             "harmonic restart supports real operators only "
@@ -361,6 +377,10 @@ def _setup(A, nsv, k, j, v0, tol, reltol, maxiter, method, key, solver):
             key = torch.Generator(device=dev).manual_seed(0)
         v0 = torch.randn(n, generator=key, dtype=rt,
                          device=key.device).to(op.dtype)
+        if op.mesh is not None:
+            lo, hi = op.mesh.rows(n)
+            v0 = v0[lo:hi]
+    # a given v0 is this rank's block on a mesh, as b is for the solvers
     v0 = torch.as_tensor(v0, device=dev)
     return _Setup(op, l, k, j, maxiter, tol, reltol, v0)
 
@@ -398,7 +418,7 @@ def svdl(
     ``((leftvecs, values, rightvecs_T), fact)``; append history when
     ``log=True``.
     """
-    st = _setup(A, nsv, k, j, v0, tol, reltol, maxiter, method, key, "svdl")
+    st = _setup(A, nsv, k, j, v0, tol, reltol, maxiter, method, key)
     op, l, k, j = st.op, st.l, st.k, st.j
     rt = real_dtype(op.dtype)
     dev = op.device
@@ -470,8 +490,7 @@ def svdl_iterator(
     ``.state.L`` = the partial factorization); ``.x`` is the current
     ``nsv`` singular-value estimate vector.
     """
-    st = _setup(A, nsv, k, j, v0, tol, reltol, maxiter, method, key,
-                "svdl_iterator")
+    st = _setup(A, nsv, k, j, v0, tol, reltol, maxiter, method, key)
     op, l, k, j = st.op, st.l, st.k, st.j
     rt = real_dtype(op.dtype)
     dev = op.device

@@ -32,13 +32,14 @@ from .dtypes import host_tensor
 __all__ = ["dia_from_arrays", "stencil_from_arrays", "csr_from_arrays",
            "ell_from_arrays", "hyb_from_arrays", "bsr_from_arrays",
            "operator_from_arrays", "halo_dia_from_arrays",
-           "halo_stencil_from_arrays", "triangular_from_arrays",
+           "halo_stencil_from_arrays", "row_sharded_ell_from_arrays",
+           "dense_mesh_from_arrays", "triangular_from_arrays",
            "factors_from_arrays", "rbic_from_arrays",
            "eisenstat_from_arrays", "rb_reduced_from_arrays", "host_tensor"]
 
 KINDS = ("dia", "stencil", "gradient", "scaled_identity_plus", "csr", "ell",
-         "hyb", "bsr", "triangular", "ilu", "ic", "rbic", "eisenstat",
-         "rb_reduced")
+         "hyb", "bsr", "dense", "triangular", "ilu", "ic", "rbic",
+         "eisenstat", "rb_reduced")
 
 
 def dia_from_arrays(diags, offsets, shape, device="cuda") -> DIAMatrix:
@@ -114,6 +115,33 @@ def halo_stencil_from_arrays(n, center, terms, coeffs, dtype, mesh):
     return HaloStencilOperator(
         stencil_from_arrays(n, center, terms, coeffs, dtype,
                             device=mesh.device), mesh)
+
+
+def row_sharded_ell_from_arrays(data, cols, shape, mesh, adj=None,
+                                gather_chunk_rows=None):
+    """A ``RowShardedELLOperator`` on ``mesh`` from the keys of
+    :func:`ell_from_arrays` (``adj`` for a precomputed adjoint): each rank
+    keeps its rows."""
+    from ..parallel.sharded import RowShardedELLOperator
+
+    return RowShardedELLOperator(
+        ell_from_arrays(data, cols, shape, adj=adj,
+                        gather_chunk_rows=gather_chunk_rows, device="cpu"),
+        mesh)
+
+
+def dense_mesh_from_arrays(mat, mesh):
+    """A ``DenseMeshOperator`` on ``mesh`` from the whole square matrix (a
+    host array): each rank keeps its rows, at any n."""
+    from ..parallel.sharded import DenseMeshOperator
+
+    return DenseMeshOperator(host_tensor(mat), mesh)
+
+
+def _dense(mat, device="cuda"):
+    from ..operators.linear_operator import MatrixOperator
+
+    return MatrixOperator(host_tensor(mat).to(device))
 
 
 def triangular_from_arrays(rows, cols, vals, diag, n,
@@ -194,9 +222,12 @@ def operator_from_arrays(spec: dict, device="cuda", mesh=None):
     ``"ilu"`` / ``"ic"``, ``"rbic"``, ``"eisenstat"`` and ``"rb_reduced"``
     the keys of :func:`triangular_from_arrays`, :func:`factors_from_arrays`,
     :func:`rbic_from_arrays`, :func:`eisenstat_from_arrays` and
-    :func:`rb_reduced_from_arrays`.  With a ``mesh`` a
-    ``"dia"`` or ``"stencil"`` operator is the row-sharded halo operator of
-    that kind on the mesh (``device`` is then the mesh's)."""
+    :func:`rb_reduced_from_arrays`; ``"dense"`` a square ``mat``.  With a
+    ``mesh`` (a ``row_mesh`` or a ``slice_mesh``) a ``"dia"`` or
+    ``"stencil"`` operator is the row-sharded halo operator of that kind on
+    the mesh, an ``"ell"`` one the ``RowShardedELLOperator`` and a
+    ``"dense"`` one the ``DenseMeshOperator`` (``device`` is then the
+    mesh's)."""
     kind = spec.get("kind")
     args = {k: v for k, v in spec.items() if k != "kind"}
     if kind not in KINDS:
@@ -209,15 +240,18 @@ def operator_from_arrays(spec: dict, device="cuda", mesh=None):
     if kind in ("ilu", "ic"):
         return factors_from_arrays(kind, device=device, **args)
     if mesh is not None:
-        if kind not in ("dia", "stencil"):
+        build = {"dia": halo_dia_from_arrays,
+                 "stencil": halo_stencil_from_arrays,
+                 "ell": row_sharded_ell_from_arrays,
+                 "dense": dense_mesh_from_arrays}.get(kind)
+        if build is None:
             raise ValueError(f"a {kind!r} operator has no row-sharded form")
-        build = (halo_dia_from_arrays if kind == "dia"
-                 else halo_stencil_from_arrays)
         return build(mesh=mesh, **args)
     build = {"dia": dia_from_arrays, "stencil": stencil_from_arrays,
              "gradient": GradientOperator, "csr": csr_from_arrays,
              "ell": ell_from_arrays, "hyb": hyb_from_arrays,
-             "bsr": bsr_from_arrays, "triangular": triangular_from_arrays,
+             "bsr": bsr_from_arrays, "dense": _dense,
+             "triangular": triangular_from_arrays,
              "rbic": rbic_from_arrays, "eisenstat": eisenstat_from_arrays,
              "rb_reduced": rb_reduced_from_arrays}[kind]
     return build(device=device, **args)

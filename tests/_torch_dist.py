@@ -5,14 +5,15 @@ per rank, and :func:`launch`, which starts them.
 It imports torch and the port, never JAX, so that a rank starts in about two
 seconds and the JAX package stays out of it.  :func:`launch` runs D of them:
 
-    python tests/_torch_dist.py IN.npz OUT_DIR RANK WORLD RENDEZVOUS BACKEND
+    python tests/_torch_dist.py IN.npz OUT_DIR RANK WORLD RENDEZVOUS BACKEND [MESH]
 
 ``IN.npz`` holds a JSON list of cases under ``"cases"`` and each case's
 arrays under ``"<case>/<key>"``.  Rank r writes ``OUT_DIR/rank<r>.npz`` with
 each case's outputs under ``"<case>/<key>"``; vectors are gathered whole
 (``gather_vector``) on every rank, so every rank's file can be held against
 rank 0's.  BACKEND ``gloo`` puts every rank on the CPU, ``gloo-cuda`` every
-rank on ``cuda:0``, ``nccl`` rank r on ``cuda:r``.
+rank on ``cuda:0``, ``nccl`` rank r on ``cuda:r``.  MESH ``row`` (the
+default) makes a ``row_mesh``, ``slice:SxC`` a ``slice_mesh(S, C)``.
 """
 
 import contextlib
@@ -27,12 +28,14 @@ import numpy as np
 import torch
 
 import iterativesolvers_tpu_torch as pits
+from iterativesolvers_tpu_torch.ops import cuda_stencil
 from iterativesolvers_tpu_torch.parallel import panel_ortho as po
 from iterativesolvers_tpu_torch.parallel import (
     ShardedBlockJacobiPreconditioner, dist_panel_ortho, gather_vector,
-    panel_layout, row_mesh, shard_vector)
+    panel_layout, row_mesh, shard_dia, shard_ell, shard_vector, slice_mesh)
 from iterativesolvers_tpu_torch.solvers import gmres as pgm
 from iterativesolvers_tpu_torch.utils import convert
+from iterativesolvers_tpu_torch.utils.profiling import collective_counts
 
 # seconds a collective may wait before it raises (the test's own timeout on
 # the processes is longer)
@@ -48,14 +51,34 @@ def _np(t):
 
 
 def _operator(c, a, mesh):
-    """The case's halo operator, built from host arrays with utils/convert."""
+    """The case's mesh operator, built from host arrays with utils/convert;
+    with ``"shard": true`` in the spec a DIA or ELL matrix goes through
+    ``shard_dia`` / ``shard_ell`` instead."""
     spec = dict(c["op"])
+    shard = spec.pop("shard", False)
     if spec["kind"] == "dia":
         spec["diags"] = [a[f"diag{i}"] for i in range(spec.pop("ndiags"))]
+    elif spec["kind"] == "ell":
+        spec["data"], spec["cols"] = a["data"], a["cols"]
+        if "adj_data" in a:
+            spec["adj"] = dict(data=a["adj_data"], cols=a["adj_cols"],
+                               shape=spec["shape"][::-1])
+    elif spec["kind"] == "dense":
+        spec["mat"] = a["mat"]
     elif "coeffs" in a:
         # complex coefficients travel as arrays (JSON has no complex)
         spec["center"], spec["coeffs"] = a["center"][()], list(a["coeffs"])
+    if shard:
+        kind = spec.pop("kind")
+        whole = (convert.dia_from_arrays if kind == "dia"
+                 else convert.ell_from_arrays)(device="cpu", **spec)
+        return (shard_dia if kind == "dia" else shard_ell)(whole, mesh)
     return convert.operator_from_arrays(spec, mesh=mesh)
+
+
+def _rows(P, mesh):
+    """The whole (k, n) row panel from every rank's (k, n_local) block."""
+    return _np(gather_vector(P.T.contiguous(), mesh).T)
 
 
 @contextlib.contextmanager
@@ -211,9 +234,83 @@ def bjacobi(c, a, mesh):
     return out
 
 
+def rows(c, a, mesh):
+    """mv_rows of the (k, n) panel ``X`` (each rank its columns), with the
+    mesh's exchanges and this rank's stencil kernel launches counted."""
+    op = _operator(c, a, mesh)
+    X = shard_vector(a["X"].T, mesh).T.contiguous()
+    launches = cuda_stencil.stencil_apply.launches
+    with collective_counts(mesh) as n:
+        Y = op.mv_rows(X)
+    return {"Y": _rows(Y, mesh), "permutes": np.array(
+        n["collective-permute"]), "launches": np.array(
+        cuda_stencil.stencil_apply.launches - launches)}
+
+
+def mesh_ops(c, a, mesh):
+    """mv and rmv of an ELL or dense mesh operator on ``x`` (columns) and
+    ``y`` (rows), each with the collectives it issued."""
+    op = _operator(c, a, mesh)
+    out = {}
+    for name, f, v in (("mv", op.mv, a["x"]), ("rmv", op.rmv, a["y"])):
+        with collective_counts(mesh) as n:
+            r = f(shard_vector(v, mesh))
+        out[name] = _np(gather_vector(r, mesh))
+        out.update({f"{name}/{k}": np.array(v) for k, v in n.items()})
+    return out
+
+
+def cg_step(c, a, mesh):
+    """The collectives of one CG step (after its set-up) on the operator."""
+    it = pits.cg_iterator(_operator(c, a, mesh), shard_vector(a["b"], mesh),
+                          maxiter=10)
+    with collective_counts(mesh) as n:
+        next(it)
+    return {k: np.array(v) for k, v in n.items()}
+
+
+def solve(c, a, mesh):
+    """``c["solver"]`` (block_cg, lsqr, lsmr, lobpcg or svdl) on the mesh
+    operator, its results gathered; with the mesh's all-reduces by level on
+    a slice mesh."""
+    op = _operator(c, a, mesh)
+    kw = dict(c.get("kw", {}))
+    name = c["solver"]
+    before = dict(getattr(mesh, "level_counts", {}))
+    if name in ("lsqr", "lsmr", "block_cg", "cg", "gmres"):
+        x, h = getattr(pits, name)(op, shard_vector(a["b"], mesh), log=True,
+                                   **kw)
+        out = {"x": _np(gather_vector(x, mesh)), "iters": np.array(h.iters),
+               "converged": np.array(h.isconverged),
+               # LSMR logs no :resnorm series
+               "resnorm": np.asarray(h.data.get("resnorm", []))}
+        if name in ("lsqr", "lsmr"):
+            out["istop"] = np.array(h["istop"])
+            out.update({k: np.asarray(h[k]) for k in ("rnorm", "anorm")})
+    elif name == "lobpcg":
+        r = pits.lobpcg(op, shard_vector(a["X0"], mesh), log=True, **kw)
+        out = {"lam": _np(r.lam), "X": _np(gather_vector(r.X, mesh)),
+               "iters": np.array(r.iterations),
+               "converged": np.array(r.converged),
+               "resnorms": _np(r.residual_norms),
+               "trace": np.asarray(r.history["resnorm"])}
+    else:
+        (left, s, right), _, h = pits.svdl(
+            op, v0=shard_vector(a["v0"], mesh), vecs="both", log=True, **kw)
+        out = {"values": _np(s), "iters": np.array(h.iters),
+               "converged": np.array(h.isconverged),
+               "left": _np(gather_vector(left, mesh)),
+               "right": _rows(right, mesh),
+               "ritz": np.asarray(h["ritz"])}
+    for level, v in getattr(mesh, "level_counts", {}).items():
+        out[f"allreduce/{level}"] = np.array(v - before[level])
+    return out
+
+
 CASES = {"halo_ops": halo_ops, "interior": interior, "panel": panel,
          "gmres": gmres, "cg": cg, "pipecg": pipecg, "setup": setup,
-         "bjacobi": bjacobi}
+         "bjacobi": bjacobi, "rows": rows, "mesh_ops": mesh_ops,
+         "cg_step": cg_step, "solve": solve}
 
 
 MESHES = {"gloo": ("gloo", lambda r: "cpu"),
@@ -221,11 +318,12 @@ MESHES = {"gloo": ("gloo", lambda r: "cpu"),
           "nccl": ("nccl", lambda r: f"cuda:{r}")}
 
 
-def launch(cases, D, tmp, backend="gloo", timeout=150):
+def launch(cases, D, tmp, backend="gloo", timeout=150, mesh="row"):
     """Run ``cases`` (a list of ``(case, arrays)``) in one launch of D rank
     processes with files under the directory ``tmp``, each process given
-    ``timeout`` seconds; returns each rank's outputs.  A rank that fails or
-    runs out of time fails the launch, with its output."""
+    ``timeout`` seconds, on a ``mesh`` of kind ``"row"`` or ``"slice:SxC"``;
+    returns each rank's outputs.  A rank that fails or runs out of time
+    fails the launch, with its output."""
     tmp = pathlib.Path(tmp)
     arrays = {f"{c['name']}/{k}": v for c, a in cases for k, v in a.items()}
     inp = tmp / "in.npz"
@@ -237,7 +335,8 @@ def launch(cases, D, tmp, backend="gloo", timeout=150):
     procs = [subprocess.Popen(
         [sys.executable, str(pathlib.Path(__file__).resolve()), str(inp),
          str(tmp), str(r), str(D),
-         str(tmp / "rendezvous"), backend], env=env, stdout=subprocess.PIPE,
+         str(tmp / "rendezvous"), backend, mesh], env=env,
+        stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT) for r in range(D)]
     logs = []
     try:
@@ -257,14 +356,19 @@ def launch(cases, D, tmp, backend="gloo", timeout=150):
 
 
 def main(argv):
-    inp, out_dir, rank, world, rendezvous, backend = argv
+    inp, out_dir, rank, world, rendezvous, backend = argv[:6]
+    kind = argv[6] if len(argv) > 6 else "row"
     torch.set_num_threads(1)
     data = np.load(inp)
     cases = json.loads(str(data["cases"]))
     name, device = MESHES[backend]
-    mesh = row_mesh(name, device(int(rank)),
-                    init_method=f"file://{rendezvous}", rank=int(rank),
-                    world_size=int(world), timeout=COLLECTIVE_TIMEOUT)
+    common = dict(init_method=f"file://{rendezvous}", rank=int(rank),
+                  world_size=int(world), timeout=COLLECTIVE_TIMEOUT)
+    if kind == "row":
+        mesh = row_mesh(name, device(int(rank)), **common)
+    else:
+        S, C = (int(v) for v in kind.split(":")[1].split("x"))
+        mesh = slice_mesh(S, C, name, device(int(rank)), **common)
     results = {}
     try:
         for c in cases:

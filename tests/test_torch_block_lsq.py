@@ -17,8 +17,6 @@ complex solve move by up to a few 1e-10).  f32 steps within 2 and x within
 1e-4 relative.
 """
 
-import types
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -386,23 +384,87 @@ def test_block_cg_maxiter_and_iterator(rng):
 
 # ---- LSQR and LSMR ---------------------------------------------------------------
 
-def _mesh_operator():
-    """A matrix operator that says it is row-sharded over two ranks."""
-    op = plo.MatrixOperator(torch.eye(8, dtype=torch.float64))
-    op.mesh = types.SimpleNamespace(size=2)
-    return op
+def _two_rank_cases():
+    """The five block / least-squares / eigen / SVD solvers, each on a
+    row-sharded halo operator (``tests/_torch_dist.py``'s ``solve``):
+    name -> (case, arrays, the JAX operator of the whole matrix)."""
+    A = jfix.laplace_dia(16, 2, dtype=F64)
+    dia = {"kind": "dia", "ndiags": len(A.diags),
+           "offsets": [int(o) for o in A.offsets], "shape": list(A.shape)}
+    diags = {f"diag{i}": np.asarray(d) for i, d in enumerate(A.diags)}
+    adv = jits.advection_diffusion_stencil(8, dtype=F64)
+    st = {"kind": "stencil", "n": int(adv.n), "center": float(adv.center),
+          "terms": [list(t) for t in adv.terms],
+          "coeffs": [float(c) for c in adv.coeffs], "dtype": "float64"}
+    lap = jits.laplacian(16, 2, dtype=F64)
+    lap_st = dict(st, n=int(lap.n), center=float(lap.center),
+                  terms=[list(t) for t in lap.terms],
+                  coeffs=[float(c) for c in lap.coeffs])
+    rng = np.random.default_rng(21)
+    out = {
+        "block_cg": (dia, {**diags, "b": rng.standard_normal((256, 2))},
+                     dict(reltol=1e-10, maxiter=600), A),
+        "lsqr": (st, {"b": np.ones(512)},
+                 dict(atol=1e-10, btol=1e-10, maxiter=300), adv),
+        "lsmr": (st, {"b": np.ones(512)},
+                 dict(atol=1e-10, btol=1e-10, maxiter=300), adv),
+        "lobpcg": (lap_st, {"X0": rng.standard_normal((256, 2))},
+                   dict(largest=False, tol=1e-6, maxiter=400), lap),
+        "svdl": (st, {"v0": rng.standard_normal(512)},
+                 dict(nsv=2, tol=1e-10), adv),
+    }
+    return {name: ({"name": name, "kind": "solve", "op": spec,
+                    "solver": name, "kw": kw}, arrays, J)
+            for name, (spec, arrays, kw, J) in out.items()}
 
 
-@pytest.mark.parametrize("call", [
-    lambda op: pits.block_cg(op, torch.ones(8, 2, dtype=torch.float64)),
-    lambda op: pits.lsqr(op, torch.ones(8, dtype=torch.float64)),
-    lambda op: pits.lsmr(op, torch.ones(8, dtype=torch.float64)),
-    lambda op: pits.lobpcg(op, torch.ones(8, 2, dtype=torch.float64)),
-    lambda op: pits.svdl(op, nsv=2),
-], ids=["block_cg", "lsqr", "lsmr", "lobpcg", "svdl"])
-def test_solvers_on_a_mesh_operator_raise(call):
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        call(_mesh_operator())
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """Rank 0's outputs of the five solvers on D = 2 gloo ranks on the CPU
+    (one launch for the module)."""
+    from _torch_dist import launch
+
+    cases = _two_rank_cases()
+    ranks = launch([(c, a) for c, a, _ in cases.values()], 2,
+                   tmp_path_factory.mktemp("two_ranks"), timeout=150)
+    return {name: {k[len(name) + 1:]: v for k, v in ranks[0].items()
+                   if k.startswith(name + "/")} for name in cases}
+
+
+def _one_device(J):
+    return port_dia(J) if isinstance(J, jits.DIAMatrix) else port_stencil(J)
+
+
+@pytest.mark.parametrize("solver", ["block_cg", "lsqr", "lsmr", "lobpcg",
+                                    "svdl"])
+def test_solvers_run_on_a_two_rank_mesh(two_ranks, solver):
+    """Each of the five solvers on a halo operator row-sharded over D = 2
+    ranks (every Gram, norm and projection allreduced) takes the steps of
+    its one-rank answer, the port's solve on one device, and agrees with it
+    within 1e-10 (values, x; eigenvectors as a subspace, singular values)."""
+    case, arrays, J = _two_rank_cases()[solver]
+    kw = case["kw"]
+    got = two_ranks[solver]
+    one = _one_device(J)
+    if solver == "lobpcg":
+        r = pits.lobpcg(one, to_torch(arrays["X0"]), **kw)
+        assert bool(got["converged"]) and r.converged
+        assert int(got["iters"]) == r.iterations
+        assert rel(got["lam"], to_numpy(r.lam)) <= 1e-10
+        s = np.linalg.svd(got["X"].T @ to_numpy(r.X), compute_uv=False)
+        assert np.abs(s - 1).max() <= 1e-8
+    elif solver == "svdl":
+        s1, _, h1 = pits.svdl(one, v0=to_torch(arrays["v0"]), log=True,
+                              **kw)
+        assert bool(got["converged"]) and h1.isconverged
+        assert int(got["iters"]) == h1.iters
+        assert rel(got["values"], to_numpy(s1)) <= 1e-10
+    else:
+        x, h = getattr(pits, solver)(one, to_torch(arrays["b"]), log=True,
+                                     **kw)
+        assert bool(got["converged"]) and h.isconverged
+        assert int(got["iters"]) == h.iters
+        assert rel(got["x"], to_numpy(x)) <= 1e-10
 
 
 def _lsq_problem(rng, name):

@@ -538,6 +538,60 @@ def test_cuda_ranks_match_one_card(cuda, tmp_path, backend):
 
 
 @pytest.mark.gpu
+def test_cuda_mesh_forms_on_two_ranks_match_one_card(cuda, tmp_path):
+    """Two ranks sharing cuda:0 over gloo: ``mv_rows`` of an (8, n) f32
+    panel through the halo stencil (laplacian(48,3)) launches the stencil
+    kernel once a row a rank with one exchange, each row within 1e-6 of
+    max|y| of one card's ``mv_rows``; block CG with 4 right-hand sides
+    takes one card's steps within 2, X within 1e-4; GMRES(20) on a dense
+    f32 ``DenseMeshOperator`` of odd n (the padded last shard) launches
+    both CGS2 sweeps twice a step and agrees with one card's solve within
+    1e-4."""
+    from _torch_dist import launch
+
+    from iterativesolvers_tpu_torch.ops import _build
+
+    _build.build_all()
+    St = pits.laplacian(48, 3, device=cuda)
+    spec = {"kind": "stencil", "n": St.n, "center": St.center,
+            "terms": [list(t) for t in St.terms], "coeffs": list(St.coeffs),
+            "dtype": "float32"}
+    rng = np.random.default_rng(2)
+    X = rng.standard_normal((8, St.n)).astype(np.float32)
+    B = rng.standard_normal((St.n, 4)).astype(np.float32)
+    n = 1001
+    M = (np.eye(n) * 4.0 + 0.5 * rng.standard_normal((n, n)) / np.sqrt(n)
+         ).astype(np.float32)
+    gkw = {"restart": 20, "reltol": 1e-5, "maxiter": 200}
+    cases = [({"name": "rows", "kind": "rows", "op": spec}, {"X": X}),
+             ({"name": "bcg", "kind": "solve", "op": spec,
+               "solver": "block_cg", "kw": {"reltol": 1e-5}}, {"b": B}),
+             ({"name": "dense", "kind": "gmres", "op": {"kind": "dense"},
+               "kw": gkw}, {"mat": M, "b": np.ones(n, np.float32)})]
+    got = launch(cases, 2, tmp_path, backend="gloo-cuda", timeout=300)
+    Y1 = St.mv_rows(torch.from_numpy(X).to(cuda)).cpu()
+    for r in got:
+        assert int(r["rows/launches"]) == 8 and int(r["rows/permutes"]) == 2
+    assert _close(torch.from_numpy(got[0]["rows/Y"]), Y1, 1e-6)
+    X1, h1 = pits.block_cg(St, torch.from_numpy(B).to(cuda), reltol=1e-5,
+                           log=True)
+    assert bool(got[0]["bcg/converged"]) and h1.isconverged
+    assert abs(int(got[0]["bcg/iters"]) - h1.iters) <= 2
+    X1 = X1.double().cpu().numpy()
+    assert (np.linalg.norm(got[0]["bcg/x"] - X1)
+            <= 1e-4 * np.linalg.norm(X1))
+    x1 = pits.gmres(torch.from_numpy(M).to(cuda),
+                    torch.ones(n, device=cuda), **gkw).double().cpu().numpy()
+    assert bool(got[0]["dense/converged"])
+    calls = int(got[0]["dense/calls/dist_panel_ortho"])
+    assert calls == 20 * (int(got[0]["dense/restarts"]) + 1)
+    assert int(got[0]["dense/calls/panel_dots"]) == 2 * calls
+    assert int(got[0]["dense/calls/panel_update"]) == 2 * calls
+    xd = got[0]["dense/x"].astype(np.float64)
+    assert np.linalg.norm(xd - x1) <= 1e-4 * np.linalg.norm(x1)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["stencil", "dia_f32", "dia_bf16",
                                   "dia_int8"])
 def test_cuda_grid_dot_is_repeatable_within_its_bound(cuda, case):

@@ -188,8 +188,8 @@ def test_convert_operator_from_arrays():
     assert isinstance(P, pits.DIAMatrix) and P.dtype == torch.float32
     assert isinstance(S, pits.StencilOperator) and S.terms == St.terms
     assert S.device == P.device == torch.device(CPU)
-    # "rb_reduced" is a kind since the reduced system was ported; a kind the
-    # port has not got (the row-sharded ELL operator of Queue A item 8)
+    # "rb_reduced" is a kind since the reduced system was ported; a name that
+    # is no kind (a row-sharded ELL operator is an "ell" spec with a mesh)
     with pytest.raises(ValueError, match="unknown operator kind"):
         convert.operator_from_arrays({"kind": "row_sharded_ell"}, device=CPU)
 

@@ -355,7 +355,9 @@ CARRY_INPUTS = {
 def test_carry_across_matches_jax(kind):
     """operator_from_arrays builds each format from the JAX operator's
     numpy arrays: the same arrays (adjoints included), the same products;
-    bf16 values stay bf16."""
+    bf16 values stay bf16.  With a mesh an ELL matrix is the
+    ``RowShardedELLOperator``; the other formats have no row-sharded
+    form."""
     jop = CARRY_INPUTS[kind]()
     spec = sparse_spec(jop)
     pop = convert.operator_from_arrays(spec, device=CPU)
@@ -368,8 +370,26 @@ def test_carry_across_matches_jax(kind):
         jinner = jop.adj.ell if kind.startswith("hyb") else jop.adj
         _equal_arrays(inner, jinner, ("data", "cols"))
     _check_products(jop, pop, np.random.default_rng(2), np.float64)
-    with pytest.raises(ValueError, match="row-sharded"):
-        convert.operator_from_arrays(spec, mesh=object())
+    if kind.startswith("ell"):
+        # an ELL matrix has a row-sharded form: on a one-rank mesh it is the
+        # one-device operator's products
+        from iterativesolvers_tpu_torch.parallel import (RowMesh,
+                                                         RowShardedELLOperator)
+
+        mop = convert.operator_from_arrays(spec, mesh=RowMesh(0, 1, CPU,
+                                                              "gloo"))
+        assert isinstance(mop, RowShardedELLOperator)
+        assert (mop.local_adj is None) == ("adjoint" not in kind)
+        x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            pop.shape[1]))
+        y = torch.from_numpy(np.random.default_rng(4).standard_normal(
+            pop.shape[0]))
+        assert torch.equal(mop.mv(x), pop.mv(x))
+        torch.testing.assert_close(mop.rmv(y), pop.rmv(y), rtol=1e-14,
+                                   atol=1e-14)
+    else:
+        with pytest.raises(ValueError, match="row-sharded"):
+            convert.operator_from_arrays(spec, mesh=object())
 
 
 @pytest.mark.parametrize("fixture", ["laplace_matrix_coo", "random_sparse",
