@@ -112,7 +112,7 @@ Phases, in order; any failed check raises and the script exits non-zero:
     eigenvalues; ILU(0) GMRES(20) (natural, multicolor) at 100^3 and IC(0)
     GMRES(20) on a ``.mtx`` Laplacian; the six stationary variants on the
     10k sprand matrix and Gauss-Seidel / SOR(1.1), natural and multicolor,
-    at 216^3 against f64 sweeps; two rank processes on the card over gloo
+    at 100^3 against f64 sweeps; two rank processes on the card over gloo
     (started early, building while the card works) running CG with the
     shard-local block-Jacobi IC(0) against one card's IC(0) of the same
     block-diagonal matrix (built and run by a third process), and the
@@ -132,15 +132,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
     the 100^3 gradient's ELL (with its adjoint and with the reduce-scatter
     adjoint) through ``RowShardedELLOperator``; GMRES(20) on an 8191 x 8191
     dense f32 ``DenseMeshOperator`` (the padded last shard, the CGS2
-    kernels) with its witness; CG through ``shard_dia`` (the halo DIA
-    operator itself) and through ``shard_ell`` (the ELL operator itself)
-    beside one card's CG on the same ELL matrix; then four ranks
-    (``--slice-rank``) on a (2, 2) ``slice_mesh`` run CG at 216^3 with its
-    all-reduces counted at both levels.  Each run against the same run on
-    one card made in the phase, its f64 or analytic reference and true
-    residual, with its launches, collectives a step, ms a step and the
-    ranks' set-up seconds; ``measure_bandwidth``'s triad beside the data
-    sheet's 3.35 TB/s.
+    kernels) with its witness; CG through ``shard_dia`` (the row-sharded
+    DIA matrix, the DIA kernel a rank) and through ``shard_ell`` (the ELL
+    operator itself) beside one card's CG on the same ELL matrix; on the
+    sharded 216^3 DIA ``gershgorin_bounds`` (bit for bit), 24 Chebyshev
+    steps with them and, after ``compress_values`` to bf16 and int8, 24 CG
+    steps through the kernel's bf16 and int8 instances; at 100^3 Jacobi
+    sweeps and 24 CG steps with IC(0) multicolor built from the sharded
+    matrix; ``shard_ell(E).to_csr()`` of the scrambled pick against one
+    card's.  Then four ranks (``--slice-rank``) on a (2, 2) ``slice_mesh``
+    run CG at 216^3 with its all-reduces counted at both levels, and on a
+    row mesh over the same ranks 24 CG steps on the two-field coupled f32
+    DIA at 2 x 216^3, whose coupling reads lie two blocks away (the ranged
+    fetch); beside them ``graft_entry_torch.dryrun_multichip(4)`` over
+    gloo, and ``graft_entry_torch.entry()``'s CG step on the card.  Each
+    run against the same run on one card made in the phase (a 24-step run
+    also against its control one step short), its f64 or analytic
+    reference and true residual, with its launches, collectives a step, ms
+    a step and the ranks' set-up seconds; ``measure_bandwidth``'s triad
+    beside the data sheet's 3.35 TB/s.
 
 It prints one ``{"kernels": [...]}`` line and, last, ``{"ok": true, ...}``.
 It imports no JAX and nothing of the JAX package.
@@ -156,6 +166,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SIDE = 216
 RELTOL = 1e-5
@@ -430,6 +441,8 @@ CG_TRACE = 248
 GM_RESTART = 20
 GM_LONG, GM_SHORT = 500, 240      # bench.py's differential: 25 and 12 cycles
 GM_TRACE = 2 * GM_RESTART         # steps of a traced GMRES(20) twin: 2 cycles
+GM_TIMED = 2                      # timed solves of each length
+AB_TIMED = 1                      # phase 10's, a pass of A B B A
 # Witness limits (phase 8): each kernel route against the same solve with
 # the kernels routed off.  Over the first cycle the residual estimates agree
 # within WITNESS_EST_REL of the largest and x within WITNESS_X_REL on both
@@ -833,14 +846,14 @@ def gmres_main_path(torch, its, gm, counters, ops, b, true_res, rel_diff,
     spread = gmres_rounding_spread(torch, gm, counters, routes, solve,
                                    true_res, rel_diff, runs, b)
     # the step is host-bound and its host time varies from solve to solve:
-    # 3 solves of each length, and the mean step of the 500-step solve
-    # beside the differential
+    # GM_TIMED solves of each length, and the mean step of the 500-step
+    # solve beside the differential
     per_iter, per_step = {}, {}
     for name, (op, panel) in routes.items():
         t_long = timed(f"gmres {name} maxiter={GM_LONG}",
-                       lambda: solve(op, GM_LONG, panel), 1, 3)
+                       lambda: solve(op, GM_LONG, panel), 1, GM_TIMED)
         t_short = timed(f"gmres {name} maxiter={GM_SHORT}",
-                        lambda: solve(op, GM_SHORT, panel), 1, 3)
+                        lambda: solve(op, GM_SHORT, panel), 1, GM_TIMED)
         per_iter[name] = (t_long - t_short) / (GM_LONG - GM_SHORT) * 1e3
         per_step[name] = t_long / GM_LONG * 1e3
     out = {"gmres_us_per_iter": per_iter,
@@ -913,9 +926,9 @@ def gmres_fused_ab(torch, gm, counters, St, solve, timed):
             f.launches = 0
         with routed(gm, **decisions):
             t_long = timed(f"ab {name} {GM_LONG}",
-                           lambda: solve(St, GM_LONG, panel), 1, 2)
+                           lambda: solve(St, GM_LONG, panel), 1, AB_TIMED)
             t_short = timed(f"ab {name} {GM_SHORT}",
-                            lambda: solve(St, GM_SHORT, panel), 1, 2)
+                            lambda: solve(St, GM_SHORT, panel), 1, AB_TIMED)
         launched = {f.__name__: f.launches for f in counters}
         if not launched[kernel] or launched[
                 {"fused_arnoldi": "stencil_panel_mv",
@@ -980,7 +993,7 @@ def gmres_trace(torch, solve, routes, samples):
 DIST_RANKS = 2
 DIST_COLLECTIVE_TIMEOUT = 300     # seconds a collective may wait
 DIST_TIMEOUT = 900                # seconds the ranks may take in all
-DIST_REPS = 2                     # timed solves of each length
+DIST_REPS = 1                     # timed solves of each length
 # the 500-step f32 route against the same solve with the two sweeps routed
 # to their plain versions on the card: WITNESS_RES_FACTOR, WITNESS_X_REL.
 # The converging solves against their distributed witness: +-1 step and
@@ -1428,6 +1441,10 @@ def check_ranks(torch, its, ranks, xs, secs, true_res, rel_diff, refs):
 # beside the JAX package's own.
 KRYLOV_MAXITER = 1000
 KRYLOV_CAP = 248
+# the recorded runs on the Laplacian that f32 leaves rounding-bound
+# (pipelined CG, IDR(8)): 504 steps, a whole number of the chunked loop's
+# phases
+KRYLOV_RECORDED = 504
 POWM_STEPS = 248
 # solver: (true relative residual, |x - x64| / |x64|) of the JAX package's
 # own f32 solve of the 216^3 Laplacian with b = 1
@@ -1532,10 +1549,12 @@ def krylov_cases(torch, its, St, Ad):
                                             **conv), Sh, b1, Sh64,
             "stencil_apply", one, "shifted"),
         "pipelined_cg stencil": (
-            lambda op: its.pipelined_cg(op, b1, maxiter=K, **conv), St, b1,
+            lambda op: its.pipelined_cg(op, b1, maxiter=KRYLOV_RECORDED,
+                                        **conv), St, b1,
             A64, "stencil_apply", lambda s: 1 + s, "recorded"),
         "idrs(8) stencil": (
-            lambda op: its.idrs(op, b1, s=8, maxiter=K, **conv), St, b1, A64,
+            lambda op: its.idrs(op, b1, s=8, maxiter=KRYLOV_RECORDED,
+                                **conv), St, b1, A64,
             "stencil_apply", one, "recorded"),
         "qmr advection stencil": (
             lambda op: its.qmr(op, b_adv, maxiter=KRYLOV_CAP, log=True), Adv,
@@ -2923,8 +2942,12 @@ JAX_STAT = {
             0.104113042, 0.212031081, 0.209497362, 0.163337871, 0.14269501,
             0.171273038, 0.166741103, 0.152120918, 0.132912904, 0.127769142,
             0.164338589))}
-# the sweeps at 216^3 on the variable-diffusion CSR against the same sweeps
-# in f64 on the card (a contraction: f32 rounding stays near eps a sweep)
+# the sweeps at STAT_SIDE^3 on the variable-diffusion CSR (PW_FIXTURE)
+# against the same sweeps in f64 on the card (a contraction: f32 rounding
+# stays near eps a sweep).  At 216^3 the four public calls each rebuilt the
+# 10M-row split on the host (9-11 s a call, 73 s of the phase): 100^3
+# keeps the script inside its time
+STAT_SIDE = 100
 STAT_216_X_REL = 1e-5
 # runs whose step holds hundreds of levels of the eager sweep (thousands of
 # launches) are not traced as solves (a GMRES trace takes a whole cycle,
@@ -3364,7 +3387,7 @@ class PrecondPhase:
             self.ilu_gmres()
             self.mtx_gmres(tmp)
             self.stationary_sprand()
-            self.stationary_216(A)
+            self.stationary_grid()
             # the card to the ranks, then to the one-card reference
             (tmp / "p16go").touch()
             finish(procs[:DIST_RANKS],
@@ -3739,23 +3762,33 @@ class PrecondPhase:
                   and bool(torch.isfinite(x).all()))
             self.record(f"stationary sprand {name}", row, ok)
 
-    def stationary_216(self, A):
+    def stationary_grid(self):
         """gauss_seidel and sor(1.1), natural and multicolor, 20 sweeps on
-        the 216^3 variable-diffusion CSR through the public calls; the same
-        sweeps in f64 on the card (the f32 split's level arrays and colors
-        with f64 values)."""
+        the STAT_SIDE^3 variable-diffusion CSR through the public calls;
+        the same sweeps in f64 on the card (the f32 split's level arrays and
+        colors with f64 values)."""
+        import numpy as np
+
         torch, its = self.torch, self.its
         from iterativesolvers_tpu_torch.ops.triangular import (
             LevelScheduledTriangular)
         from iterativesolvers_tpu_torch.solvers import stationary as pst
+        from iterativesolvers_tpu_torch.utils.fixtures import (
+            variable_diffusion)
 
-        C = self.built("to_csr 216^3 variable diffusion", A.to_csr)
+        side = STAT_SIDE
+        A = self.built(f"variable_diffusion({side}, 3) f32",
+                       lambda: variable_diffusion(
+                           side, 3, dtype=np.float32, device=self.dev,
+                           **PW_FIXTURE))
+        C = self.built(f"to_csr {side}^3 variable diffusion", A.to_csr)
+        del A
         n = C.shape[0]
         b = torch.ones(n, device=self.dev)
-        split = self.built("stationary split natural 216^3",
+        split = self.built(f"stationary split natural {side}^3",
                            lambda: pst._split_matrix(
                                C, need_lower_solve=True))
-        color, nc = self.built("greedy coloring 216^3",
+        color, nc = self.built(f"greedy coloring {side}^3",
                                lambda: pst._color_classes(C))
         color = torch.from_numpy(color).to(self.dev)
         lo = split.lower_solve
@@ -3767,7 +3800,7 @@ class PrecondPhase:
             lower_mv=split.lower_mv.astype(torch.float64),
             upper_mv=split.upper_mv.astype(torch.float64),
             lower_solve=lo64)
-        print(f"  stationary {PW_SIDE}^3: {lo.nlevels} levels a natural "
+        print(f"  stationary {side}^3: {lo.nlevels} levels a natural "
               f"sweep, level arrays {lo.nbytes / 1e6:.1f} MB (f32), "
               f"{nc} colors", flush=True)
         x0 = torch.zeros(n, device=self.dev)
@@ -3817,10 +3850,10 @@ class PrecondPhase:
                                            / lo.nlevels)
                 ok = (d64 <= STAT_216_X_REL and not c and syncs == 0
                       and row["public_equals_split"])
-                self.record(f"stationary {method} {ordering} {PW_SIDE}^3",
+                self.record(f"stationary {method} {ordering} {side}^3",
                             row, ok)
         self.apply_timing(
-            f"level sweep (lower solve) natural {PW_SIDE}^3",
+            f"level sweep (lower solve) natural {side}^3",
             lambda: lo.solve(b), stream_bytes(
                 [lo.rows, lo.cols, lo.vals, lo.diag], [b, b]),
             levels=lo.nlevels)
@@ -3912,6 +3945,53 @@ MESH_REPS = 5                      # timed mv_rows panels
 # that of one card's CG on the same ELL matrix; GMRES on the dense
 # operator as phase 12's.
 MESH_X_REL = 1e-6
+# (a) the two-field coupled DIA at 2 x 216^3 on a row mesh of the four
+# slice ranks: each field laplace_dia(216, 3) + 0.6 I, the fields coupled by
+# 0.5 at +-216^3 (SPD, lambda_min >= 0.1, kappa ~ 130), b normal from seed
+# COUPLED_SEED; (b) the routes of a stored matrix on the two mesh ranks.
+# Each run is ROUTE_STEPS = 24 steps at reltol = 0 (phases of 8 and 16 of
+# the chunked loop), held against the same run on one card: x within
+# ROUTE_X_REL, the one-card run through the kernel's plain version (torch's
+# sums and dot: an order that changes only rounding) within it too, the
+# run one step short (the control) outside it, and the DIA kernel's
+# launches a rank one card's.  Over 24 CG steps at 216^3 the in-launch
+# dot's grid (half the rows a rank) alone moves x by up to 5.5e-6 (bf16
+# diagonals on an H100), above MESH_X_REL; the witness moves it by up to
+# 2.4e-5, the controls by 4e-3 to 8e-2 (PERF.md)
+ROUTE_X_REL = 5e-5
+COUPLED_SEED = 1711
+COUPLED_SHIFT, COUPLING = 0.6, 0.5
+ROUTE_STEPS = 24
+ROUTE_SIDE = 100               # Jacobi and IC(0): a global CSR on the host
+JACOBI_SWEEPS = 8
+
+
+def coupled_dia(its, dev):
+    """The two-field coupled f32 DIA matrix at 2 x 216^3 on ``dev``
+    (field-major: rows [0, N) the first field, [N, 2N) the second)."""
+    import numpy as np
+    import torch
+
+    from iterativesolvers_tpu_torch.utils.fixtures import laplace_dia
+
+    L = laplace_dia(SIDE, 3, dtype=np.float32, device=dev)
+    N = L.shape[0]
+    field = [torch.cat([d, d]) + (COUPLED_SHIFT if o == 0 else 0.0)
+             for d, o in zip(L.diags, L.offsets)]
+    zero = torch.zeros(N, device=dev)
+    half = torch.full((N,), COUPLING, device=dev)
+    return its.DIAMatrix([torch.cat([zero, half]), *field,
+                          torch.cat([half, zero])], (-N, *L.offsets, N),
+                         (2 * N, 2 * N), device=dev)
+
+
+def coupled_rhs(n, dev):
+    """The coupled run's b: normal from COUPLED_SEED, drawn whole on
+    ``dev`` (every rank draws the same bits and keeps its rows)."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(COUPLED_SEED)
+    return torch.randn(n, generator=g, device=dev)
 
 
 def dia_as_ell(its, A):
@@ -4004,12 +4084,15 @@ class MeshRank:
         Hs = self.built("halo stencil 216^3", lambda: self.halo(St))
         if slice_only:
             self.cg_runs(Hs, ())
+            del Hs
+            self.coupled()
             return self.res, self.xs
         self.rows_and_block(St, Hs)
         self.eigen_svd_lsq(St, Hs)
         self.ell_runs()
         self.dense_gmres()
         self.cg_runs(Hs, ("dia", "ell"))
+        self.sharded_routes()
         return self.res, self.xs
 
     def halo(self, St):
@@ -4162,6 +4245,12 @@ class MeshRank:
 
         Es = self.built("ell scrambled 1M", lambda: RowShardedELLOperator(
             ell("scr"), mesh))
+        # its whole CSR form on every rank (rank 0's kept for the check)
+        csr = self.built("scrambled to_csr", Es.to_csr)
+        if mesh.rank == 0:
+            self.xs["scrambled csr"] = {k: getattr(csr, k).cpu() for k in
+                                        ("data", "indices", "indptr")}
+        del csr
         b = torch.ones(Es.local.shape[0], device=self.dev)
         x, h = self.timed("cg ell scrambled", lambda: its.cg(
             Es, b, reltol=FS_RELTOL, maxiter=FS_MAXITER, log=True),
@@ -4205,12 +4294,13 @@ class MeshRank:
 
     def cg_runs(self, Hs, shards):
         """CG on the 216^3 stencil (the slice mesh's run, and the two-rank
-        one it is held against); h. CG through shard_dia / shard_ell, which
-        return the halo DIA and ELL operators themselves: one run serves
-        each and its counterpart."""
-        from iterativesolvers_tpu_torch.parallel import (HaloDIAOperator,
-                                                         RowShardedELLOperator,
+        one it is held against); h. CG through shard_dia (the row-sharded
+        DIA matrix, the DIA kernel a rank) and shard_ell (the ELL operator
+        itself: one run serves it and its counterpart)."""
+        from iterativesolvers_tpu_torch.parallel import (RowShardedELLOperator,
                                                          shard_dia, shard_ell)
+        from iterativesolvers_tpu_torch.parallel.sharded import (
+            RowShardedDIAMatrix)
         from iterativesolvers_tpu_torch.solvers.common import chunked_steps
 
         torch, its, mesh = self.torch, self.its, self.mesh
@@ -4218,8 +4308,9 @@ class MeshRank:
         ops = [("cg stencil", Hs)]
         if "dia" in shards:
             Hd = self.built("shard_dia 216^3", lambda: shard_dia(self.A, mesh))
-            if type(Hd) is not HaloDIAOperator:
+            if type(Hd) is not RowShardedDIAMatrix:
                 raise AssertionError(f"shard_dia gave {type(Hd).__name__}")
+            self.As = Hd
             ops.append(("cg shard_dia", Hd))
             del Hd
         if "ell" in shards:
@@ -4238,6 +4329,74 @@ class MeshRank:
             self.history(name, h)
             self.keep(name, x)
             del x
+
+
+    def steps(self, name, solve, **extra):
+        """A ROUTE_STEPS run of ``solve()`` -> (x, history), kept."""
+        from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+        x, h = self.timed(name, solve, lambda o: chunked_steps(o[1].iters))
+        self.history(name, h, **extra)
+        self.keep(name, x)
+
+    def sharded_routes(self):
+        """b. the routes of a stored matrix on shard_dia(laplace_dia(216,
+        3)) (``self.As``, CG's above): gershgorin_bounds, Chebyshev with
+        them, compress_values to bf16 and int8 with CG through the kernel's
+        bf16 and int8 instances; at 100^3 Jacobi sweeps and CG with IC(0)
+        multicolor built from the sharded matrix (each a global CSR on the
+        host)."""
+        import numpy as np
+
+        from iterativesolvers_tpu_torch.parallel import shard_dia
+        from iterativesolvers_tpu_torch.utils.fixtures import laplace_dia
+
+        torch, its, mesh = self.torch, self.its, self.mesh
+        As = self.As
+        bounds = its.gershgorin_bounds(As)
+        self.res["gershgorin shard_dia"] = list(bounds)
+        b = torch.ones(As.n_local, device=self.dev)
+        self.steps("chebyshev shard_dia", lambda: its.chebyshev(
+            As, b, *bounds, reltol=0.0, maxiter=ROUTE_STEPS, log=True))
+        for label, dt in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+            C = its.compress_values(As, dt)
+            self.steps(f"cg shard_dia {label}", lambda: its.cg(
+                C, b, reltol=0.0, maxiter=ROUTE_STEPS, log=True),
+                type=type(C).__name__, dtype=str(C.dtype))
+            del C
+        del self.As, As
+        A100 = shard_dia(laplace_dia(ROUTE_SIDE, 3, dtype=np.float32,
+                                     device=self.dev), mesh)
+        b = torch.ones(A100.n_local, device=self.dev)
+        x = self.timed(f"jacobi shard_dia {ROUTE_SIDE}^3", lambda: its.jacobi(
+            A100, b, maxiter=JACOBI_SWEEPS), lambda _: JACOBI_SWEEPS)
+        self.keep(f"jacobi shard_dia {ROUTE_SIDE}^3", x)
+        P = self.built(f"ic0 multicolor from shard_dia {ROUTE_SIDE}^3",
+                       lambda: its.ICPreconditioner.from_operator(
+                           A100, ordering="multicolor"))
+        self.steps(f"cg ic0 shard_dia {ROUTE_SIDE}^3", lambda: its.cg(
+            A100, b, Pl=P, reltol=0.0, maxiter=ROUTE_STEPS, log=True))
+
+    def coupled(self):
+        """a. CG on the two-field coupled DIA at 2 x 216^3 on a row mesh of
+        the four slice ranks (over the same process group): each rank's
+        coupling reads lie two blocks away (one coupling diagonal reads
+        rank r +- 2's block, the other falls outside the matrix)."""
+        from iterativesolvers_tpu_torch.parallel import row_mesh, shard_dia
+
+        torch, its = self.torch, self.its
+        slices, self.mesh = self.mesh, row_mesh("gloo", self.dev)
+        try:
+            A = self.built("coupled dia 2 x 216^3", lambda: shard_dia(
+                coupled_dia(its, self.dev), self.mesh))
+            torch.cuda.empty_cache()
+            b = coupled_rhs(A.shape[0], self.dev)[A.row_lo:A.row_lo
+                                                   + A.n_local].clone()
+            self.steps("cg coupled", lambda: its.cg(
+                A, b, reltol=0.0, maxiter=ROUTE_STEPS, log=True),
+                fetch_mb_per_product=A._plan.volume(self.mesh.rank) * 4 / 1e6)
+        finally:
+            self.mesh = slices
 
 
 def dense_matrix(torch, dev):
@@ -4316,9 +4475,11 @@ class MeshPhase:
         return float(torch.linalg.vector_norm(r)
                      / torch.linalg.vector_norm(b.double()))
 
-    def record(self, name, ranks, ok, as_name=None, **row):
+    def record(self, name, ranks, ok, as_name=None, dia="f32", **row):
         """The run's row (under ``as_name``, by default ``name``): rank 0's
-        record beside ``row``; the ranks must agree on the steps."""
+        record beside ``row``; the ranks must agree on the steps.  Its
+        launches go under their kernel, the DIA kernel's under its
+        ``kernels`` entry (``dia``: the diagonals' dtype)."""
         r0 = ranks[0][name]
         same = all(r[name].get("iters") == r0.get("iters") for r in ranks)
         row = {**{k: v for k, v in r0.items() if k != "lam"}, **row,
@@ -4330,6 +4491,8 @@ class MeshPhase:
             flush=True)
         self.rows[name] = row
         for kernel, count in r0["launches"].items():
+            if kernel.startswith("dia_spmv"):
+                kernel = f"{kernel}[{dia} diagonals]"
             self.launches.setdefault(kernel, {})[name] = count
         if not (ok and same):
             self.bad.append(name)
@@ -4375,19 +4538,28 @@ class MeshPhase:
             print(f"  {MESH_RANKS} ranks took {secs:.1f} s", flush=True)
             (pathlib.Path(stmp) / "go").touch()
             t_go = time.perf_counter()
-            sranks, sxs, ssecs = wait_ranks(torch, sprocs, st0, stmp,
-                                            "slice")
-            ssecs = time.perf_counter() - t_go
+            # graft_entry_torch's dry run: four more ranks beside the slice
+            # mesh's, over gloo on this card
+            with ThreadPoolExecutor(1) as pool:
+                dry = pool.submit(self.dryrun)
+                sranks, sxs, ssecs = wait_ranks(torch, sprocs, st0, stmp,
+                                                "slice")
+                ssecs = time.perf_counter() - t_go
+                dry = dry.result()
         print(f"  {SLICE[0] * SLICE[1]} ranks took {ssecs:.1f} s after the "
               "go", flush=True)
         dev = self.x64.device
+        scr_csr = xs.pop("scrambled csr")
         xs = {k: v.to(dev) for k, v in xs.items()}
         sxs = {k: v.to(dev) for k, v in sxs.items()}
         self.check_rows_block(ranks, xs)
         self.check_eigen_svd_lsq(ranks, xs)
-        self.check_ell(ranks, xs)
+        self.check_ell(ranks, xs, scr_csr)
         self.check_dense(ranks, xs)
         self.check_cg(ranks, xs, sranks, sxs)
+        self.check_routes(ranks, xs)
+        self.check_coupled(sranks, sxs)
+        self.check_graft(dry)
         self.bandwidth()
         out = {"ranks_s": secs, "slice_ranks_s": ssecs,
                "rank_setup_s": [r["setup_s"] for r in ranks],
@@ -4541,9 +4713,21 @@ class MeshPhase:
                         x_rel_diff_one_card=d1, control_x_rel_diff=ctl,
                         expected_launches=want)
 
-    def check_ell(self, ranks, xs):
-        """e. CG on the scrambled ELL pick; LSQR on the gradient's ELL."""
+    def check_ell(self, ranks, xs, scr_csr):
+        """e. CG on the scrambled ELL pick; LSQR on the gradient's ELL; the
+        sharded pick's to_csr() against one card's."""
         torch, its = self.torch, self.its
+        one = self.ell_scr.to_csr()
+        same = all(torch.equal(scr_csr[k], getattr(one, k).cpu())
+                   for k in ("data", "indices", "indptr"))
+        self.rows["shard_ell to_csr scrambled"] = {
+            "equal": same, "nnz": one.nnz,
+            "s": ranks[0]["setup_s"]["scrambled to_csr"]}
+        print(f"  shard_ell(scrambled).to_csr() equal to one card's: {same} "
+              f"({one.nnz} entries)", flush=True)
+        if not same:
+            self.bad.append("shard_ell to_csr scrambled")
+        del one, scr_csr
         b = torch.ones(self.ell_scr.shape[0], device="cuda")
         x1, h1 = self.timed("cg ell scrambled", lambda: its.cg(
             self.ell_scr, b, reltol=FS_RELTOL, maxiter=FS_MAXITER, log=True))
@@ -4658,7 +4842,8 @@ class MeshPhase:
         held("cg stencil", sranks, sxs["cg stencil"], slice_held,
              as_name=f"cg stencil slice_mesh{SLICE}",
              two_rank_iters=two["iters"])
-        held("cg shard_dia", ranks, xs["cg shard_dia"])
+        held("cg shard_dia", ranks, xs["cg shard_dia"],
+             lambda r: r["launches"] == {"dia_spmv_dot": r["steps_run"]})
         # shard_ell's twin: the same ELL matrix's CG on one card
         E1 = dia_as_ell(self.its, self.A)
         xe, he = self.timed("cg ell 216^3", lambda: self.its.cg(
@@ -4670,6 +4855,153 @@ class MeshPhase:
              and self.rel(xs["cg shard_ell"], xe) <= 2 * X_F64_REL,
              one_card_ell_iters=he.iters,
              x_rel_diff_one_card_ell=self.rel(xs["cg shard_ell"], xe))
+
+    def counted(self, label, fn):
+        """fn() on one card (timed) and its launches of the DIA kernel."""
+        from iterativesolvers_tpu_torch.ops.cuda_spmv import (dia_spmv,
+                                                              dia_spmv_dot)
+
+        dia_spmv.launches = dia_spmv_dot.launches = 0
+        out = self.timed(label, fn)
+        return out, {f.__name__: f.launches for f in (dia_spmv, dia_spmv_dot)
+                     if f.launches}
+
+    def route_held(self, name, ranks, x, solve, op, dia="f32", **row):
+        """The ROUTE_STEPS run ``name`` against ``solve(op, steps)`` on one
+        card: x within ROUTE_X_REL, and so the witness (the one-card run
+        on the kernel's plain version), the one-card run one step short
+        outside it, the DIA kernel's launches a rank one card's."""
+        from iterativesolvers_tpu_torch.ops.cuda_spmv import dia_spmv_plain
+
+        its = self.its
+        plain = its.FunctionOperator(
+            lambda v: dia_spmv_plain(op.diags, op.offsets, v), op.shape,
+            self.torch.float32, device=op.device)
+        x1, want = self.counted(name, lambda: solve(op, ROUTE_STEPS))
+        xw, none = self.counted(f"{name} witness",
+                                lambda: solve(plain, ROUTE_STEPS))
+        ctl = self.one_step_short(name, lambda m: solve(op, m), x1,
+                                  ROUTE_STEPS)
+        d1, dw = self.rel(x, x1), self.rel(xw, x1)
+        ok = (max(d1, dw) <= ROUTE_X_REL < ctl and not none
+              and bool(self.torch.isfinite(x).all()) and want
+              and all(r[name]["launches"] == want for r in ranks)
+              and all(r[name].get("iters", ROUTE_STEPS) == ROUTE_STEPS
+                      for r in ranks))
+        self.record(name, ranks, ok, dia=dia, x_rel_diff_one_card=d1,
+                    witness_x_rel_diff_one_card=dw, control_x_rel_diff=ctl,
+                    limit=ROUTE_X_REL, expected_launches=want, **row)
+
+    def check_routes(self, ranks, xs):
+        """b. the routes on shard_dia(laplace_dia(216, 3)) and at 100^3
+        against one card's."""
+        import numpy as np
+
+        from iterativesolvers_tpu_torch.utils.fixtures import laplace_dia
+
+        torch, its, A = self.torch, self.its, self.A
+        bounds = its.gershgorin_bounds(A)
+        got = tuple(ranks[0]["gershgorin shard_dia"])
+        same = all(tuple(r["gershgorin shard_dia"]) == bounds for r in ranks)
+        self.rows["gershgorin shard_dia"] = {"bounds": got, "one_card":
+                                             bounds, "equal": same}
+        print(f"  gershgorin_bounds shard_dia {got}, one card {bounds}",
+              flush=True)
+        if not same:
+            self.bad.append("gershgorin shard_dia")
+        b = torch.ones(A.shape[0], device="cuda")
+
+        def cg(op, m, **kw):
+            return its.cg(op, b, reltol=0.0, maxiter=m, **kw)
+
+        self.route_held("chebyshev shard_dia", ranks,
+                        xs["chebyshev shard_dia"],
+                        lambda op, m: its.chebyshev(op, b, *bounds,
+                                                    reltol=0.0, maxiter=m),
+                        A)
+        for label, dt in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+            name = f"cg shard_dia {label}"
+            C = its.compress_values(A, dt)
+            same = all(r[name]["dtype"] == str(C.dtype)
+                       and r[name]["type"] == "RowShardedDIAMatrix"
+                       for r in ranks)
+            self.route_held(name, ranks, xs[name], cg, C, dia=label)
+            if not same:
+                self.bad.append(f"{name} dtype")
+            del C
+        A100 = laplace_dia(ROUTE_SIDE, 3, dtype=np.float32, device="cuda")
+        b = torch.ones(A100.shape[0], device="cuda")
+        name = f"jacobi shard_dia {ROUTE_SIDE}^3"
+        x1 = self.timed(name, lambda: its.jacobi(A100, b,
+                                                 maxiter=JACOBI_SWEEPS))
+        d1 = self.rel(xs[name], x1)
+        self.record(name, ranks, d1 <= MESH_X_REL, x_rel_diff_one_card=d1)
+        P = self.timed(f"ic0 multicolor {ROUTE_SIDE}^3",
+                       lambda: its.ICPreconditioner.from_operator(
+                           A100, ordering="multicolor"))
+        name = f"cg ic0 shard_dia {ROUTE_SIDE}^3"
+        self.route_held(name, ranks, xs[name],
+                        lambda op, m: its.cg(op, b, reltol=0.0, maxiter=m,
+                                             Pl=P), A100)
+        del A100, P
+
+    def check_coupled(self, sranks, sxs):
+        """a. CG on the coupled 2 x 216^3 DIA on the four ranks against one
+        card's: the fetch's MB a product and ms a step recorded."""
+        A = coupled_dia(self.its, "cuda")
+        b = coupled_rhs(A.shape[0], "cuda")
+        self.route_held("cg coupled", sranks, sxs["cg coupled"],
+                        lambda op, m: self.its.cg(op, b, reltol=0.0,
+                                                  maxiter=m), A,
+                        n=A.shape[0], fetch_mb_per_product_ranks=[
+                            r["cg coupled"]["fetch_mb_per_product"]
+                            for r in sranks])
+        del A
+
+    def dryrun(self):
+        """graft_entry_torch.dryrun_multichip(4) over gloo on this card:
+        its record, or the error it raised."""
+        import graft_entry_torch
+
+        t0 = time.perf_counter()
+        try:
+            rec = graft_entry_torch.dryrun_multichip(4, backend="gloo")
+        except Exception as e:             # held in check_graft
+            return {"error": repr(e)[-6000:]}
+        return {"runs": rec, "s": time.perf_counter() - t0}
+
+    def check_graft(self, dry):
+        """graft_entry_torch: entry()'s CG step on this card (one launch of
+        the DIA kernel with its dot, finite), and the dry run's ranks, each
+        run within its true-residual limit."""
+        import graft_entry_torch
+        from iterativesolvers_tpu_torch.ops.cuda_spmv import dia_spmv_dot
+
+        fn, args = graft_entry_torch.entry()
+        dia_spmv_dot.launches = 0
+        st = fn(*args)
+        self.torch.cuda.synchronize()
+        launches = dia_spmv_dot.launches
+        # the same step on the CPU (the kernel's plain version)
+        fn_cpu, args_cpu = graft_entry_torch.entry("cpu")
+        d = self.rel(st.x.cpu(), fn_cpu(*args_cpu).x)
+        ok = (launches == 1 and bool(self.torch.isfinite(st.x).all())
+              and d <= TOL_Y_F32)
+        self.rows["graft_entry_torch entry"] = {
+            "dia_spmv_dot_launches": launches,
+            "x_rel_diff_cpu": d, "limit": TOL_Y_F32,
+            "residual_after_one_step": float(st.residual)}
+        self.rows["graft_entry_torch dryrun_multichip(4, gloo)"] = dry
+        print(f"  graft_entry_torch: entry() {ok} (launches {launches}, x "
+              f"{d:.3e} from the CPU's step); "
+              f"dryrun_multichip(4, gloo) "
+              f"{'failed: ' + dry['error'] if 'error' in dry else 'ok'} "
+              f"in {dry.get('s', 0):.1f} s", flush=True)
+        if not ok:
+            self.bad.append("graft_entry_torch entry")
+        if "error" in dry or not all(
+                r["true_residual"] <= r["limit"] for r in dry["runs"].values()):
+            self.bad.append("graft_entry_torch dryrun_multichip")
 
     def bandwidth(self):
         """j. measure_bandwidth on the card beside the data sheet's."""
@@ -4748,9 +5080,15 @@ def main():
     from iterativesolvers_tpu_torch.solvers.common import chunked_steps
     from iterativesolvers_tpu_torch.utils.fixtures import laplace_dia
 
+    last = {"label": "phases 1-2", "t": t_start}
+
     def clock(label):
-        """The script's seconds so far, before ``label``."""
-        print(f"[{time.perf_counter() - t_start:.1f} s] {label}", flush=True)
+        """The script's seconds so far, before ``label``, and the seconds
+        of the phase before it."""
+        now = time.perf_counter()
+        print(f"[{now - t_start:.1f} s] {label} ({last['label']} took "
+              f"{now - last['t']:.1f} s)", flush=True)
+        last.update(label=label, t=now)
 
     # ---- 1. card ----------------------------------------------------------
     smi = subprocess.run(
@@ -5261,11 +5599,16 @@ def main():
     # phase 17's launches by run (rank 0's; every rank's are held), joined
     # to the kernels entries by kernel: the stencil kernel (with and without
     # its dot: one counter) and the two CGS2 sweeps
+    # and the DIA kernel's instances on the row-sharded DIA matrix (with
+    # its dot: CG; without: Chebyshev), under their entries' names
     p17_keys = {"stencil_apply": "stencil_apply",
                 "panel_dots[f32 panel]": "panel_dots",
-                "panel_update[f32 panel]": "panel_update"}
-    if not set(p17) <= set(p17_keys.values()) or not {
-            "stencil_apply", "panel_dots", "panel_update"} <= set(p17):
+                "panel_update[f32 panel]": "panel_update",
+                **{k: k for k in ("dia_spmv_dot[f32 diagonals]",
+                                  "dia_spmv_dot[bf16 diagonals]",
+                                  "dia_spmv_dot[int8 diagonals]",
+                                  "dia_spmv[f32 diagonals]")}}
+    if set(p17) != set(p17_keys.values()):
         raise AssertionError(f"phase 17 launched {sorted(p17)}, expected "
                              f"{sorted(p17_keys.values())}")
     for k in kernels:
@@ -5281,6 +5624,7 @@ def main():
                                 "fused_vs_two_kernels_us_per_iter": ab,
                                 "trace": gtrace}}))
     print(json.dumps({"distributed": dout}))
+    clock("the records")
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,6 +13,12 @@ triangular sweeps (``ops/triangular.py``); the red-black ones
 shifted multiply-adds over full-length vectors (:func:`shift_sum`).  Like
 the JAX package, they read the device back only while they are built (the
 symmetry and breakdown checks), never in an apply.
+
+Built from a row-sharded DIA or ELL matrix (``parallel/sharded.py``), the
+incomplete factorizations factor its whole CSR form and the red-black IC
+its whole diagonals, as the JAX package does with its sharded matrix; their
+``ldiv`` then takes this rank's rows, gathers the whole vector once and
+returns this rank's rows of the result.
 """
 
 from __future__ import annotations
@@ -174,13 +180,30 @@ def _parity_red(n, axes, device):
     return (p % 2) == 0
 
 
+def _gathered(mesh, x, axis):
+    """The whole vector (panel along ``axis``) of this rank's rows ``x``
+    on a mesh (one all-gather); ``x`` itself without one."""
+    return x if mesh is None else mesh.gather_rows(x.contiguous(), axis)
+
+
+def _own(mesh, y, axis):
+    """This rank's rows of the whole ``y`` on a mesh; ``y`` without one."""
+    if mesh is None:
+        return y
+    lo, hi = mesh.rows(y.shape[axis])
+    return y.narrow(axis, lo, hi - lo)
+
+
 def _unit_step_dia(dia, side: int, dims: int):
     """Check the unit-step contract of a DIA matrix on a side^dims grid and
-    return ``(n, offsets without 0, {offset: diagonal})``."""
+    return ``(n, offsets without 0, {offset: diagonal})``, the diagonals
+    whole (a row-sharded matrix's gathered)."""
     from .sparse import DIAMatrix
 
     if not isinstance(dia, DIAMatrix):
         raise TypeError("from_dia wraps a DIAMatrix")
+    if dia.mesh is not None:
+        dia = dia.unsharded()
     n = dia.shape[0]
     if side**dims != n:
         raise ValueError(f"side^dims = {side**dims} != n = {n}")
@@ -247,9 +270,13 @@ class _TriangularPair(Preconditioner):
     return the promoted solve dtype (the sweeps promote x with the factor
     dtype), as the JAX package's ``ILUPreconditioner.ldiv`` does."""
 
-    def __init__(self, lower_solve, upper_solve, perm=None, inv=None):
+    def __init__(self, lower_solve, upper_solve, perm=None, inv=None,
+                 mesh=None):
         self.lower_solve = lower_solve
         self.upper_solve = upper_solve
+        # built from a row-sharded matrix: ldiv maps this rank's rows to its
+        # rows of the whole solve
+        self.mesh = mesh
         dev = lower_solve.device
         self.perm = None if perm is None else torch.as_tensor(
             perm).to(device=dev, dtype=torch.int64)
@@ -266,12 +293,13 @@ class _TriangularPair(Preconditioner):
         return max(self.lower_solve.nlevels, self.upper_solve.nlevels)
 
     def _apply(self, x, axis):
+        x = _gathered(self.mesh, x, axis)
         if self.perm is not None:
             x = torch.index_select(x, axis, self.perm)
         y = self.upper_solve.solve(self.lower_solve.solve(x))
         if self.perm is not None:
             y = torch.index_select(y, axis, self.inv)
-        return y
+        return _own(self.mesh, y, axis)
 
     def ldiv(self, x):
         return self._apply(x, 0)
@@ -336,7 +364,7 @@ class ILUPreconditioner(_TriangularPair):
         upper = LevelScheduledTriangular.from_csr(
             *sorted_part(rows, indices, umask, n), f[umask],
             f[dmask], lower=False, device=dev)
-        return cls(lower, upper, perm, inv)
+        return cls(lower, upper, perm, inv, mesh=getattr(A, "mesh", None))
 
     @classmethod
     def block_jacobi(cls, A, nblocks: int, device=None) -> "ILUPreconditioner":
@@ -357,9 +385,11 @@ class ILUPreconditioner(_TriangularPair):
         blockdiag = CSRMatrix.from_coo(rows[keep], cols[keep],
                                        csr.data.cpu()[torch.from_numpy(keep)],
                                        csr.shape, device="cpu")
-        return cls.from_operator(blockdiag,
-                                 device=csr.device if device is None
-                                 else device)
+        pre = cls.from_operator(blockdiag,
+                                device=csr.device if device is None
+                                else device)
+        pre.mesh = getattr(A, "mesh", None)
+        return pre
 
 
 class ICPreconditioner(_TriangularPair):
@@ -409,7 +439,7 @@ class ICPreconditioner(_TriangularPair):
         upper = LevelScheduledTriangular.from_csr(
             *_host_csr(lcols[strict], lrows[strict], np.conj(g[strict]), n),
             gdiag, lower=False, device=dev)
-        return cls(lower, upper, perm, inv)
+        return cls(lower, upper, perm, inv, mesh=getattr(A, "mesh", None))
 
 
 class RedBlackICPreconditioner(Preconditioner):
@@ -440,12 +470,13 @@ class RedBlackICPreconditioner(Preconditioner):
     ``shift*I`` to the operator before factorization.
     """
 
-    def __init__(self, terms, mcs, center, s_inv, red):
+    def __init__(self, terms, mcs, center, s_inv, red, mesh=None):
         self.terms = terms          # ((offset, stride, extent), ...)
         self.mcs = mcs              # (n,) pre-masked coefficient per term
         self.center = center
         self.s_inv = s_inv          # (n,) 1/sqrt(diag of L)^2 pointwise
         self.red = red              # (n,) bool parity mask
+        self.mesh = mesh            # from a row-sharded matrix (see above)
 
     @property
     def device(self):
@@ -520,13 +551,14 @@ class RedBlackICPreconditioner(Preconditioner):
                 "red-black IC(0) breakdown: non-positive pivot; increase "
                 "`shift`")
         return cls(tuple(terms), tuple(mcs), center,
-                   1.0 / torch.sqrt(e_vec), red)
+                   1.0 / torch.sqrt(e_vec), red, mesh=dia.mesh)
 
     def _shift_sum(self, u, axis: int = 0):
         """sum_o mc_o * shift(u, o) along the length-n ``axis``."""
         return shift_sum([o for (o, _, _) in self.terms], self.mcs, u, axis)
 
     def _apply(self, x, axis):
+        dtype, x = x.dtype, _gathered(self.mesh, x, axis)
         s, red = self.s_inv, self.red
         if x.ndim == 2:
             s, red = ((s[:, None], red[:, None]) if axis == 0
@@ -539,7 +571,7 @@ class RedBlackICPreconditioner(Preconditioner):
         # with v = z_b at black slots
         v = torch.where(red, 0, y * s)
         z = torch.where(red, (y - s * self._shift_sum(v, axis)) * s, y * s)
-        return z.to(x.dtype)
+        return _own(self.mesh, z.to(dtype), axis)
 
     def ldiv(self, x):
         """P^{-1} x of a 1-D x or each column of an (n, k) x, in x's dtype."""

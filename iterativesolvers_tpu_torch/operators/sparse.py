@@ -924,16 +924,24 @@ def values_representable(A, dtype) -> bool:
     graph Laplacians with small-integer weights) typically store values that
     are exact in bfloat16 — for those matrices :func:`compress_values` is a
     pure bandwidth optimization with zero numerical effect, since every
-    SpMV product promotes back to the vector dtype before accumulating."""
+    SpMV product promotes back to the vector dtype before accumulating.
+
+    A row-sharded matrix (``parallel/sharded.py``) checks this rank's rows
+    and reduces the verdict over its mesh, so every rank decides alike."""
     dt = as_dtype(dtype)
+    ok = True
     for w in _host_value_arrays(A):
-        if w.dtype.is_complex and not dt.is_complex:
-            # complex -> real narrowing drops imaginary parts; never treat
-            # it as representable
-            return False
-        if not torch.equal(w.to(dt).to(w.dtype), w):
-            return False
-    return True
+        # complex -> real narrowing drops imaginary parts; never treat it
+        # as representable
+        if (w.dtype.is_complex and not dt.is_complex) or not torch.equal(
+                w.to(dt).to(w.dtype), w):
+            ok = False
+            break
+    mesh = getattr(A, "mesh", None)
+    if mesh is not None:
+        bad = torch.tensor([0.0 if ok else 1.0], device=mesh.device)
+        ok = float(mesh.all_reduce(bad, op="max")) == 0.0
+    return ok
 
 
 def compress_values(A, dtype=None, require_exact: bool = True):
@@ -949,7 +957,9 @@ def compress_values(A, dtype=None, require_exact: bool = True):
 
     The matvec output dtype is unaffected: products promote to
     ``promote(value_dtype, x.dtype)``, so f32 solves stay f32 end to end
-    while the dominant stream (the matrix values) narrows."""
+    while the dominant stream (the matrix values) narrows.  A row-sharded
+    matrix stays row-sharded, the choice made alike on every rank
+    (:func:`values_representable`)."""
     if dtype is None:
         for cand in (torch.int8, torch.bfloat16):
             if values_representable(A, cand):

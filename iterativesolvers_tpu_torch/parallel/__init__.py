@@ -1,7 +1,8 @@
 """Multi-device distribution over ``torch.distributed`` (port of
 ``iterativesolvers_tpu/parallel``): 1-D and ``(slice, chip)`` meshes of
-ranks, row-partitioned halo, ELL and dense operators, the sharded-panel
-CGS2 of distributed GMRES and the shard-local block-Jacobi ILU(0) / IC(0)
+ranks, row-partitioned halo, ELL and dense operators, the row-sharded DIA
+and ELL matrices of ``shard_dia`` / ``shard_ell``, the sharded-panel CGS2
+of distributed GMRES and the shard-local block-Jacobi ILU(0) / IC(0)
 preconditioner."""
 
 from .panel_ortho import (

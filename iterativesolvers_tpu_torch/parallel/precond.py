@@ -28,7 +28,7 @@ import torch
 from ..operators.preconditioners import (ICPreconditioner, ILUPreconditioner,
                                          Preconditioner)
 from ..operators.sparse import CSRMatrix, DIAMatrix
-from .sharded import RowMesh
+from .sharded import RowMesh, RowShardedDIAMatrix, RowShardedELLOperator
 
 __all__ = ["ShardedBlockJacobiPreconditioner"]
 
@@ -37,13 +37,25 @@ def _diagonal_block(A, lo: int, hi: int) -> CSRMatrix:
     """Rows and columns ``[lo, hi)`` of ``A`` as a CSR matrix on the host:
     a DIA matrix's diagonals sliced to the block's rows (its columns off the
     block drop out as columns off a matrix do), anything else through its
-    CSR form."""
+    CSR form.  A row-sharded DIA or ELL matrix holds this rank's rows, which
+    are the block's rows: no collective."""
     nloc = hi - lo
+    if isinstance(A, (RowShardedDIAMatrix, RowShardedELLOperator)) and (
+            A.mesh.rows(A.shape[0]) != (lo, hi)):
+        raise ValueError("the row-sharded matrix holds other rows than the "
+                         "block's: build it on the same mesh")
+    if isinstance(A, RowShardedDIAMatrix):
+        return DIAMatrix(list(A.diags), A.offsets, (nloc, nloc),
+                         device="cpu").to_csr()
     if isinstance(A, DIAMatrix):
         return DIAMatrix([d[lo:hi] for d in A.diags], A.offsets,
                          (nloc, nloc), device="cpu").to_csr()
-    csr = A if isinstance(A, CSRMatrix) else A.to_csr()
+    if isinstance(A, RowShardedELLOperator):
+        csr, first = A.local.to_csr(), lo
+    else:
+        csr, first = (A if isinstance(A, CSRMatrix) else A.to_csr()), 0
     r, c, _ = csr._host_coo()
+    r = r + first
     keep = (r >= lo) & (r < hi) & (c >= lo) & (c < hi)
     return CSRMatrix.from_coo(r[keep] - lo, c[keep] - lo,
                               csr.data.cpu()[torch.from_numpy(keep)],
@@ -90,7 +102,9 @@ class ShardedBlockJacobiPreconditioner(Preconditioner):
     def ilu(cls, A, mesh: RowMesh, *, ordering: str = "natural"):
         """Shard-local block-Jacobi ILU(0) (nonsymmetric apply).  ``A`` is
         the whole matrix (a ``DIAMatrix``, a ``CSRMatrix`` or another stored
-        format, on any device); each rank takes its diagonal block."""
+        format, on any device) or its row-sharded form on ``mesh``
+        (``shard_dia`` / ``shard_ell``); each rank takes its diagonal
+        block."""
         return cls._build(ILUPreconditioner.from_operator, A, mesh, ordering)
 
     @classmethod

@@ -25,14 +25,21 @@ levels: within each slice, then across the slices.
 matrix's arrays row-sharded under GSPMD and lets XLA partition the ordinary
 product: the shifted reads of a DIA product lower to collective-permutes,
 the gather of an ELL product to an all-gather of x
-(``tests/test_hlo_collectives.py``).  ``torch.distributed`` has no
-partitioner, so here they return the operators that issue exactly those
-collectives, :class:`HaloDIAOperator` and :class:`RowShardedELLOperator`;
-the ordinary solvers take them unchanged.  Where D does not divide n the
-JAX package's ``device_put`` raises ``ValueError`` (an uneven
-``NamedSharding``), and so do they.  One case differs: a DIA halo wider
-than a rank's block, which GSPMD partitions and ``HaloDIAOperator``
-refuses (``ValueError``: use fewer ranks).
+(``tests/test_hlo_collectives.py``).  The result is still a ``DIAMatrix`` /
+``ELLMatrix`` and works wherever one does.  ``torch.distributed`` has no
+partitioner, so here they return :class:`RowShardedDIAMatrix` and
+:class:`RowShardedELLOperator`, subclasses of the port's ``DIAMatrix`` and
+``ELLMatrix`` that hold this rank's rows and issue those collectives
+themselves: a DIA product fetches the ranges of x its offsets read from the
+ranks that own them (:meth:`RowMesh.fetch`, any number of blocks away, any
+rectangular shape), an ELL product all-gathers x.  What the JAX package
+hands back whole (``diagonal()``, ``to_csr()``, ``to_dense()``, ``data``)
+every rank gets whole, by one gather; a route that needs a whole vector (a
+global triangular sweep) gathers it once and keeps this rank's rows of the
+result.  Where D does not divide n (and m) the JAX package's ``device_put``
+raises ``ValueError`` (an uneven ``NamedSharding``), and so do they.
+:class:`HaloDIAOperator` stays the port of the JAX package's explicit halo
+operator, which refuses a halo wider than a block as that one does.
 """
 
 from __future__ import annotations
@@ -46,8 +53,11 @@ import torch.distributed as dist
 from ..operators.linear_operator import LinearOperator
 from ..operators.sparse import DIAMatrix, ELLMatrix
 from ..operators.stencil import StencilOperator, _conj
+from ..ops.cuda_spmv import (dia_spmv, dia_spmv_dot, dia_spmv_plain,
+                             dia_spmv_rows)
 from ..ops.cuda_stencil import stencil_apply, stencil_apply_rows
 from ..utils.convert import host_tensor
+from ..utils.dtypes import as_dtype
 
 __all__ = [
     "RowMesh",
@@ -66,7 +76,12 @@ __all__ = [
 ]
 
 # the collectives a mesh issues, counted by kind in ``RowMesh.counts``
-COLLECTIVES = ("exchange", "all_reduce", "all_gather", "reduce_scatter")
+COLLECTIVES = ("exchange", "fetch", "all_reduce", "all_gather",
+               "reduce_scatter")
+
+_REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+# moved as bytes by the all-gather (gloo has no such element type)
+_AS_BYTES = (torch.bfloat16, torch.int8, torch.bool)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -78,6 +93,66 @@ def row_block(n: int, D: int, rank: int):
     nloc = -(-int(n) // int(D))
     lo = min(rank * nloc, n)
     return lo, min(lo + nloc, n)
+
+
+def _merge(intervals):
+    """The union of half-open ``(lo, hi)`` intervals as disjoint maximal
+    ones, ascending."""
+    out = []
+    for u, v in sorted(intervals):
+        if out and u <= out[-1][1]:
+            out[-1] = (out[-1][0], max(out[-1][1], v))
+        else:
+            out.append((u, v))
+    return out
+
+
+class FetchPlan:
+    """Which ranges of a source vector each rank of a DIA product reads
+    outside its own block, and from whom.
+
+    The product's output rows are partitioned as an ``n_out``-vector over
+    D ranks, its source as an ``n_src``-vector (``row_block``); output row
+    i reads source entry ``i + s`` for each ``shift`` s, and nothing
+    outside ``[0, n_src)``.  ``need[r]`` holds the maximal ranges rank r
+    reads outside its own source block; ``parts(r, s)`` the pieces of them
+    that rank s owns.  Everything follows from ``(n_out, n_src, D,
+    shifts)``, so every rank knows what every other rank needs."""
+
+    def __init__(self, n_out: int, n_src: int, D: int, shifts):
+        self.n_out, self.n_src, self.D = int(n_out), int(n_src), int(D)
+        self.shifts = tuple(sorted({int(s) for s in shifts}))
+        self.need = [self._need(r) for r in range(self.D)]
+
+    def src_block(self, r):
+        return row_block(self.n_src, self.D, r)
+
+    def _need(self, r):
+        a, b = row_block(self.n_out, self.D, r)
+        lo, hi = self.src_block(r)
+        ivs = []
+        for s in self.shifts:
+            u, v = max(a + s, 0), min(b + s, self.n_src)
+            if u < min(v, lo):
+                ivs.append((u, min(v, lo)))
+            if max(u, hi) < v:
+                ivs.append((max(u, hi), v))
+        return _merge(ivs)
+
+    def owners(self, u, v):
+        """The ranks whose source blocks meet ``[u, v)``, ascending."""
+        nloc = -(-self.n_src // self.D)
+        return range(u // nloc, min((v - 1) // nloc, self.D - 1) + 1)
+
+    def parts(self, r, s):
+        """The pieces of ``need[r]`` in rank s's source block, ascending."""
+        lo, hi = self.src_block(s)
+        return [(max(u, lo), min(v, hi)) for u, v in self.need[r]
+                if max(u, lo) < min(v, hi)]
+
+    def volume(self, r):
+        """Entries rank r receives a product."""
+        return sum(v - u for u, v in self.need[r])
 
 
 class RowMesh:
@@ -105,13 +180,13 @@ class RowMesh:
         """``(lo, hi)``: this rank's global rows of a length-n vector."""
         return row_block(n, self.size, self.rank)
 
-    def all_reduce(self, t):
-        """Sum ``t`` over the ranks, in place; returns ``t``.  Every rank
-        gets the same bits, so replicated state computed from the result
-        agrees across ranks."""
+    def all_reduce(self, t, op: str = "sum"):
+        """Reduce ``t`` over the ranks in place (``op`` "sum" or "max");
+        returns ``t``.  Every rank gets the same bits, so replicated state
+        computed from the result agrees across ranks."""
         if self.size > 1:
             self.counts["all_reduce"] += 1
-            dist.all_reduce(t)
+            dist.all_reduce(t, op=_REDUCE_OPS[op])
         return t
 
     def _host(self, t):
@@ -150,20 +225,74 @@ class RowMesh:
 
     def all_gather(self, t):
         """``t`` of every rank, in rank order (equal shapes on all ranks),
-        on ``t``'s device."""
+        on ``t``'s device.  Types that gloo does not reduce (bfloat16, int8,
+        bool) travel as their bytes."""
         if self.size == 1:
             return [t]
+        if t.dtype in _AS_BYTES:
+            return [o.view(t.dtype) for o in self.all_gather(
+                t.contiguous().view(torch.uint8))]
         self.counts["all_gather"] += 1
         src = self._host(t)
         out = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(out, src)
         return [o.to(t.device) for o in out]
 
-    def gather_rows(self, t):
-        """The whole vector (or row panel along axis 0) from every rank's
+    def gather_rows(self, t, axis: int = 0):
+        """The whole vector (or panel along ``axis``) from every rank's
         equal-sized block ``t``: one all-gather (``all_gather(tiled=True)``
         in the JAX package)."""
-        return torch.cat(self.all_gather(t))
+        return torch.cat(self.all_gather(t), dim=axis)
+
+    def fetch(self, t, plan: "FetchPlan", axis: int = 0):
+        """The ranged fetch of a DIA product: this rank's block ``t`` of a
+        vector (or panel along ``axis``) partitioned as ``plan.n_src``
+        gives every rank the ranges of it that ``plan`` says that rank
+        reads outside its own block, from whichever ranks own them, in one
+        ``batch_isend_irecv``: each rank sends each other rank one buffer,
+        the ranges it needs from this block in order, each range once.
+        Every rank derives every other rank's ranges from the plan, so no
+        sizes travel.  Returns this rank's ``[(lo, hi, values)]``, the
+        maximal global ranges it reads outside its block, ascending (what
+        GSPMD's collective-permutes move for the JAX package's
+        ``DIAMatrix.mv``).  On gloo a CUDA tensor travels through host
+        buffers (``_host``)."""
+        if self.size == 1:
+            return []
+        self.counts["fetch"] += 1
+        me, own = self.rank, plan.src_block(self.rank)
+        ops = []
+        for r in range(self.size):
+            parts = plan.parts(r, me)
+            if r != me and parts:
+                buf = self._host(torch.cat(
+                    [t.narrow(axis, u - own[0], v - u) for u, v in parts],
+                    dim=axis))
+                ops.append(dist.P2POp(dist.isend, buf, r))
+        recv = {}
+        host = self.backend == "gloo" and t.device.type == "cuda"
+        for s in range(self.size):
+            parts = plan.parts(me, s)
+            if s != me and parts:
+                shape = list(t.shape)
+                shape[axis] = sum(v - u for u, v in parts)
+                recv[s] = torch.empty(shape, dtype=t.dtype,
+                                      device="cpu" if host else t.device)
+                ops.append(dist.P2POp(dist.irecv, recv[s], s))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        at = dict.fromkeys(recv, 0)
+        out = []
+        for u, v in plan.need[me]:
+            segs = []
+            for s in plan.owners(u, v):
+                a, b = plan.src_block(s)
+                w = min(v, b) - max(u, a)
+                segs.append(recv[s].narrow(axis, at[s], w))
+                at[s] += w
+            out.append((u, v, torch.cat(segs, dim=axis).to(t.device)))
+        return out
 
     def reduce_scatter(self, t):
         """Sum ``t`` (``size * nloc`` rows along axis 0, the same shape on
@@ -218,7 +347,7 @@ class SliceMesh(RowMesh):
         return (f"SliceMesh(rank={self.rank}, shape={self.shape}, "
                 f"device={self.device}, backend={self.backend!r})")
 
-    def all_reduce(self, t):
+    def all_reduce(self, t, op: str = "sum"):
         for level, group, width in (("chip", self._chip_group,
                                      self.chips_per_slice),
                                     ("slice", self._slice_group,
@@ -226,7 +355,7 @@ class SliceMesh(RowMesh):
             if width > 1:
                 self.counts["all_reduce"] += 1
                 self.level_counts[level] += 1
-                dist.all_reduce(t, group=group)
+                dist.all_reduce(t, op=_REDUCE_OPS[op], group=group)
         return t
 
 
@@ -312,12 +441,12 @@ def shard_vector(v, mesh: RowMesh):
     return t[lo:hi].to(mesh.device, copy=True)
 
 
-def shard_dia(A: DIAMatrix, mesh: RowMesh) -> "HaloDIAOperator":
-    """A DIA matrix row-sharded on the mesh, for the ordinary solvers: the
-    :class:`HaloDIAOperator` of ``A``, whose product exchanges the halos as
-    the collective-permutes XLA places for the JAX package's GSPMD form
-    (module docstring).  ``ValueError`` where D does not divide n."""
-    return HaloDIAOperator(A, mesh)
+def shard_dia(A: DIAMatrix, mesh: RowMesh) -> "RowShardedDIAMatrix":
+    """A DIA matrix row-sharded on the mesh (the JAX package's
+    ``shard_dia``): the :class:`RowShardedDIAMatrix` of ``A``, each rank
+    its rows of the diagonals on its device, any offsets, square or
+    rectangular.  ``ValueError`` where D does not divide both dimensions."""
+    return RowShardedDIAMatrix.from_whole(A, mesh)
 
 
 def shard_ell(A: ELLMatrix, mesh: RowMesh) -> "RowShardedELLOperator":
@@ -358,6 +487,206 @@ class _MeshOperator(LinearOperator):
     def mv_dot(self, x):
         y = self.mv(x)
         return y, self.mesh.all_reduce(torch.sum(x.conj() * y))
+
+
+def _check_even(shape, D):
+    if shape[0] % D or shape[1] % D:
+        raise ValueError(f"shape {tuple(shape)} must divide evenly over {D} "
+                         "devices")
+
+
+def _window(t, lo, pieces, u, v):
+    """Global entries ``[u, v)`` of a row-partitioned vector (or panel
+    along axis 0) from this rank's block ``t`` (rows from ``lo``) and the
+    fetched ``pieces``; 0 where neither holds them (outside the vector)."""
+    out = t.new_zeros((v - u,) + tuple(t.shape[1:]))
+    for a, b, vals in [(lo, lo + t.shape[0], t), *pieces]:
+        p, q = max(a, u), min(b, v)
+        if p < q:
+            out[p - u:q - u] = vals[p - a:q - a]
+    return out
+
+
+class RowShardedDIAMatrix(_MeshOperator, DIAMatrix):
+    """A DIA matrix whose diagonals are row-sharded over a mesh: the JAX
+    package's ``shard_dia`` result, which is a ``DIAMatrix`` and works
+    wherever one does, so this is a :class:`DIAMatrix` too.
+
+    Rank r holds rows ``[r n/D, (r+1) n/D)`` of every diagonal (``diags``)
+    on the mesh's device; a product's x is its block of the m columns, y
+    its block of the n rows, and any offsets and any (n, m) with D dividing
+    both are taken.  A product fetches the ranges of x its offsets read
+    outside the rank's block (:meth:`RowMesh.fetch`, one batch of sends and
+    receives, from any number of blocks away) and computes the rest from
+    the block alone: on a square matrix with a 1-D f32 x and f32, bf16 or
+    int8 diagonals that interior is the DIA kernel on the block
+    (``dia_spmv`` / ``dia_spmv_dot`` / ``dia_spmv_rows``, which read 0
+    outside it, as ``DIAMatrix`` dispatches), on anything else its plain
+    version; diagonals with no read inside the block stay out of it.  The
+    fetched reads are added after (the boundary terms), and ``mv_dot``
+    adds their share to the kernel's dot of the interior before the
+    all-reduce.  ``rmv`` is the product of the adjoint, a row-sharded DIA
+    matrix of offsets ``-o`` built at the first call (one fetch a
+    diagonal).  ``diagonal()``, ``to_csr()``, ``to_dense()``, ``data`` and
+    :meth:`unsharded` are whole on every rank (one all-gather);
+    ``astype`` stays sharded."""
+
+    def __init__(self, diags, offsets, shape, mesh: RowMesh):
+        n, m = int(shape[0]), int(shape[1])
+        D = mesh.size
+        _check_even((n, m), D)
+        self.mesh = mesh
+        self._shape = (n, m)
+        self.offsets = tuple(int(o) for o in offsets)
+        self.diags = tuple(_as_tensor(d).to(mesh.device).contiguous()
+                           for d in diags)
+        self.n_local, self.m_local = n // D, m // D
+        if any(d.shape != (self.n_local,) for d in self.diags):
+            raise ValueError(f"each diagonal needs this rank's {self.n_local}"
+                             " rows")
+        self.row_lo = mesh.rank * self.n_local
+        self.col_lo = mesh.rank * self.m_local
+        self._plan = FetchPlan(n, m, D, self.offsets)
+        # the block's own offsets, and the diagonals that read inside it
+        shift = self.row_lo - self.col_lo
+        self._inner = tuple((k, off + shift)
+                            for k, off in enumerate(self.offsets)
+                            if -self.n_local < off + shift < self.m_local)
+        self._adjoint = None
+
+    @classmethod
+    def from_whole(cls, A: DIAMatrix, mesh: RowMesh):
+        """This rank's rows of the whole matrix ``A`` (on any device)."""
+        _check_even(A.shape, mesh.size)
+        lo, hi = mesh.rows(A.shape[0])
+        return cls([d[lo:hi].to(mesh.device, copy=True) for d in A.diags],
+                   A.offsets, A.shape, mesh)
+
+    # -- whole on every rank ---------------------------------------------------
+    def unsharded(self) -> DIAMatrix:
+        """The whole matrix on this rank's device: one all-gather."""
+        whole = self.mesh.gather_rows(torch.stack(self.diags, dim=1))
+        return DIAMatrix(list(whole.T), self.offsets, self._shape,
+                         device=self.device)
+
+    @property
+    def data(self):
+        """(ndiag, n), whole (one all-gather)."""
+        return self.unsharded().data
+
+    def diagonal(self):
+        """(main diagonal, ``d != 0``) whole on every rank (one all-gather of
+        the main diagonal), as ``DIAMatrix.diagonal``."""
+        if 0 not in self.offsets:
+            return DIAMatrix.diagonal(self)
+        d = self.mesh.gather_rows(self.diags[self.offsets.index(0)])
+        d = d[:min(self._shape)]
+        return d, d != 0
+
+    def to_csr(self):
+        return self.unsharded().to_csr()
+
+    def to_dense(self):
+        return self.unsharded().to_dense()
+
+    def astype(self, dtype) -> "RowShardedDIAMatrix":
+        """This rank's diagonals in ``dtype``, still sharded (no
+        collective)."""
+        dt = as_dtype(dtype)
+        return RowShardedDIAMatrix([d.to(dt) for d in self.diags],
+                                   self.offsets, self._shape, self.mesh)
+
+    # -- products -------------------------------------------------------------
+    def _interior(self, x, u=None, rows=False):
+        """The block's own product (reads outside it 0): the DIA kernel's
+        wrappers (their plain version on a CPU tensor) where ``DIAMatrix``
+        would take them, else ``dia_spmv_plain``; with ``u`` the kernel's
+        ``(y, <u, y>)``; ``rows``: x is a (k, m_local) panel for
+        ``dia_spmv_rows``."""
+        ds = [self.diags[k] for k, _ in self._inner]
+        offs = [o for _, o in self._inner]
+        if not ds:
+            dt = torch.promote_types(self.dtype, x.dtype)
+            shape = ((x.shape[0], self.n_local) if rows
+                     else (self.n_local,) + tuple(x.shape[1:]))
+            y = torch.zeros(shape, dtype=dt, device=x.device)
+            return (y, y.new_zeros(())) if u is not None else y
+        if rows:
+            return dia_spmv_rows(ds, offs, x)
+        if self._use_kernel(x):
+            if u is not None:
+                return dia_spmv_dot(ds, offs, x, u)
+            return dia_spmv(ds, offs, x)
+        return dia_spmv_plain(ds, offs, x)
+
+    def _add_fetched(self, y, pieces, axis=0, u=None):
+        """Add each diagonal's reads of the fetched ``pieces`` to y (rows
+        along ``axis``); with ``u``, returns ``<u, the additions>``."""
+        dot = None
+        for d, off in zip(self.diags, self.offsets):
+            a = self.row_lo + off
+            for p, q, t in pieces:
+                lo, hi = max(a, p), min(a + self.n_local, q)
+                if lo >= hi:
+                    continue
+                dd = d[lo - a:hi - a].to(y.dtype)
+                if y.ndim == 2:
+                    dd = dd[:, None] if axis == 0 else dd[None, :]
+                delta = dd * t.narrow(axis, lo - p, hi - lo)
+                y.narrow(axis, lo - a, hi - lo).add_(delta)
+                if u is not None:
+                    part = torch.sum(u.narrow(axis, lo - a, hi - lo).conj()
+                                     * delta)
+                    dot = part if dot is None else dot + part
+        return dot
+
+    def mv(self, x):
+        pieces = self.mesh.fetch(x, self._plan)
+        y = self._interior(x)
+        self._add_fetched(y, pieces)
+        return y
+
+    def mv_dot(self, x):
+        if not self._use_kernel(x):
+            return super().mv_dot(x)
+        pieces = self.mesh.fetch(x, self._plan)
+        y, dot = self._interior(x, u=x)
+        extra = self._add_fetched(y, pieces, u=x)
+        if extra is not None:
+            dot = dot + extra
+        return y, self.mesh.all_reduce(dot)
+
+    def mv_rows(self, Xr):
+        """Row-panel product of the (k, m_local) panel ``Xr``: one fetch of
+        the panel's column ranges, the kernel once a row on the block
+        (``dia_spmv_rows``) where ``DIAMatrix`` takes it, else the product
+        of the columns ``Xr.T``."""
+        if not self._use_kernel(Xr, ndim=2):
+            return self.mv(Xr.T).T
+        pieces = self.mesh.fetch(Xr, self._plan, axis=1)
+        Y = self._interior(Xr, rows=True)
+        self._add_fetched(Y, pieces, axis=1)
+        return Y
+
+    def _adjoint_matrix(self) -> "RowShardedDIAMatrix":
+        """A^H as a row-sharded DIA matrix: diagonal ``-o`` holds
+        ``conj(A[j - o, j])`` at row j, this rank's rows fetched once a
+        diagonal."""
+        if self._adjoint is None:
+            n, m = self._shape
+            a, b = self.mesh.rows(m)
+            diags = []
+            for d, off in zip(self.diags, self.offsets):
+                pieces = self.mesh.fetch(d, FetchPlan(m, n, self.mesh.size,
+                                                      (-off,)))
+                diags.append(_window(d, self.row_lo, pieces, a - off,
+                                     b - off).conj())
+            self._adjoint = RowShardedDIAMatrix(
+                diags, [-o for o in self.offsets], (m, n), self.mesh)
+        return self._adjoint
+
+    def rmv(self, x):
+        return self._adjoint_matrix().mv(x)
 
 
 def _halo_slices(mesh, x, halo):
@@ -668,42 +997,54 @@ class HaloStencilOperator(_MeshOperator):
         return Y.contiguous()
 
 
-class RowShardedELLOperator(_MeshOperator):
-    """Row-partitioned product of an unstructured ELL matrix.
+class RowShardedELLOperator(_MeshOperator, ELLMatrix):
+    """Row-partitioned product of an unstructured ELL matrix: the JAX
+    package's ``shard_ell`` result (an ``ELLMatrix`` whose panels are
+    row-sharded), so an :class:`ELLMatrix` too.
 
     A row block may read any entry of x, so ``mv`` all-gathers x (one
-    collective) and runs the ELL product of this rank's rows (the eager
-    ``ELLMatrix`` gather, sum and product).  A rectangular (m, n) operator
-    takes x sharded by its n columns and gives y sharded by its m rows; both
-    must divide over the ranks.  ``rmv`` runs the same product on this
-    rank's rows of the precomputed adjoint (``ELLMatrix.with_adjoint``), or
-    without one sums its rows' contributions into a full-length partial and
-    reduce-scatters it: one reduce-scatter, never an all-reduce of the
-    whole output.
+    collective) and runs the ELL product of this rank's rows (``local``,
+    the eager ``ELLMatrix`` gather, sum and product).  A rectangular (m, n)
+    operator takes x sharded by its n columns and gives y sharded by its m
+    rows; both must divide over the ranks.  ``rmv`` is the product of the
+    row-sharded precomputed adjoint (``adj``, from
+    ``ELLMatrix.with_adjoint``), or without one sums this rank's rows'
+    contributions into a full-length partial and reduce-scatters it: one
+    reduce-scatter, never an all-reduce of the whole output.  ``data`` and
+    ``cols`` are this rank's rows; ``to_csr``, ``to_dense`` and
+    :meth:`unsharded` whole on every rank (an all-gather of each panel);
+    ``astype``, ``with_chunked_gather`` and ``with_adjoint`` stay sharded.
 
     ``ell`` is the port's :class:`ELLMatrix` of the whole matrix, on any
     device; each rank keeps its rows on the mesh's device.
     """
 
     def __init__(self, ell: ELLMatrix, mesh: RowMesh):
-        m, n = ell.shape
-        D = mesh.size
-        if m % D != 0 or n % D != 0:
-            raise ValueError(
-                f"shape {tuple(ell.shape)} must divide evenly over {D} "
-                "devices")
-        self.mesh = mesh
-        self._shape = (int(m), int(n))
-        self.local = self._rows_of(ell)
-        self.local_adj = (self._rows_of(ell.adj) if ell.adj is not None
-                          else None)
+        _check_even(ell.shape, mesh.size)
+        adj = (RowShardedELLOperator(ell.adj, mesh) if ell.adj is not None
+               else None)
+        self._set(mesh, ell.shape, self._rows_of(ell, mesh), adj)
 
-    def _rows_of(self, ell):
-        lo, hi = self.mesh.rows(ell.shape[0])
+    def _set(self, mesh, shape, local, adj):
+        self.mesh = mesh
+        self._shape = (int(shape[0]), int(shape[1]))
+        self.local = local
+        self.adj = adj
+        # this rank's rows of the adjoint (the product ``rmv`` runs)
+        self.local_adj = adj.local if adj is not None else None
+        return self
+
+    def _with(self, local, adj) -> "RowShardedELLOperator":
+        return object.__new__(RowShardedELLOperator)._set(
+            self.mesh, self._shape, local, adj)
+
+    @staticmethod
+    def _rows_of(ell, mesh):
+        lo, hi = mesh.rows(ell.shape[0])
         return ELLMatrix(ell.data[lo:hi], ell.cols[lo:hi],
                          (hi - lo, ell.shape[1]),
                          gather_chunk_rows=ell._gather_chunk_rows,
-                         device=self.mesh.device)
+                         device=mesh.device)
 
     @property
     def shape(self):
@@ -713,12 +1054,62 @@ class RowShardedELLOperator(_MeshOperator):
     def dtype(self):
         return self.local.dtype
 
+    @property
+    def data(self):
+        return self.local.data
+
+    @property
+    def cols(self):
+        return self.local.cols
+
+    @property
+    def _gather_chunk_rows(self):
+        return self.local._gather_chunk_rows
+
+    @property
+    def row_width(self):
+        return self.local.row_width
+
+    def unsharded(self) -> ELLMatrix:
+        """The whole matrix (and its adjoint) on this rank's device: an
+        all-gather of each panel."""
+        adj = self.adj.unsharded() if self.adj is not None else None
+        return ELLMatrix(self.mesh.gather_rows(self.data),
+                         self.mesh.gather_rows(self.cols), self._shape,
+                         adj=adj, gather_chunk_rows=self._gather_chunk_rows,
+                         device=self.device)
+
+    def to_csr(self):
+        return self.unsharded().to_csr()
+
+    def to_dense(self):
+        return self.unsharded().to_dense()
+
+    def astype(self, dtype) -> "RowShardedELLOperator":
+        adj = self.adj.astype(dtype) if self.adj is not None else None
+        return self._with(self.local.astype(dtype), adj)
+
+    def with_chunked_gather(self, chunk_rows: int) -> "RowShardedELLOperator":
+        adj = (self.adj.with_chunked_gather(chunk_rows)
+               if self.adj is not None else None)
+        return self._with(self.local.with_chunked_gather(chunk_rows), adj)
+
+    def with_adjoint(self) -> "RowShardedELLOperator":
+        """A copy carrying the row-sharded adjoint: the whole matrix's
+        ``with_adjoint`` (its CSR on the host, as one device builds it),
+        each rank keeping its rows of it."""
+        if self.adj is not None:
+            return self
+        whole = self.unsharded().with_adjoint()
+        return self._with(self.local, RowShardedELLOperator(whole.adj,
+                                                            self.mesh))
+
     def mv(self, x):
         return self.local.mv(self.mesh.gather_rows(x))
 
     def rmv(self, x):
-        if self.local_adj is not None:
-            return self.local_adj.mv(self.mesh.gather_rows(x))
+        if self.adj is not None:
+            return self.adj.mv(x)
         return self.mesh.reduce_scatter(self.local.rmv(x))
 
 

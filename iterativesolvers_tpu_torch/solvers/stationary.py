@@ -26,6 +26,11 @@ are built once on the host; the sweeps read nothing back to the host.
 
 Dense matrices given as host arrays go to ``device`` (default ``"cuda"``);
 a tensor or a sparse operator keeps its own device.
+
+A row-sharded DIA or ELL matrix (``parallel/sharded.py``) is split from its
+whole CSR form, as the JAX package splits its sharded matrix through
+``to_csr()``: b (and x0) are this rank's rows, gathered once, every rank
+sweeps the whole vector, and the result is this rank's rows of it.
 """
 
 from __future__ import annotations
@@ -253,6 +258,21 @@ def _run(sweep, maxiter: int, x):
     return x
 
 
+def _sharded_rows(A):
+    """(mesh, lo, hi) of a row-sharded stored matrix, else None."""
+    mesh = getattr(A, "mesh", None)
+    if mesh is None or not isinstance(A, _STORED):
+        return None
+    return (mesh, *mesh.rows(A.shape[0]))
+
+
+def _whole(v, rows):
+    """The whole vector of this rank's block ``v`` (None stays None)."""
+    if v is None or rows is None:
+        return v
+    return rows[0].gather_rows(torch.as_tensor(v, device=rows[0].device))
+
+
 def _prep(A, b, x0, method, ordering="natural", device="cuda"):
     multicolor = ordering == "multicolor" and method != "jacobi"
     need_lo = not multicolor and method in ("gauss_seidel", "sor", "ssor")
@@ -275,6 +295,11 @@ def _omega(omega, split):
 
 
 def _solve(A, b, omega, x0, maxiter, method, ordering, device):
+    rows = _sharded_rows(A)
+    if rows is not None:
+        x = _solve(A.to_csr(), _whole(b, rows), omega, _whole(x0, rows),
+                   maxiter, method, ordering, device)
+        return x[rows[1]:rows[2]]
     if ordering not in ("natural", "multicolor"):
         raise ValueError("ordering must be 'natural' or 'multicolor'")
     split, b, x = _prep(A, b, x0, method, ordering, device)
@@ -333,6 +358,9 @@ class _StationaryState(NamedTuple):
 
 
 def _iterable(A, b, method, omega, x0, maxiter, device) -> SolverIterator:
+    rows = _sharded_rows(A)
+    if rows is not None:
+        A, b, x0 = A.to_csr(), _whole(b, rows), _whole(x0, rows)
     split, b, x = _prep(A, b, x0, method, device=device)
     sweep = _SWEEPS[method]
     om = _omega(omega, split)
@@ -342,12 +370,17 @@ def _iterable(A, b, method, omega, x0, maxiter, device) -> SolverIterator:
     def step(s: _StationaryState):
         return _StationaryState(sweep(split, b, s.x, om), s.k + 1)
 
+    def own(s: _StationaryState):
+        # this rank's rows on a mesh
+        return s.x if rows is None else s.x[rows[1]:rows[2]]
+
     return SolverIterator(
         _StationaryState(x, torch.zeros((), dtype=torch.int32,
                                         device=x.device)),
         step=step,
         done=lambda s: s.k >= maxiter,
-        extract=lambda s: s.x,
+        extract=own,
+        get_x=own,
     )
 
 

@@ -32,6 +32,7 @@ from .dtypes import host_tensor
 __all__ = ["dia_from_arrays", "stencil_from_arrays", "csr_from_arrays",
            "ell_from_arrays", "hyb_from_arrays", "bsr_from_arrays",
            "operator_from_arrays", "halo_dia_from_arrays",
+           "sharded_dia_from_arrays",
            "halo_stencil_from_arrays", "row_sharded_ell_from_arrays",
            "dense_mesh_from_arrays", "triangular_from_arrays",
            "factors_from_arrays", "rbic_from_arrays",
@@ -39,7 +40,7 @@ __all__ = ["dia_from_arrays", "stencil_from_arrays", "csr_from_arrays",
 
 KINDS = ("dia", "stencil", "gradient", "scaled_identity_plus", "csr", "ell",
          "hyb", "bsr", "dense", "triangular", "ilu", "ic", "rbic",
-         "eisenstat", "rb_reduced")
+         "eisenstat", "rb_reduced", "sharded_dia")
 
 
 def dia_from_arrays(diags, offsets, shape, device="cuda") -> DIAMatrix:
@@ -105,6 +106,17 @@ def halo_dia_from_arrays(diags, offsets, shape, mesh):
 
     return HaloDIAOperator(dia_from_arrays(diags, offsets, shape,
                                            device="cpu"), mesh)
+
+
+def sharded_dia_from_arrays(diags, offsets, shape, mesh):
+    """The row-sharded DIA matrix (``shard_dia``) on ``mesh`` from the
+    whole matrix's host arrays: the JAX package's row-sharded ``DIAMatrix``
+    carried across, each rank keeping its rows on its device.  Its ELL
+    counterpart is the ``"ell"`` kind with a mesh."""
+    from ..parallel.sharded import shard_dia
+
+    return shard_dia(dia_from_arrays(diags, offsets, shape, device="cpu"),
+                     mesh)
 
 
 def halo_stencil_from_arrays(n, center, terms, coeffs, dtype, mesh):
@@ -225,9 +237,10 @@ def operator_from_arrays(spec: dict, device="cuda", mesh=None):
     :func:`rb_reduced_from_arrays`; ``"dense"`` a square ``mat``.  With a
     ``mesh`` (a ``row_mesh`` or a ``slice_mesh``) a ``"dia"`` or
     ``"stencil"`` operator is the row-sharded halo operator of that kind on
-    the mesh, an ``"ell"`` one the ``RowShardedELLOperator`` and a
-    ``"dense"`` one the ``DenseMeshOperator`` (``device`` is then the
-    mesh's)."""
+    the mesh, a ``"sharded_dia"`` one (the keys of ``"dia"``, a mesh
+    required) the row-sharded DIA matrix of ``shard_dia``, an ``"ell"`` one
+    the ``RowShardedELLOperator`` (``shard_ell``) and a ``"dense"`` one the
+    ``DenseMeshOperator`` (``device`` is then the mesh's)."""
     kind = spec.get("kind")
     args = {k: v for k, v in spec.items() if k != "kind"}
     if kind not in KINDS:
@@ -241,6 +254,7 @@ def operator_from_arrays(spec: dict, device="cuda", mesh=None):
         return factors_from_arrays(kind, device=device, **args)
     if mesh is not None:
         build = {"dia": halo_dia_from_arrays,
+                 "sharded_dia": sharded_dia_from_arrays,
                  "stencil": halo_stencil_from_arrays,
                  "ell": row_sharded_ell_from_arrays,
                  "dense": dense_mesh_from_arrays}.get(kind)
@@ -253,5 +267,7 @@ def operator_from_arrays(spec: dict, device="cuda", mesh=None):
              "bsr": bsr_from_arrays, "dense": _dense,
              "triangular": triangular_from_arrays,
              "rbic": rbic_from_arrays, "eisenstat": eisenstat_from_arrays,
-             "rb_reduced": rb_reduced_from_arrays}[kind]
+             "rb_reduced": rb_reduced_from_arrays}.get(kind)
+    if build is None:
+        raise ValueError(f"a {kind!r} operator needs a mesh")
     return build(device=device, **args)

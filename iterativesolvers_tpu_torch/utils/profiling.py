@@ -117,11 +117,13 @@ def roofline_report(
                           float(bandwidth_bps))
 
 
-# the JAX function's keys, each from the mesh's count of a kind: a halo
-# exchange is two collective-permutes (one a direction)
-_KEYS = {"collective-permute": ("exchange", 2), "all-reduce": ("all_reduce", 1),
-         "all-gather": ("all_gather", 1),
-         "reduce-scatter": ("reduce_scatter", 1), "all-to-all": (None, 0)}
+# the JAX function's keys, each from the mesh's counts of some kinds: a halo
+# exchange is two collective-permutes (one a direction), a ranged fetch of a
+# sharded DIA product one (its sends and receives in one batch)
+_KEYS = {"collective-permute": (("exchange", 2), ("fetch", 1)),
+         "all-reduce": (("all_reduce", 1),),
+         "all-gather": (("all_gather", 1),),
+         "reduce-scatter": (("reduce_scatter", 1),), "all-to-all": ()}
 
 
 @contextlib.contextmanager
@@ -137,6 +139,6 @@ def collective_counts(mesh):
     try:
         yield out
     finally:
-        for key, (kind, per) in _KEYS.items():
-            out[key] = (per * (mesh.counts[kind] - before[kind])
-                        if kind is not None else 0)
+        for key, kinds in _KEYS.items():
+            out[key] = sum(per * (mesh.counts[kind] - before[kind])
+                           for kind, per in kinds)

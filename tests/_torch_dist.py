@@ -8,7 +8,8 @@ seconds and the JAX package stays out of it.  :func:`launch` runs D of them:
     python tests/_torch_dist.py IN.npz OUT_DIR RANK WORLD RENDEZVOUS BACKEND [MESH]
 
 ``IN.npz`` holds a JSON list of cases under ``"cases"`` and each case's
-arrays under ``"<case>/<key>"``.  Rank r writes ``OUT_DIR/rank<r>.npz`` with
+arrays under ``"<case>/<key>"``; rank 0 prints each case's wall time as it
+ends.  Rank r writes ``OUT_DIR/rank<r>.npz`` with
 each case's outputs under ``"<case>/<key>"``; vectors are gathered whole
 (``gather_vector``) on every rank, so every rank's file can be held against
 rank 0's.  BACKEND ``gloo`` puts every rank on the CPU, ``gloo-cuda`` every
@@ -22,17 +23,19 @@ import os
 import pathlib
 import subprocess
 import sys
+import time
 import warnings
 
 import numpy as np
 import torch
 
 import iterativesolvers_tpu_torch as pits
-from iterativesolvers_tpu_torch.ops import cuda_stencil
+from iterativesolvers_tpu_torch.ops import cuda_spmv, cuda_stencil
 from iterativesolvers_tpu_torch.parallel import panel_ortho as po
 from iterativesolvers_tpu_torch.parallel import (
-    ShardedBlockJacobiPreconditioner, dist_panel_ortho, gather_vector,
-    panel_layout, row_mesh, shard_dia, shard_ell, shard_vector, slice_mesh)
+    HaloDIAOperator, ShardedBlockJacobiPreconditioner, dist_panel_ortho,
+    gather_vector, panel_layout, row_mesh, shard_ell, shard_vector,
+    slice_mesh)
 from iterativesolvers_tpu_torch.solvers import gmres as pgm
 from iterativesolvers_tpu_torch.utils import convert
 from iterativesolvers_tpu_torch.utils.profiling import collective_counts
@@ -53,7 +56,7 @@ def _np(t):
 def _operator(c, a, mesh):
     """The case's mesh operator, built from host arrays with utils/convert;
     with ``"shard": true`` in the spec a DIA or ELL matrix goes through
-    ``shard_dia`` / ``shard_ell`` instead."""
+    ``shard_dia`` (the ``"sharded_dia"`` kind) / ``shard_ell`` instead."""
     spec = dict(c["op"])
     shard = spec.pop("shard", False)
     if spec["kind"] == "dia":
@@ -68,11 +71,11 @@ def _operator(c, a, mesh):
     elif "coeffs" in a:
         # complex coefficients travel as arrays (JSON has no complex)
         spec["center"], spec["coeffs"] = a["center"][()], list(a["coeffs"])
+    if shard and spec["kind"] == "ell":
+        spec.pop("kind")
+        return shard_ell(convert.ell_from_arrays(device="cpu", **spec), mesh)
     if shard:
-        kind = spec.pop("kind")
-        whole = (convert.dia_from_arrays if kind == "dia"
-                 else convert.ell_from_arrays)(device="cpu", **spec)
-        return (shard_dia if kind == "dia" else shard_ell)(whole, mesh)
+        spec["kind"] = "sharded_dia"      # shard_dia of the whole matrix
     return convert.operator_from_arrays(spec, mesh=mesh)
 
 
@@ -307,10 +310,176 @@ def solve(c, a, mesh):
     return out
 
 
+# ---- the row-sharded DIA / ELL matrices of shard_dia / shard_ell -----------
+
+def _whole_values(M, mesh):
+    """The whole value panel of a row-sharded DIA (ndiag, n) or ELL (n, w)
+    matrix, as f32 for bf16."""
+    if hasattr(M, "offsets"):
+        return _np(M.unsharded().data)
+    return _np(gather_vector(M.data, mesh))
+
+
+def _products(op, c, a, mesh):
+    """mv, rmv, mv_rows and (square) mv_dot, each whole, with the
+    collectives mv issued."""
+    x, y = shard_vector(a["x"], mesh), shard_vector(a["y"], mesh)
+    X = shard_vector(a["X"].T, mesh).T.contiguous()
+    kernels = (cuda_spmv.dia_spmv, cuda_spmv.dia_spmv_dot)
+    before = [f.launches for f in kernels]
+    with collective_counts(mesh) as n:
+        ymv = op.mv(x)
+    out = {"mv": _np(gather_vector(ymv, mesh)),
+           "rmv": _np(gather_vector(op.rmv(y), mesh)),
+           "mv_rows": _rows(op.mv_rows(X), mesh),
+           **{f"mv/{k}": np.array(v) for k, v in n.items()}}
+    if op.shape[0] == op.shape[1]:
+        yd, d = op.mv_dot(x)
+        out.update(mv_dot_y=_np(gather_vector(yd, mesh)), mv_dot=_np(d))
+    # the DIA kernel's launches (on a card) of the four products
+    out.update({f"launches/{f.__name__}": np.array(f.launches - b0)
+                for f, b0 in zip(kernels, before)})
+    return out
+
+
+def _whole(op, c, a, mesh):
+    """What the JAX package hands back whole, and the sharded casts."""
+    csr, F = op.to_csr(), op.astype(torch.float32)
+    out = {"csr_data": _np(csr.data), "csr_indices": _np(csr.indices),
+           "csr_indptr": _np(csr.indptr), "dense": _np(op.to_dense()),
+           "astype": _whole_values(F, mesh),
+           "astype_type": np.array(type(F).__name__)}
+    if hasattr(op, "offsets"):
+        d, present = op.diagonal()
+        out.update(diagonal=_np(d), present=_np(present),
+                   data=_np(op.data))
+    else:
+        out.update(row_width=np.array(op.row_width), chunked_mv=_np(
+            gather_vector(op.with_chunked_gather(3).mv(
+                shard_vector(a["x"], mesh)), mesh)))
+    for dt in (torch.bfloat16, torch.int8):
+        C = pits.compress_values(op, dt)
+        key = str(dt).split(".")[1]
+        out.update({f"compress/{key}/dtype": np.array(str(C.dtype)),
+                    f"compress/{key}/type": np.array(type(C).__name__),
+                    f"compress/{key}/values": _whole_values(C, mesh),
+                    f"representable/{key}": np.array(
+                        pits.values_representable(op, dt))})
+    return out
+
+
+def _bounds(op, c, a, mesh):
+    return {"gershgorin": np.array(pits.gershgorin_bounds(op))}
+
+
+def _power(op, c, a, mesh):
+    """power_bound from a seeded generator, on the matrix and, where its
+    halo fits a block, on the HaloDIAOperator of the same matrix."""
+    def gen():
+        return torch.Generator(device=mesh.device).manual_seed(3)
+
+    out = {"power": _np(pits.power_bound(op, 20, key=gen()))}
+    if c.get("halo_power"):
+        H = HaloDIAOperator(op.unsharded(), mesh)
+        out["halo_power"] = _np(pits.power_bound(H, 20, key=gen()))
+    return out
+
+
+def _solves(op, c, a, mesh):
+    """Each solver of ``c["solves"]`` (name: keywords) on the matrix."""
+    out = {}
+    for name, kw in c["solves"].items():
+        if name == "lobpcg":
+            r = pits.lobpcg(op, shard_vector(a["X0"], mesh), **kw)
+            out.update({"lobpcg/lam": _np(r.lam),
+                        "lobpcg/X": _np(gather_vector(r.X, mesh)),
+                        "lobpcg/iters": np.array(r.iterations)})
+            continue
+        solver = getattr(pits, name.split(":")[0])
+        kw = dict(kw)
+        pl = kw.pop("Pl", None)
+        if pl is not None:
+            cls = {"ic": pits.ICPreconditioner,
+                   "ilu": pits.ILUPreconditioner}[pl.split(":")[0]]
+            kw["Pl"] = cls.from_operator(op, ordering=pl.split(":")[1])
+        x, h = solver(op, shard_vector(a["b"], mesh), log=True, **kw)
+        out.update({f"{name}/x": _np(gather_vector(x, mesh)),
+                    f"{name}/iters": np.array(h.iters),
+                    f"{name}/resnorm": np.asarray(h["resnorm"])})
+    return out
+
+
+def _stationary(op, c, a, mesh):
+    """5 sweeps of each stationary method (and one multicolor sweep's
+    worth of Gauss-Seidel), and SOR's iterable."""
+    b = shard_vector(a["b"], mesh)
+    out = {}
+    for name, kw in (("jacobi", {}), ("gauss_seidel", {}),
+                     ("sor", {"omega": 1.2}), ("ssor", {"omega": 1.2}),
+                     ("gauss_seidel:multicolor", {"ordering": "multicolor"})):
+        f = getattr(pits, name.split(":")[0])
+        x = (f(op, b, kw.pop("omega"), maxiter=5, **kw) if "omega" in kw
+             else f(op, b, maxiter=5, **kw))
+        out[name] = _np(gather_vector(x, mesh))
+    it = pits.sor_iterable(op, b, 1.2, maxiter=5)
+    for _ in it:
+        pass
+    out["sor_iterable"] = _np(gather_vector(it.x, mesh))
+    return out
+
+
+def _reduced(op, c, a, mesh):
+    """RBReducedSystem.from_dia and the block-Jacobi IC(0) of the matrix."""
+    side, dims = c["grid"]
+    R = pits.RBReducedSystem.from_dia(op, side, dims)
+    out = {"s_red": _np(R.s_red), "s_black": _np(R.s_black),
+           "sr_offsets": np.array(R.sr_offsets),
+           "sb_offsets": np.array(R.sb_offsets)}
+    for i, t in enumerate(R.sr_streams):
+        out[f"sr{i}"] = _np(t)
+    for i, t in enumerate(R.sb_streams):
+        out[f"sb{i}"] = _np(t)
+    P = ShardedBlockJacobiPreconditioner.ic(op, mesh, ordering="natural")
+    out["bjacobi"] = _np(gather_vector(P.ldiv(shard_vector(a["x"], mesh)),
+                                       mesh))
+    out["rbic"] = _np(gather_vector(
+        pits.RedBlackICPreconditioner.from_dia(op, side, dims).ldiv(
+            shard_vector(a["x"], mesh)), mesh))
+    return out
+
+
+def _adjoint(op, c, a, mesh):
+    """with_adjoint of a row-sharded ELL matrix: its adjoint's arrays and
+    the adjoint product."""
+    W = op.with_adjoint()
+    return {"adj_data": _np(gather_vector(W.adj.data, mesh)),
+            "adj_cols": _np(gather_vector(W.adj.cols, mesh)),
+            "rmv": _np(gather_vector(W.rmv(shard_vector(a["y"], mesh)),
+                                     mesh))}
+
+
+SHARDED_ROUTES = {"products": _products, "whole": _whole, "bounds": _bounds,
+                  "power": _power, "solves": _solves,
+                  "stationary": _stationary, "reduced": _reduced,
+                  "adjoint": _adjoint}
+
+
+def sharded(c, a, mesh):
+    """The routes ``c["do"]`` names on the row-sharded matrix of
+    ``shard_dia`` / ``shard_ell`` (``"shard": true`` in the spec), each
+    output under its route's name, vectors gathered whole."""
+    op = _operator(c, a, mesh)
+    out = {"type": np.array(type(op).__name__)}
+    for what in c["do"]:
+        for k, v in SHARDED_ROUTES[what](op, c, a, mesh).items():
+            out[f"{what}/{k}"] = v
+    return out
+
+
 CASES = {"halo_ops": halo_ops, "interior": interior, "panel": panel,
          "gmres": gmres, "cg": cg, "pipecg": pipecg, "setup": setup,
          "bjacobi": bjacobi, "rows": rows, "mesh_ops": mesh_ops,
-         "cg_step": cg_step, "solve": solve}
+         "cg_step": cg_step, "solve": solve, "sharded": sharded}
 
 
 MESHES = {"gloo": ("gloo", lambda r: "cpu"),
@@ -318,12 +487,57 @@ MESHES = {"gloo": ("gloo", lambda r: "cpu"),
           "nccl": ("nccl", lambda r: f"cuda:{r}")}
 
 
-def launch(cases, D, tmp, backend="gloo", timeout=150, mesh="row"):
-    """Run ``cases`` (a list of ``(case, arrays)``) in one launch of D rank
-    processes with files under the directory ``tmp``, each process given
-    ``timeout`` seconds, on a ``mesh`` of kind ``"row"`` or ``"slice:SxC"``;
+class Launch:
+    """D running rank processes of one launch (:func:`start`); ``wait()``
     returns each rank's outputs.  A rank that fails or runs out of time
-    fails the launch, with its output."""
+    fails the launch, with every rank's output so far (rank 0 prints each
+    case's wall time as it ends, so a timeout names its case)."""
+
+    def __init__(self, procs, tmp, timeout, label=""):
+        self.procs, self.tmp, self.timeout = procs, tmp, timeout
+        self.label = label
+        self.t0 = time.monotonic()
+
+    def wait(self):
+        logs, late = [], False
+        try:
+            for p in self.procs:
+                left = self.timeout - (time.monotonic() - self.t0)
+                try:
+                    logs.append(p.communicate(timeout=max(left, 1))[0])
+                except subprocess.TimeoutExpired:
+                    late = True
+                    break
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+            # what the killed ranks printed before the limit
+            logs += [p.communicate()[0] for p in self.procs[len(logs):]]
+        logs = [log.decode(errors="replace") for log in logs]
+        secs = time.monotonic() - self.t0
+        if os.environ.get("ITS_LAUNCH_LOG"):
+            # each launch's seconds, for the launch budgets (SKILL.md)
+            with open(os.environ["ITS_LAUNCH_LOG"], "a") as f:
+                f.write(json.dumps({"cases": self.label, "ranks": len(
+                    self.procs), "s": round(secs, 2), "late": late}) + "\n")
+        failed = [(r, p.returncode, log) for r, (p, log) in
+                  enumerate(zip(self.procs, logs)) if p.returncode != 0]
+        if late or failed:
+            head = (f"the launch ran past its {self.timeout} s limit "
+                    f"({secs:.1f} s)\n" if late else "")
+            raise AssertionError(head + "\n".join(
+                f"rank {r} exited {rc}:\n{log[-4000:]}"
+                for r, rc, log in failed))
+        return [dict(np.load(self.tmp / f"rank{r}.npz"))
+                for r in range(len(self.procs))]
+
+
+def start(cases, D, tmp, backend="gloo", timeout=150, mesh="row"):
+    """Start ``cases`` (a list of ``(case, arrays)``) in one launch of D
+    rank processes with files under the directory ``tmp``, on a ``mesh``
+    of kind ``"row"`` or ``"slice:SxC"``; the :class:`Launch` waits for
+    them, ``timeout`` seconds from now."""
     tmp = pathlib.Path(tmp)
     arrays = {f"{c['name']}/{k}": v for c, a in cases for k, v in a.items()}
     inp = tmp / "in.npz"
@@ -338,21 +552,14 @@ def launch(cases, D, tmp, backend="gloo", timeout=150, mesh="row"):
          str(tmp / "rendezvous"), backend, mesh], env=env,
         stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT) for r in range(D)]
-    logs = []
-    try:
-        for p in procs:
-            logs.append(p.communicate(timeout=timeout)[0].decode())
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    failed = [(r, p.returncode, log) for r, (p, log) in
-              enumerate(zip(procs, logs)) if p.returncode != 0]
-    if failed:
-        raise AssertionError("\n".join(f"rank {r} exited {rc}:\n{log[-4000:]}"
-                                        for r, rc, log in failed))
-    return [dict(np.load(tmp / f"rank{r}.npz")) for r in range(D)]
+    return Launch(procs, tmp, timeout,
+                  label=f"{cases[0][0]['name']} .. {cases[-1][0]['name']}")
+
+
+def launch(cases, D, tmp, backend="gloo", timeout=150, mesh="row"):
+    """Run ``cases`` in one launch of D rank processes (:func:`start`) and
+    return each rank's outputs."""
+    return start(cases, D, tmp, backend, timeout, mesh).wait()
 
 
 def main(argv):
@@ -375,8 +582,12 @@ def main(argv):
             pre = c["name"] + "/"
             arrays = {k[len(pre):]: data[k] for k in data.files
                       if k.startswith(pre)}
+            t0 = time.perf_counter()
             for key, v in CASES[c["kind"]](c, arrays, mesh).items():
                 results[pre + key] = v
+            if mesh.rank == 0:
+                print(f"case {c['name']}: {time.perf_counter() - t0:.2f} s",
+                      flush=True)
     finally:
         mesh.close()
     np.savez(f"{out_dir}/rank{rank}.npz", **results)

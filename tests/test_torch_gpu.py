@@ -592,6 +592,62 @@ def test_cuda_mesh_forms_on_two_ranks_match_one_card(cuda, tmp_path):
 
 
 @pytest.mark.gpu
+def test_cuda_sharded_dia_on_four_ranks_matches_one_card(cuda, tmp_path):
+    """Four ranks sharing cuda:0 over gloo: shard_dia of the two-field
+    coupled f32 DIA at 2 x 16^3 (coupling diagonals at +-16^3, two blocks
+    away): mv, rmv, mv_rows and mv_dot within 1e-6 of max|y| of one card's
+    (the DIA kernel on each rank's block: mv and rmv one launch of
+    ``dia_spmv`` each, mv_rows one a row, mv_dot one of ``dia_spmv_dot``),
+    and 24 CG steps within 1e-5 of one card's."""
+    from _torch_dist import launch
+
+    from iterativesolvers_tpu_torch.ops import _build
+
+    _build.build_all()
+    L = pfix.laplace_dia(16, 3, dtype=np.float32, device="cpu")
+    N = L.shape[0]
+    diags = ([np.r_[np.zeros(N), np.full(N, 0.5)]]
+             + [np.r_[d.numpy(), d.numpy()] + (0.6 if o == 0 else 0.0)
+                for d, o in zip(L.diags, L.offsets)]
+             + [np.r_[np.full(N, 0.5), np.zeros(N)]])
+    offsets = [-N, *L.offsets, N]
+    diags = [d.astype(np.float32) for d in diags]
+    spec = {"kind": "dia", "ndiags": len(diags), "offsets": offsets,
+            "shape": [2 * N, 2 * N], "shard": True}
+    arrays = {f"diag{i}": d for i, d in enumerate(diags)}
+    rng = np.random.default_rng(4)
+    inp = {"x": rng.standard_normal(2 * N).astype(np.float32),
+           "y": rng.standard_normal(2 * N).astype(np.float32),
+           "X": rng.standard_normal((3, 2 * N)).astype(np.float32),
+           "b": np.ones(2 * N, np.float32)}
+    case = {"name": "coupled", "kind": "sharded", "op": spec,
+            "do": ["products", "solves"],
+            "solves": {"cg": {"reltol": 0.0, "maxiter": 24}}}
+    got = launch([(case, {**arrays, **inp})], 4, tmp_path,
+                 backend="gloo-cuda", timeout=300)
+    A = pits.DIAMatrix([torch.from_numpy(d) for d in diags], offsets,
+                       (2 * N, 2 * N), device=cuda)
+    x = torch.from_numpy(inp["x"]).to(cuda)
+    X = torch.from_numpy(inp["X"]).to(cuda)
+    one = {"mv": A.mv(x), "rmv": A.rmv(torch.from_numpy(inp["y"]).to(cuda)),
+           "mv_rows": A.mv_rows(X)}
+    for key, want in one.items():
+        assert _close(torch.from_numpy(got[0][f"coupled/products/{key}"]),
+                      want.cpu(), 1e-6), key
+    y1, d1 = A.mv_dot(x)
+    assert abs(float(got[0]["coupled/products/mv_dot"]) - float(d1)) <= (
+        1e-5 * abs(float(d1)))
+    for r in got:
+        assert int(r["coupled/products/launches/dia_spmv"]) == 1 + 1 + 3
+        assert int(r["coupled/products/launches/dia_spmv_dot"]) == 1
+    x1 = pits.cg(A, torch.ones(2 * N, device=cuda), reltol=0.0, maxiter=24)
+    xs = torch.from_numpy(got[0]["coupled/solves/cg/x"])
+    assert int(got[0]["coupled/solves/cg/iters"]) == 24
+    assert float(torch.linalg.vector_norm(xs - x1.cpu())) <= 1e-5 * float(
+        torch.linalg.vector_norm(x1))
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("case", ["stencil", "dia_f32", "dia_bf16",
                                   "dia_int8"])
 def test_cuda_grid_dot_is_repeatable_within_its_bound(cuda, case):

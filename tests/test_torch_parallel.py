@@ -262,14 +262,22 @@ def _cases(D):
 
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
-    """``port(D)``: every rank's outputs of the D-rank launch (run once)."""
+    """``port(D)``: every rank's outputs of the D-rank launch (run once; a
+    launch that failed fails every later call at once, without running
+    again)."""
     done = {}
 
     def get(D):
         if D not in done:
-            done[D] = launch(_cases(D), D,
-                             tmp_path_factory.mktemp(f"ranks{D}"),
-                             timeout=PROCESS_TIMEOUT)
+            try:
+                done[D] = launch(_cases(D), D,
+                                 tmp_path_factory.mktemp(f"ranks{D}"),
+                                 timeout=PROCESS_TIMEOUT)
+            except AssertionError as e:
+                done[D] = e
+        if isinstance(done[D], AssertionError):
+            raise AssertionError(f"the {D}-rank launch failed (once):\n"
+                                 f"{done[D]}")
         return done[D]
 
     return get

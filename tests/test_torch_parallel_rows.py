@@ -5,11 +5,12 @@
 LOBPCG and svdl, the collectives a step issues, and ``utils/profiling``.
 
 Each case runs in D rank processes of ``tests/_torch_dist.py`` over gloo
-on the CPU (all cases of one launch once for the module, as
-``tests/test_torch_parallel.py`` runs them), the JAX side on ``row_mesh(D)``
-or ``slice_mesh(2, 2)`` with the same D, on the same numpy inputs.  The JAX
-package's svdl runs in a fresh interpreter of this file (XLA-CPU crashes
-after a few hundred compilations in one process, ``tests/conftest.py``).
+on the CPU (one launch a group of cases, once for the module: the D = 4
+cases in five groups, each well inside ``PROCESS_TIMEOUT``), the JAX side
+on ``row_mesh(D)`` or ``slice_mesh(2, 2)`` with the same D, on the same
+numpy inputs.  The JAX package's svdl runs in a fresh interpreter of this
+file (XLA-CPU crashes after a few hundred compilations in one process,
+``tests/conftest.py``).
 
 Tolerances: f64 rtol 1e-12 for products, 1e-10 for solutions, values and
 residual series (equal step counts); f32 rtol 1e-6 with atol 1e-6 * max|y|
@@ -213,16 +214,32 @@ def _solve_inputs(name):
     return make(A.shape[0])
 
 
+# the D = 4 launch's groups: each its own launch of four ranks (their times
+# in .claude/skills/verify/SKILL.md).  svdl on the halo stencil issues ~12k
+# collectives (512 GKL steps), a launch of its own
+DENSE_AND_SHARDED = ("gmres_dense_f64", "gmres_dense_f32", *SHARDED)
+
+
+def _solve_group(name):
+    if name == "svdl_stencil":
+        return "svdl"
+    return "dense+shard" if name in DENSE_AND_SHARDED else "solves"
+
+
 def _cases(D):
-    out = []
+    """The cases of the D-rank launches, by group: ``rows`` (D = 1, 4);
+    ``solves``, ``svdl``, ``dense+shard`` and ``ops`` (D = 4)."""
+    out = {"rows": []}
     for name in ROWS:
         spec, arrays = _spec(name)
         A = OPS[name]()
         dt = F32 if name.endswith("f32") else F64
-        out.append(({"name": f"rows/{name}", "kind": "rows", "op": spec},
-                    {**arrays, "X": _panel(A.shape[0], 3, dt, 5)}))
+        out["rows"].append(({"name": f"rows/{name}", "kind": "rows",
+                             "op": spec},
+                            {**arrays, "X": _panel(A.shape[0], 3, dt, 5)}))
     if D != 4:
         return out
+    out.update({"solves": [], "svdl": [], "dense+shard": [], "ops": []})
     for name, (solver, opname, _, kw) in SOLVES.items():
         spec, arrays = _spec(opname, shard=name in SHARDED)
         if solver == "gmres":
@@ -231,24 +248,27 @@ def _cases(D):
         else:
             case = {"name": f"solve/{name}", "kind": "solve", "op": spec,
                     "solver": solver, "kw": kw}
-        out.append((case, {**arrays, **_solve_inputs(name)}))
-    # the unsharded counterparts of shard_dia / shard_ell
+        out[_solve_group(name)].append((case, {**arrays,
+                                              **_solve_inputs(name)}))
+    # the halo / ELL counterparts of shard_dia / shard_ell
     for name in SHARDED:
         solver, opname, make, kw = SOLVES[name]
         spec, arrays = _spec(opname)
-        out.append(({"name": f"solve/{name}/halo", "kind": "solve",
-                     "op": spec, "solver": solver, "kw": kw},
-                    {**arrays, **make(OPS[opname]().shape[0])}))
+        out["dense+shard"].append((
+            {"name": f"solve/{name}/halo", "kind": "solve", "op": spec,
+             "solver": solver, "kw": kw},
+            {**arrays, **make(OPS[opname]().shape[0])}))
     for name in ("ell(256,256)", "ell(256,128)", "ell(256,128)+adj",
                  "dense(37)"):
         spec, arrays = _spec(name)
         m, n = OPS[name]().shape
-        out.append(({"name": f"ops/{name}", "kind": "mesh_ops", "op": spec},
-                    {**arrays, "x": _rng_x(n, F64, 3),
-                     "y": _rng_x(m, F64, 4)}))
+        out["ops"].append(({"name": f"ops/{name}", "kind": "mesh_ops",
+                            "op": spec},
+                           {**arrays, "x": _rng_x(n, F64, 3),
+                            "y": _rng_x(m, F64, 4)}))
     spec, arrays = _spec("laplace_dia(16,3)/f32")
-    out.append(({"name": "step/halo", "kind": "cg_step", "op": spec},
-                {**arrays, "b": np.ones(4096, F32)}))
+    out["ops"].append(({"name": "step/halo", "kind": "cg_step", "op": spec},
+                       {**arrays, "b": np.ones(4096, F32)}))
     return out
 
 
@@ -269,19 +289,31 @@ def _slice_cases():
 
 @pytest.fixture(scope="module")
 def port(tmp_path_factory):
-    """``port(D)``: every rank's outputs of the D-rank launch (run once);
-    ``port("slice")`` the four ranks of slice_mesh(2, 2)."""
+    """``port(D, group)``: every rank's outputs of the D-rank launch of
+    ``_cases(D)[group]`` (run once; a launch that failed fails every later
+    call at once, without running again); ``port("slice")`` the four ranks
+    of slice_mesh(2, 2)."""
     done = {}
 
-    def get(D):
-        if D not in done:
-            tmp = tmp_path_factory.mktemp(f"ranks{D}")
-            if D == "slice":
-                done[D] = launch(_slice_cases(), 4, tmp,
-                                 timeout=PROCESS_TIMEOUT, mesh="slice:2x2")
-            else:
-                done[D] = launch(_cases(D), D, tmp, timeout=PROCESS_TIMEOUT)
-        return done[D]
+    def get(D, group=None):
+        key = (D, group)
+        if key not in done:
+            tmp = tmp_path_factory.mktemp(f"ranks{D}{group or ''}".replace(
+                "+", "_"))
+            try:
+                if D == "slice":
+                    done[key] = launch(_slice_cases(), 4, tmp,
+                                       timeout=PROCESS_TIMEOUT,
+                                       mesh="slice:2x2")
+                else:
+                    done[key] = launch(_cases(D)[group], D, tmp,
+                                       timeout=PROCESS_TIMEOUT)
+            except AssertionError as e:
+                done[key] = e
+        if isinstance(done[key], AssertionError):
+            raise AssertionError(f"the launch {key} failed (once):\n"
+                                 f"{done[key]}")
+        return done[key]
 
     return get
 
@@ -314,7 +346,7 @@ def test_halo_mv_rows_matches_jax(port, name, D):
     """mv_rows of a (3, n) panel sharded over its columns, against the JAX
     package's ``mv_rows`` on row_mesh(D) (test_parallel.py:288,
     test_parallel_stencil.py:256), with one exchange a panel on D > 1."""
-    got = _out(port(D), f"rows/{name}")
+    got = _out(port(D, "rows"), f"rows/{name}")
     dt = F32 if name.endswith("f32") else F64
     op = _jax_op(name, _mesh(D))
     X = _panel(op.shape[0], 3, dt, 5)
@@ -337,7 +369,7 @@ def test_mesh_operator_products_match_jax(port, name):
     operator on row_mesh(4) and the dense product.  The ELL ``mv``
     all-gathers x once and permutes nothing; the adjoint-free ``rmv``
     reduce-scatters once and all-reduces nothing."""
-    got = _out(port(4), f"ops/{name}")
+    got = _out(port(4, "ops"), f"ops/{name}")
     mesh = _mesh(4)
     A = OPS[name]()
     op = _jax_op(name, mesh)
@@ -390,7 +422,7 @@ def test_block_cg_on_halo_dia_matches_jax(port):
     """Block CG with 4 right-hand sides on the halo DIA operator, D = 4,
     against the JAX package on row_mesh(4) (test_parallel.py:517-528):
     equal steps, X and the per-column residual series within 1e-10."""
-    got = _out(port(4), "solve/block_cg")
+    got = _out(port(4, "solves"), "solve/block_cg")
     mesh = _mesh(4)
     op = _jax_op("laplace_dia(16,2)/f64", mesh)
     B = jnp.asarray(_solve_inputs("block_cg")["b"])
@@ -405,7 +437,7 @@ def test_block_cg_on_halo_dia_matches_jax(port):
 def test_block_cg_f32_on_halo_stencil_matches_jax(port):
     """f32 block CG on the halo stencil (the stencil kernel's rows' plain
     version here): within 2 steps and 1e-4 of the JAX package's mesh run."""
-    got = _out(port(4), "solve/block_cg_f32")
+    got = _out(port(4, "solves"), "solve/block_cg_f32")
     op = _jax_op("laplacian(8,3)/f32", _mesh(4))
     B = jnp.asarray(_solve_inputs("block_cg_f32")["b"])
     X, h = jits.block_cg(op, B, reltol=1e-5, maxiter=600, log=True)
@@ -419,7 +451,7 @@ def test_lobpcg_on_halo_stencil_matches_jax(port):
     package on row_mesh(4) (test_parallel_stencil.py:273-289): equal
     iterations, eigenvalues within 1e-10, the same invariant subspace, and
     the analytic eigenvalues."""
-    got = _out(port(4), "solve/lobpcg")
+    got = _out(port(4, "solves"), "solve/lobpcg")
     mesh = _mesh(4)
     op = _jax_op("laplacian(16,2)/f64", mesh)
     X0 = jax.device_put(jnp.asarray(_solve_inputs("lobpcg")["X0"]),
@@ -486,7 +518,7 @@ def test_lsqr_on_row_sharded_ell_matches_jax(port, name):
     adjoint and with the reduce-scatter ``rmv``, against the JAX package on
     row_mesh(4) (test_parallel.py:196-207), held as ``_check_lsq`` says,
     and the least-squares residual."""
-    got = _out(port(4), f"solve/{name}")
+    got = _out(port(4, _solve_group(name)), f"solve/{name}")
     solver, opname, _, kw = SOLVES[name]
     b = _lsq_rhs(opname)
     _check_lsq(got, "lsqr", _jax_op(opname, _mesh(4)), b, kw)
@@ -510,7 +542,7 @@ def test_lsmr_on_a_mesh_matches_jax_single_device(port, name):
     against the JAX package's single-device LSMR (``_check_lsq``, its mesh
     run in the spread) and the port's own one-device run (steps within
     one, x within 1e-10 plus four times that spread)."""
-    got = _out(port(4), f"solve/{name}")
+    got = _out(port(4, _solve_group(name)), f"solve/{name}")
     solver, opname, _, kw = SOLVES[name]
     A = OPS[opname]()
     b = _solve_inputs(name)["b"]
@@ -570,7 +602,7 @@ def test_svdl_on_a_mesh_matches_jax_single_device(port, jax_svdl, name):
     iterations, singular values and Ritz history within 1e-10 of the JAX
     package's single-device svdl and of the port's one-device run, the
     singular vectors up to sign within 1e-8."""
-    got = _out(port(4), f"solve/{name}")
+    got = _out(port(4, _solve_group(name)), f"solve/{name}")
     ref = jax_svdl(name)
     solver, opname, make, kw = SOLVES[name]
     A = OPS[opname]()
@@ -591,7 +623,8 @@ def test_ranks_hold_the_same_replicated_state(port):
     LOBPCG, LSQR, LSMR and svdl (and of the CG and GMRES runs beside them)
     with the same scalars and histories, and gathered the same vectors:
     each host read decides from allreduced values only."""
-    ranks = port(4)
+    ranks = [{**a, **b, **c} for a, b, c in zip(
+        port(4, "solves"), port(4, "svdl"), port(4, "dense+shard"))]
     keys = [k for k in ranks[0] if k.startswith("solve/")]
     solvers = {SOLVES[k.split("/")[1]][0] for k in keys}
     assert {"block_cg", "lobpcg", "lsqr", "lsmr", "svdl"} <= solvers
@@ -611,7 +644,7 @@ def test_gmres_on_dense_mesh_operator_takes_the_padded_panel_route(port,
     row_mesh(4) and on one device within 1e-8, f32 through the two CGS2
     sweeps (their plain versions here), each twice a step, within 1e-4."""
     name = f"gmres_dense_{'f64' if dtype == F64 else 'f32'}"
-    got = _out(port(4), f"solve/{name}")
+    got = _out(port(4, _solve_group(name)), f"solve/{name}")
     mesh = _mesh(4)
     solver, opname, make, kw = SOLVES[name]
     A = OPS[opname]()
@@ -636,12 +669,14 @@ def test_gmres_on_dense_mesh_operator_takes_the_padded_panel_route(port,
 
 @pytest.mark.parametrize("name", SHARDED)
 def test_shard_dia_and_shard_ell_cg_match_jax(port, name):
-    """CG through shard_dia (laplace_dia(16,2), test_parallel.py:72) and
-    shard_ell (the SPD sprand, :210), D = 4: the same steps and x as the
-    halo / ELL operator they return, and as the JAX package's GSPMD CG on
-    row_mesh(4) within 1e-10."""
-    got = _out(port(4), f"solve/{name}")
-    halo = _out(port(4), f"solve/{name}/halo")
+    """CG through shard_dia (laplace_dia(16,2), test_parallel.py:72: the
+    row-sharded DIA matrix) and shard_ell (the SPD sprand, :210: the ELL
+    operator it returns), D = 4: the same steps and x as the halo DIA /
+    ELL operator (on the CPU the sharded DIA's interior and boundary sums
+    are the halo operator's, bit for bit), and as the JAX package's GSPMD
+    CG on row_mesh(4) within 1e-10."""
+    got = _out(port(4, _solve_group(name)), f"solve/{name}")
+    halo = _out(port(4, "dense+shard"), f"solve/{name}/halo")
     mesh = _mesh(4)
     solver, opname, make, kw = SOLVES[name]
     A = OPS[opname]()
@@ -703,7 +738,7 @@ def test_collective_counts_of_a_halo_cg_step(port):
     """test_hlo_collectives.py's audit of a CG step on the halo DIA
     operator: two collective-permutes (one exchange), at least two
     all-reduces, no all-gather or all-to-all."""
-    c = _out(port(4), "step/halo")
+    c = _out(port(4, "ops"), "step/halo")
     assert int(c["collective-permute"]) == 2
     assert int(c["all-reduce"]) >= 2
     assert int(c["all-gather"]) == 0 and int(c["all-to-all"]) == 0
