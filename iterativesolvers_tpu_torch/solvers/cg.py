@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.dtypes import real_dtype, solve_dtype
+from ..utils.profiling import span
 from .common import (SolveResult, SolverIterator, log_at, make_history,
                      norm, prepare, print_resnorms, run_chunked, tolerance,
                      vdot, with_highest_precision)
@@ -72,13 +73,16 @@ def _cg_step(op, Pl, state: CGState, live, log_in_place=False) -> CGState:
     vectors of ``state`` are never written.  The residual log is copied
     first, unless ``log_in_place``: only ``cg``'s own loop, which holds no
     earlier state, writes the log in place, to avoid a copy of
-    ``maxiter`` values per step."""
-    c = Pl.ldiv(state.r)
+    ``maxiter`` values per step.  Under a profiler the preconditioner's
+    apply is a span ``its.precond`` and the product a span ``its.spmv``."""
+    with span("its.precond"):
+        c = Pl.ldiv(state.r)
     rho = vdot(c, state.r, op.mesh)
     beta = torch.where(live, rho / state.rho, 1.0)
     keep = live.to(c.dtype)
     u = torch.addcmul(beta * state.u, keep, c)      # c + beta u, or u
-    c, sigma = op.mv_dot(u)
+    with span("its.spmv"):
+        c, sigma = op.mv_dot(u)
     alpha = torch.where(live, rho / sigma, 0.0)
     x = torch.addcmul(state.x, alpha, u)
     r = torch.addcmul(state.r, alpha, c, value=-1)

@@ -25,6 +25,7 @@ import torch
 
 from ..utils.dtypes import as_dtype, default_reltol, real_dtype
 from ..utils.history import ConvergenceHistory
+from ..utils.profiling import span
 
 __all__ = [
     "SolveResult",
@@ -196,18 +197,20 @@ def make_history(
     partial: bool = False,
     extra_counters: Optional[dict] = None,
 ) -> ConvergenceHistory:
-    """Materialize a host ConvergenceHistory from device buffers."""
-    h = ConvergenceHistory(partial=partial, restart=restart)
-    iters = int(res.iters)
-    h.iters = iters
-    h.isconverged = bool(res.converged)
-    h.mvps = int(round(mv_initial + mv_per_iter * iters))
-    h.mtvps = int(round(mtv_per_iter * iters))
-    if extra_counters:
-        for k, v in extra_counters.items():
-            setattr(h, k, int(v))
-    for key, (buf, nvalid) in res.log.items():
-        h.set_series(key, buf.detach().cpu().numpy(), int(nvalid))
+    """Materialize a host ConvergenceHistory from device buffers (span
+    ``its.history``: the scalar reads and the logs' copies to the host)."""
+    with span("its.history"):
+        h = ConvergenceHistory(partial=partial, restart=restart)
+        iters = int(res.iters)
+        h.iters = iters
+        h.isconverged = bool(res.converged)
+        h.mvps = int(round(mv_initial + mv_per_iter * iters))
+        h.mtvps = int(round(mtv_per_iter * iters))
+        if extra_counters:
+            for k, v in extra_counters.items():
+                setattr(h, k, int(v))
+        for key, (buf, nvalid) in res.log.items():
+            h.set_series(key, buf.detach().cpu().numpy(), int(nvalid))
     return h
 
 
@@ -382,17 +385,29 @@ def run_chunked(step, done, state, chunk: int = 256, on_phase=None):
     not run a full steady-state chunk of masked steps.  ``chunk <= 1``
     checks ``done`` on the host before every step.  ``on_phase(state)``,
     if given, runs after each phase (``verbose``'s :func:`live_print`).
+
+    Under a profiler, each executed step is a span ``its.step`` (its live
+    mask included) and each host read of ``done`` a span ``its.sync``
+    (``utils/profiling.span``).
     """
     if chunk <= 1:
-        while not bool(done(state)):
-            state = step(state, ~done(state))
+        while not _finished(done, state):
+            with span("its.step"):
+                state = step(state, ~done(state))
             if on_phase is not None:
                 on_phase(state)
         return state
     for c in _phases(chunk):
-        if bool(done(state)):
+        if _finished(done, state):
             return state
         for _ in range(c):
-            state = step(state, ~done(state))
+            with span("its.step"):
+                state = step(state, ~done(state))
         if on_phase is not None:
             on_phase(state)
+
+
+def _finished(done, state) -> bool:
+    """``done(state)`` read back to the host: it waits for the device."""
+    with span("its.sync"):
+        return bool(done(state))

@@ -3,11 +3,14 @@
 
 ``trace(log_dir)`` records a ``torch.profiler`` trace (the host's ops and,
 on a CUDA machine, the card's kernels) and writes it as a Chrome trace into
-``log_dir``.  ``measure_bandwidth`` times the JAX package's differential
-triad loop (CUDA events on a card), ``roofline_report`` does the same
-bytes-per-iteration arithmetic.  ``collective_counts`` counts the
-collectives a mesh (``parallel/sharded.py``) issues over a window, under
-the keys of the JAX function, which counts them in optimized HLO text.
+``log_dir``.  ``span(name)`` marks a stretch of the solve path (``its.step``,
+``its.sync``, ``its.precond``, ``its.spmv``, ``its.history``) as a host
+range of that trace, on the profiler's clock, while a profiler runs.
+``measure_bandwidth`` times the JAX package's differential triad loop (CUDA
+events on a card), ``roofline_report`` does the same bytes-per-iteration
+arithmetic.  ``collective_counts`` counts the collectives a mesh
+(``parallel/sharded.py``) issues over a window, under the keys of the JAX
+function, which counts them in optimized HLO text.
 """
 
 from __future__ import annotations
@@ -19,17 +22,35 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch._C._profiler import _RecordFunctionFast
+from torch.autograd import _profiler_enabled
 
 from .dtypes import as_dtype
 
-__all__ = ["trace", "measure_bandwidth", "roofline_report", "RooflineReport",
-           "collective_counts"]
+__all__ = ["trace", "span", "measure_bandwidth", "roofline_report",
+           "RooflineReport", "collective_counts"]
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """``with span("its.step"): ...`` records the block as a host range
+    named ``name`` while a ``torch.profiler`` session runs (``trace``, or
+    any other): a ``cpu_op`` event of the Chrome trace, on the clock of the
+    device's events, so each device operation can be placed in the span
+    that launched it.  With no profiler running it costs one bool check and
+    returns a shared no-op context: no allocation, no dispatcher call, no
+    tensor op, no host read."""
+    if _profiler_enabled():
+        return _RecordFunctionFast(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """Capture a trace: ``with trace('prof'): solver(...)`` writes
-    ``log_dir/trace.json`` (Chrome trace format); yields the profiler."""
+    ``log_dir/trace.json`` (Chrome trace format), with the solve path's
+    ``its.*`` spans (:func:`span`); yields the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
