@@ -16,7 +16,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
 3. Kernel parity at 216^3 (10,077,696 rows): each kernel against its plain
    PyTorch version on the card, on the same inputs; f32 ``stencil_apply``'s
    y against ``dia_spmv``'s on f32, bf16 and int8 diagonals, bit for bit;
-   each kernel with a dot twice on the same inputs, the same bits.
+   each kernel with a dot twice on the same inputs, the same bits; the
+   red-black IC(0) kernel (``rbic_apply``, ``from_stencil`` with shift 0
+   and 0.5) against its plain version, one launch an apply.
 4. The main path: CG through ``cg(...)`` on the 216^3 Laplacian over the four
    operator paths of ``bench.py`` (matrix-free stencil; stored DIA with f32,
    bf16 and int8 diagonals).  Each run converges, agrees with the others and
@@ -107,7 +109,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
     system and its 25-diagonal DIA form, two launches a product) on b = 1
     and two seeded b, each held to the JAX package's own f32 run on a CPU
     (``jax_reference/precond_f32_216.py``) and to its f64 twin on the card;
-    CG on the int8 216^3 Laplacian with and without RB-IC; LOBPCG with
+    CG on the int8 216^3 Laplacian with and without RB-IC (the red-black
+    kernel ``rbic_apply``, one launch an ldiv call); LOBPCG with
     IC(0) (natural, multicolor) and RB-IC at 101^3 against the analytic
     eigenvalues; ILU(0) GMRES(20) (natural, multicolor) at 100^3 and IC(0)
     GMRES(20) on a ``.mtx`` Laplacian; the six stationary variants on the
@@ -268,6 +271,63 @@ def check(name, got, want, tol, kind="y"):
     if not err <= tol * scale:
         raise AssertionError(f"{name}: error {err} > {tol} * {scale}")
     return err
+
+
+def rbic_parity(torch, its, x):
+    """The red-black IC(0) kernel at 216^3 against its plain version on the
+    card, on the same x, with shift 0 and 0.5: ``from_stencil``'s form, one
+    launch an apply, within TOL_Y_F32 of max|z| (the bits compared and
+    printed too).  Returns (max abs error, the preconditioner) at shift 0."""
+    from iterativesolvers_tpu_torch.ops import cuda_rbic
+
+    out = {}
+    for shift in (0.0, 0.5):
+        P = its.RedBlackICPreconditioner.from_stencil(
+            its.laplacian(SIDE, 3, device=x.device), shift=shift)
+        if P.form is None:
+            raise AssertionError(f"from_stencil made no kernel form at "
+                                 f"{SIDE}^3")
+        before = cuda_rbic.rbic_apply.launches
+        z = P.ldiv(x)
+        if cuda_rbic.rbic_apply.launches != before + 1:
+            raise AssertionError("RB-IC ldiv did not launch rbic_apply once")
+        zp = cuda_rbic.rbic_apply_plain([o for (o, _, _) in P.terms], P.mcs,
+                                        P.s_inv, P.red, x)
+        e = check(f"rbic_apply shift {shift}", z, zp, TOL_Y_F32)
+        print(f"  rbic_apply shift {shift} against its plain version: "
+              f"{'the same bits' if torch.equal(z, zp) else 'DIFFERENT bits'}")
+        out[shift] = (e, P)
+    return out[0.0]
+
+
+def rbic_entry(torch, P, x, err, dev_timed, timed):
+    """The red-black IC(0) kernel's ``kernels`` entry at 216^3: device and
+    host time of ``P.ldiv(x)`` (two launches) beside its bound, its plain
+    version's time; ``launches`` come from phase 16's PCG solve."""
+    from iterativesolvers_tpu_torch.ops import cuda_rbic
+
+    n, T = x.shape[0], len(P.terms)
+    offs = [o for (o, _, _) in P.terms]
+    return {
+        "name": "rbic_apply",
+        "route": "cuda",
+        "source": "iterativesolvers_tpu_torch/csrc/rbic.cu",
+        "replaces": "no TPU kernel: the XLA fusion of "
+                    "iterativesolvers_tpu/operators/preconditioners.py "
+                    "_shift_sum",
+        "launches": None,
+        "max_abs_err": err,
+        **dev_timed("rbic_apply", lambda: P.ldiv(x)),
+        "plain_ms": timed("rbic_apply plain", lambda: cuda_rbic.rbic_apply_plain(
+            offs, P.mcs, P.s_inv, P.red, x), reps=5),
+        # x read and z written once (the two passes move 16n: w written and
+        # read back); a pass's FMA a term, pass 0's two scalings of each
+        # term's operand, three operations a row to finish each pass
+        "bytes": 8 * n,
+        "flops": (6 * T + 6) * n,
+        "library_ms": None,
+        "library_note": "no PyTorch call computes the red-black IC(0) apply",
+    }
 
 
 def laplace_csr(torch, A):
@@ -3545,7 +3605,11 @@ class PrecondPhase:
                         RBIC_AB, maxiter=cap or RBIC_AB["maxiter"])),
                 lambda r: chunked_steps(r[1].iters))
             x64 = its.cg(A64, b.double(), Pl=Pl64, **RBIC_AB)
+            # CG calls ldiv once a step run; each f32 RB-IC apply of
+            # from_stencil on the card is one rbic_apply
             want = {"dia_spmv_dot": chunked_steps(h.iters)}
+            if Pl is not None and self.dev.type == "cuda":
+                want["rbic_apply"] = chunked_steps(h.iters)
             res, d64 = self.true_res(A64, x, b), self.rel(x, x64)
             row = {"iters": h.iters, "tpu_record_iters":
                    TPU_RBIC_AB_STEPS[tag], "converged": h.isconverged,
@@ -5071,7 +5135,8 @@ def main():
     import iterativesolvers_tpu_torch as its
     from iterativesolvers_tpu_torch import native
     from iterativesolvers_tpu_torch.ops import (_build, cuda_arnoldi, cuda_mgs,
-                                               cuda_panel_ortho, cuda_stencil)
+                                               cuda_panel_ortho, cuda_rbic,
+                                               cuda_stencil)
     from iterativesolvers_tpu_torch.ops.cuda_spmv import (
         dia_spmv, dia_spmv_dot, dia_spmv_plain)
     from iterativesolvers_tpu_torch.ops.cuda_stencil import (
@@ -5178,6 +5243,7 @@ def main():
               f"{'the same bits' if ok else 'DIFFERENT bits'}")
         if not ok:
             raise AssertionError(f"{name}: not reproducible")
+    err["rbic"], P_rb = rbic_parity(torch, its, x32)
     torch.cuda.synchronize()
 
     # ---- 4. the main path: CG at 216^3 on the four operator paths ---------
@@ -5375,6 +5441,9 @@ def main():
             "flops": nnz_ops + extra_ops,
             "library_ms": library_ms,
         })
+    kernels.append(rbic_entry(torch, P_rb, x32, err["rbic"], dev_timed,
+                              timed))
+    del P_rb
     for label in ("f32", "bf16", "int8"):
         Ad = dias[label]
         diag_bytes = sum(d.numel() * d.element_size() for d in Ad.diags)
@@ -5575,7 +5644,8 @@ def main():
     clock("phase 16")
     p16 = PrecondPhase(torch, its, dias["int8"],
                        gcounters + (cuda_panel_ortho.panel_dots,
-                                    cuda_panel_ortho.panel_update),
+                                    cuda_panel_ortho.panel_update,
+                                    cuda_rbic.rbic_apply),
                        bound).run().launches
     # phase 16's launches by run, joined to the kernels entries by kernel
     # and diagonal dtype (its GMRES runs orthogonalize f32 panels: the
@@ -5584,13 +5654,17 @@ def main():
                 "dia_spmv_dot[int8 diagonals]": "dia_spmv_dot[int8]",
                 "dia_spmv[f32 diagonals]": "dia_spmv[f32]",
                 "dia_spmv[int8 diagonals]": "dia_spmv[int8]",
-                "panel_mgs[bf16 panel]": "panel_mgs"}
+                "panel_mgs[bf16 panel]": "panel_mgs",
+                "rbic_apply": "rbic_apply"}
     if not set(p16) <= set(p16_keys.values()):
         raise AssertionError(f"phase 16 launched {sorted(p16)}, expected "
                              f"only {sorted(p16_keys.values())}")
     for k in kernels:
         if k["name"] in p16_keys:
             k["phase16_launches"] = p16.get(p16_keys[k["name"]], {})
+        if k["name"] == "rbic_apply":
+            # the RB-IC PCG solve's applies, held there to its ldiv calls
+            k["launches"] = sum(k["phase16_launches"].values())
 
     # ---- 17. the rest of parallel/ on ranks -------------------------------
     clock("phase 17")

@@ -26,6 +26,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops import cuda_rbic
+from ..ops.cuda_rbic import shift_sum
 from .linear_operator import LinearOperator
 
 __all__ = [
@@ -137,28 +139,6 @@ def is_identity(P) -> bool:
     return P is None or isinstance(P, IdentityPreconditioner)
 
 
-def shift_sum(offsets, streams, u, axis: int = 0):
-    """``sum_o streams_o * shift(u, o)`` along ``axis`` (the length-n axis):
-    ``acc[i] += streams_o[i] * u[i + o]`` where ``0 <= i + o < n``, term by
-    term in the order of ``offsets``, each a multiply-add of slices into one
-    accumulator of ``promote(u, streams)`` (the JAX package's one padded
-    pass; reads past either end are its zero padding).  ``u`` is 1-D, or 2-D
-    with the streams broadcast along the other axis."""
-    n = u.shape[axis]
-    dt = torch.promote_types(u.dtype, streams[0].dtype)
-    acc = torch.zeros(u.shape, dtype=dt, device=u.device)
-    for o, c in zip(offsets, streams):
-        lo, hi = max(0, -o), min(n, n - o)
-        if hi <= lo:
-            continue
-        cc = c[lo:hi]
-        if u.ndim == 2:
-            cc = cc[:, None] if axis == 0 else cc[None, :]
-        acc.narrow(axis, lo, hi - lo).addcmul_(
-            cc, u.narrow(axis, lo + o, hi - lo))
-    return acc
-
-
 def _shifted(v, o):
     """``v[i + o]`` with 0 where ``i + o`` falls outside ``[0, n)``."""
     out = torch.zeros_like(v)
@@ -178,6 +158,16 @@ def _parity_red(n, axes, device):
     for s, e in axes:
         p += (i // s) % e
     return (p % 2) == 0
+
+
+def _pivots(center, cs, valid, red):
+    """The red-black IC(0) pivots ``C`` at red slots and ``C - sum_o a_o^2
+    m_o / C`` at black ones, the terms added in their order: of a stencil's
+    rows (``valid`` its masks) or of the table of validity bits."""
+    acc = torch.zeros(red.shape, dtype=center.dtype, device=center.device)
+    for v, c in zip(valid, cs):
+        acc = acc + torch.where(v, c * c, 0)
+    return torch.where(red, center, center - acc / center)
 
 
 def _gathered(mesh, x, axis):
@@ -452,7 +442,10 @@ class RedBlackICPreconditioner(Preconditioner):
     solves reduce to masked SHIFTED READS of full-length vectors, the same
     access pattern as the stencil SpMV itself.  No host factorization, no
     level schedule, no gathers: the apply is two shifted passes
-    (:func:`shift_sum`) and the elementwise work around them.
+    (:func:`shift_sum`) and the elementwise work around them
+    (``ops/cuda_rbic.rbic_apply_plain``).  Built by :meth:`from_stencil`, a
+    1-D f32 CUDA apply is that module's hand-written kernel (two launches,
+    no coefficient stream: see ``ldiv``).
 
     Algebra (A = C·I + sum_o a_o S_o with S_o the masked unit shifts,
     parity(f+o) != parity(f) for every term):
@@ -470,13 +463,17 @@ class RedBlackICPreconditioner(Preconditioner):
     ``shift*I`` to the operator before factorization.
     """
 
-    def __init__(self, terms, mcs, center, s_inv, red, mesh=None):
+    def __init__(self, terms, mcs, center, s_inv, red, mesh=None,
+                 form=None):
         self.terms = terms          # ((offset, stride, extent), ...)
         self.mcs = mcs              # (n,) pre-masked coefficient per term
         self.center = center
         self.s_inv = s_inv          # (n,) 1/sqrt(diag of L)^2 pointwise
         self.red = red              # (n,) bool parity mask
         self.mesh = mesh            # from a row-sharded matrix (see above)
+        # from_stencil's scalar form (ops/cuda_rbic.RBICForm) where the
+        # kernel takes it, else None
+        self.form = form
 
     @property
     def device(self):
@@ -501,27 +498,31 @@ class RedBlackICPreconditioner(Preconditioner):
                 raise ValueError("stencil must have symmetric +/- terms")
             if float(pair[1]) != float(pair[-1]):
                 raise ValueError("stencil must be symmetric (a_+o == a_-o)")
-        i = torch.arange(n, device=dev)
         red = _parity_red(n, by_axis, dev)
         center = (torch.tensor(st.center, dtype=dt, device=dev)
                   + torch.tensor(shift, dtype=dt, device=dev))
-        # e_black = C - sum_o a_o^2 m_o / C ; m_o masks off-grid neighbors;
-        # mc_o = a_o m_o is stored as the per-term masked coefficient stream
-        acc = torch.zeros(n, dtype=dt, device=dev)
-        mcs = []
-        for (o, s, e), c in zip(st.terms, st.coeffs):
-            c = torch.tensor(c, dtype=dt, device=dev)
-            pos = (i // s) % e
-            step = o // s
-            valid = (pos + step >= 0) & (pos + step < e)
-            acc = acc + torch.where(valid, c * c, 0)
-            mcs.append(torch.where(valid, c, 0).to(dt))
-        e_vec = torch.where(red, center, center - acc / center)
+        # m_o masks off-grid neighbors; mc_o = a_o m_o is stored as the
+        # per-term masked coefficient stream
+        cs = [torch.tensor(c, dtype=dt, device=dev) for c in st.coeffs]
+        valid = cuda_rbic.validity(n, st.terms, dev)
+        mcs = tuple(torch.where(v, c, 0).to(dt) for v, c in zip(valid, cs))
+        e_vec = _pivots(center, cs, valid, red)
         if bool((e_vec <= 0).any()):
             raise ZeroDivisionError(
                 "red-black IC(0) breakdown: non-positive pivot; increase "
                 "`shift`")
-        return cls(st.terms, tuple(mcs), center, 1.0 / torch.sqrt(e_vec), red)
+        form = None
+        if cuda_rbic.takes(n, st.terms, dt):
+            # the scales by validity bits (bit t: term t), then the red one:
+            # the same arithmetic as the rows', so each entry has their bits
+            T = len(st.terms)
+            code = torch.arange(2**T + 1, device=dev)
+            e_tab = _pivots(center, cs, [(code >> t) & 1 == 1
+                                         for t in range(T)], code == 2**T)
+            form = cuda_rbic.RBICForm(n, st.terms, st.coeffs,
+                                      1.0 / torch.sqrt(e_tab))
+        return cls(st.terms, mcs, center, 1.0 / torch.sqrt(e_vec), red,
+                   form=form)
 
     @classmethod
     def from_dia(cls, dia, side: int, dims: int,
@@ -553,28 +554,20 @@ class RedBlackICPreconditioner(Preconditioner):
         return cls(tuple(terms), tuple(mcs), center,
                    1.0 / torch.sqrt(e_vec), red, mesh=dia.mesh)
 
-    def _shift_sum(self, u, axis: int = 0):
-        """sum_o mc_o * shift(u, o) along the length-n ``axis``."""
-        return shift_sum([o for (o, _, _) in self.terms], self.mcs, u, axis)
-
     def _apply(self, x, axis):
         dtype, x = x.dtype, _gathered(self.mesh, x, axis)
-        s, red = self.s_inv, self.red
-        if x.ndim == 2:
-            s, red = ((s[:, None], red[:, None]) if axis == 0
-                      else (s[None, :], red[None, :]))
-        # L solve: y_r = x_r s_r ; y_b = (x_b - sum_o a_o u[+o]) s_b with
-        # u = y_r s_r at red slots (L_br = a_o s_r)
-        u = torch.where(red, x * s * s, 0)
-        y = torch.where(red, x * s, (x - self._shift_sum(u, axis)) * s)
-        # L^T solve: z_b = y_b s_b ; z_r = (y_r - s_r sum_o a_o v[+o]) s_r
-        # with v = z_b at black slots
-        v = torch.where(red, 0, y * s)
-        z = torch.where(red, (y - s * self._shift_sum(v, axis)) * s, y * s)
+        z = cuda_rbic.rbic_apply_plain([o for (o, _, _) in self.terms],
+                                       self.mcs, self.s_inv, self.red, x, axis)
         return _own(self.mesh, z.to(dtype), axis)
 
     def ldiv(self, x):
-        """P^{-1} x of a 1-D x or each column of an (n, k) x, in x's dtype."""
+        """P^{-1} x of a 1-D x or each column of an (n, k) x, in x's dtype.
+        Built by :meth:`from_stencil` where the kernel takes it (``form``),
+        without a mesh, a 1-D f32 CUDA x goes to the kernel of
+        ``ops/cuda_rbic``; every other x to its plain version."""
+        if (self.form is not None and self.mesh is None and x.ndim == 1
+                and x.dtype == torch.float32 and x.is_cuda):
+            return cuda_rbic.rbic_apply(self.form, x.contiguous())
         return self._apply(x, 0)
 
     def ldiv_rows(self, Xr):

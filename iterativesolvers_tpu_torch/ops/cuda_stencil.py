@@ -136,30 +136,37 @@ def _plan(center, terms, coeffs, conj, dtype) -> _Plan:
     order = sorted([(0, rnd(center), None)]
                    + [(o, c, (s, e)) for (o, s, e, c) in eff],
                    key=lambda t: t[0])
-    # positions in `order` of the off-diagonal terms, grouped by (stride,
-    # extent), so that the kernel computes each grid position once per group
-    masked = sorted((j for j, t in enumerate(order) if t[2] is not None),
-                    key=lambda j: order[j][2])
+    # the off-diagonal terms, each with its position in `order` as its bit
+    masked = [j for j, t in enumerate(order) if t[2] is not None]
     k = len(masked)
-    IntK, IntS, FloatS = (ctypes.c_int * max(k, 1), ctypes.c_int * (k + 1),
-                          ctypes.c_float * (k + 1))
-    # fast_div constants of each term's stride and extent: smul, sshr,
-    # emul, eshr
-    magic = [v for j in masked for d in order[j][2] for v in fast_divisor(d)]
-    args = (
-        k,
-        IntK(*[order[j][0] for j in masked]),
-        IntK(*[order[j][0] // order[j][2][0] for j in masked]),
-        IntK(*[order[j][2][0] for j in masked]),
-        IntK(*[order[j][2][1] for j in masked]),
-        (ctypes.c_uint * max(4 * k, 1))(*magic),
-        IntK(*masked),
+    IntS, FloatS = ctypes.c_int * (k + 1), ctypes.c_float * (k + 1)
+    args = grouped_terms([(order[j][0],) + order[j][2] for j in masked],
+                         masked) + (
         k + 1,
         next(j for j, t in enumerate(order) if t[2] is None),
         IntS(*[o for (o, _, _) in order]),
         FloatS(*[c for (_, c, _) in order]),
     )
     return _Plan(tuple(order), args)
+
+
+def grouped_terms(terms, bits):
+    """The first arguments of ``stencil.cuh``'s ``pack_terms`` for
+    ``terms`` (``(off, stride, extent)`` each, term j setting bit
+    ``bits[j]``): nterms, then off, step, stride, extent, the fast_div
+    constants of each stride and extent (smul, sshr, emul, eshr) and bit,
+    as ctypes arrays of the terms grouped by (stride, extent), so that the
+    kernels compute each grid position once per group."""
+    group = sorted(range(len(terms)), key=lambda j: terms[j][1:])
+    k = len(group)
+    IntK = ctypes.c_int * max(k, 1)
+    g = [terms[j] for j in group]
+    magic = [v for (_, s, e) in g for d in (s, e) for v in fast_divisor(d)]
+    return (k, IntK(*[o for (o, _, _) in g]),
+            IntK(*[o // s for (o, s, _) in g]),
+            IntK(*[s for (_, s, _) in g]), IntK(*[e for (_, _, e) in g]),
+            (ctypes.c_uint * max(4 * k, 1))(*magic),
+            IntK(*[bits[j] for j in group]))
 
 
 def _normal(terms, coeffs):

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 import iterativesolvers_tpu_torch as pits
-from iterativesolvers_tpu_torch.ops import (cuda_arnoldi, cuda_mgs, cuda_spmv,
-                                           cuda_stencil)
+from iterativesolvers_tpu_torch.ops import (cuda_arnoldi, cuda_mgs, cuda_rbic,
+                                           cuda_spmv, cuda_stencil)
 from iterativesolvers_tpu_torch.utils import fixtures as pfix
 
 torch.set_num_threads(1)
@@ -942,3 +942,136 @@ def test_cuda_preconditioned_cg_launches_the_dia_kernel(cuda):
         steps = pits.solvers.common.chunked_steps(h.iters)
         assert h.isconverged
         assert cuda_spmv.dia_spmv_dot.launches - before == per_step * steps
+
+
+def _grid_stencil(extents, coeffs, center, device):
+    """A symmetric unit-step stencil on a grid of ``extents`` (stride 1
+    first), coefficient ``coeffs[k]`` on both terms of axis k."""
+    terms, cs, stride = [], [], 1
+    for e, c in zip(extents, coeffs):
+        terms += [(stride, stride, e), (-stride, stride, e)]
+        cs += [c, c]
+        stride *= e
+    return pits.StencilOperator(stride, center, tuple(terms), cs,
+                                device=device)
+
+
+def _rbic_cases(cuda):
+    """(stencil, shift) of the red-black IC(0) kernel's route: the main
+    path's 216^3, an odd 3-D grid with a coefficient an axis, 2-D, 1-D and
+    n < 32 grids, with and without a shift."""
+    return {
+        "laplacian 216^3": lambda: (pits.laplacian(216, 3, device=cuda), 0.0),
+        "laplacian 216^3, shift": lambda: (
+            pits.laplacian(216, 3, device=cuda), 0.5),
+        "17x9x5, a coefficient an axis, shift": lambda: (_grid_stencil(
+            (17, 9, 5), (-1.0, -0.7, -1.3), 6.0, cuda), 0.25),
+        "2-D 67x33": lambda: (_grid_stencil((67, 33), (-1.0, -0.5), 3.0,
+                                            cuda), 0.0),
+        "1-D 1001, shift": lambda: (_grid_stencil((1001,), (-1.0,), 2.0,
+                                                  cuda), 0.1),
+        "n < 32: laplacian 3^3": lambda: (pits.laplacian(3, 3, device=cuda),
+                                          0.0),
+        "n < 32: 1-D 7": lambda: (_grid_stencil((7,), (-0.9,), 2.0, cuda),
+                                  0.0),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_rbic_cases("cpu")))
+@pytest.mark.parametrize("shift", [0, 1])
+def test_cuda_rbic_matches_eager_apply(cuda, name, shift):
+    """The red-black IC(0) kernel against its plain version (the eager
+    apply, ``rbic_apply_plain``) on the same card, within 1e-6 of max|z|;
+    shift = 1 hands it an x one element past a 16-byte boundary (a view),
+    which pass 0 takes row by row; each ldiv counts one launch; twice on the
+    same x (the plan's w reused) gives the same bits."""
+    st, sh = _rbic_cases(cuda)[name]()
+    P = pits.RedBlackICPreconditioner.from_stencil(st, shift=sh)
+    assert P.form is not None
+    g = torch.Generator(device=cuda).manual_seed(3)
+    buf = torch.randn(st.n + shift, generator=g, device=cuda)
+    x = buf[shift:]
+    before = cuda_rbic.rbic_apply.launches
+    z = P.ldiv(x)
+    z2 = P.ldiv(x)
+    ze = cuda_rbic.rbic_apply_plain([o for (o, _, _) in P.terms], P.mcs,
+                                    P.s_inv, P.red, x)
+    torch.cuda.synchronize()
+    assert cuda_rbic.rbic_apply.launches == before + 2
+    assert z.dtype == x.dtype and z.shape == x.shape
+    assert float((z - ze).abs().max()) <= 1e-6 * float(ze.abs().max())
+    assert torch.equal(z, z2)
+
+
+@pytest.mark.gpu
+def test_cuda_rbic_side_stream_takes_its_own_w(cuda):
+    """An apply on another stream than the plan's takes a w of its own and
+    gives the same bits; the plan keeps its stream's w."""
+    P = pits.RedBlackICPreconditioner.from_stencil(
+        pits.laplacian(40, 3, device=cuda))
+    x = torch.randn(40**3, generator=torch.Generator(device=cuda).manual_seed(
+        5), device=cuda)
+    z = P.ldiv(x)
+    w = P.form.plan.w
+    side = torch.cuda.Stream(device=cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        zs = P.ldiv(x)
+        zs2 = P.ldiv(-x)
+    torch.cuda.synchronize()
+    assert P.form.plan.w is w
+    assert torch.equal(z, zs) and torch.equal(-z, zs2)
+
+
+@pytest.mark.gpu
+def test_cuda_rbic_other_callers_stay_eager(cuda):
+    """from_dia, ldiv_rows, an (n, k) x, bf16 and f64 stencils do not
+    launch the kernel."""
+    A = pfix.variable_diffusion(12, 3, contrast=10.0, seed=1,
+                                dtype=np.float32, device=cuda)
+    P = pits.RedBlackICPreconditioner.from_stencil(
+        pits.laplacian(12, 3, device=cuda))
+    x = torch.randn(12**3, device=cuda)
+    before = cuda_rbic.rbic_apply.launches
+    pits.RedBlackICPreconditioner.from_dia(A, 12, 3).ldiv(x)
+    P.ldiv_rows(torch.stack([x, -x]))
+    P.ldiv(torch.stack([x, -x], 1))
+    for dt in (torch.bfloat16, torch.float64):
+        Q = pits.RedBlackICPreconditioner.from_stencil(
+            pits.laplacian(12, 3, dtype=dt, device=cuda))
+        assert Q.form is None
+        Q.ldiv(x.to(dt))
+    torch.cuda.synchronize()
+    assert cuda_rbic.rbic_apply.launches == before
+
+
+@pytest.mark.gpu
+def test_cuda_rbic_pcg_takes_the_eager_steps(cuda):
+    """f32 PCG with red-black IC(0) at 64^3: through the kernel, one launch
+    an ldiv call, the same steps as through the eager apply within 1; no
+    kernel instance spills or keeps a stack frame."""
+    st = pits.laplacian(64, 3, device=cuda)
+    P = pits.RedBlackICPreconditioner.from_stencil(st)
+    b = torch.randn(st.n, generator=torch.Generator(device=cuda).manual_seed(
+        9), device=cuda)
+    calls = []
+
+    def counted(r):
+        calls.append(1)
+        return P.ldiv(r)
+
+    before = cuda_rbic.rbic_apply.launches
+    _, h = pits.cg(st, b, reltol=1e-6, log=True,
+                   Pl=pits.FunctionPreconditioner(counted))
+    assert cuda_rbic.rbic_apply.launches - before == len(calls) > 0
+    _, he = pits.cg(st, b, reltol=1e-6, log=True,
+                    Pl=pits.FunctionPreconditioner(lambda r: P._apply(r, 0)))
+    assert h.isconverged and he.isconverged
+    assert abs(h.iters - he.iters) <= 1
+    from iterativesolvers_tpu_torch.ops import _build
+    res = {k: v for k, v in _build.kernel_resources("rbic").items()
+           if "rbic_apply_kernel" in k}
+    assert len(res) == 2
+    assert all(v["spill_stores"] == v["spill_loads"] == v["stack"] == 0
+               for v in res.values())
