@@ -14,6 +14,12 @@ timed window (``--trace 0``: solves back to back until the first that ends
 past ``--seconds``) or the traced solves (``--trace 1``), then the check of
 a sample of the solves against the plain reference, once the program's
 state is freed.  The last line of standard output is the result.
+
+A cell on more than one card (``chips`` > 1) runs one rank process a card
+(``ranks.py``): every rank runs the same set-up and the same solves on its
+rows, the configuration's ``port_operator`` gets the mesh, and rank 0 times
+the solves, reads its own trace, gathers the sampled answers after the
+window and checks them.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import subprocess
 import sys
 import time
 
+from krylov_bench import ranks as team
 from krylov_bench import tracefile
 from krylov_bench.traffic import rhs_pool
 
@@ -86,6 +93,14 @@ class Cell:
                         if pre else None)
         self.end_to_end = [m for m in bench["end_to_end"] if applies(m, name)]
         self.per_layer = [m for m in bench["per_layer"] if applies(m, name)]
+
+    def port_operator(self, its, device, ranks=None):
+        """The port's operator of the configuration on ``device``; on
+        several cards, this rank's part of it on ``ranks.mesh``."""
+        if ranks is None:
+            return self.config_module.port_operator(its, self.config, device)
+        return self.config_module.port_operator(its, self.config, device,
+                                                ranks.mesh)
 
     @property
     def kwargs(self) -> dict:
@@ -233,15 +248,17 @@ def make_solve(cell: Cell, its, op, Pl, device, mode="program"):
 
 
 def run(cell: Cell, seed: int, seconds: float, trace: bool, t0: float,
-        device: str = "cuda", solve_hook=None):
+        device: str = "cuda", solve_hook=None, ranks=None):
     """One run; returns the result's dict (the keys of the result line) and the
     information lines.  ``solve_hook(solve)`` wraps the timed solve (the
-    tests break it there)."""
+    tests break it there).  With ``ranks`` (``ranks.Ranks``) this is one
+    rank of a cell on several cards: each rank solves on its own rows, and
+    a follower returns no result, only its line."""
     import torch
 
     import iterativesolvers_tpu_torch as its
 
-    cuda = device == "cuda"
+    cuda = torch.device(device).type == "cuda"
 
     def sync():
         if cuda:
@@ -254,15 +271,25 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t0: float,
     phases["context"] = time.perf_counter() - t0
     data = RunData(cell, kind, device_peaks(kind) if cuda else None)
     pool = rhs_pool(cell.traffic["rhs"], int(cfg["rows"]), seed, device)
-    op = cell.config_module.port_operator(its, cfg, device)
+    op = cell.port_operator(its, device, ranks)
+    if ranks is None:
+        rhs = pool
+        more = bool
+    else:
+        # every rank draws the whole pool and keeps its rows; rank 0 keeps
+        # the pool for the check
+        rhs = ranks.local_rows(pool)
+        if not ranks.lead:
+            del pool
+        more = ranks.share
     Pl = cell.precond.port(its, op, cfg) if cell.precond else None
     sync()
     phases["inputs"] = time.perf_counter() - t0
     solve = make_solve(cell, its, op, Pl, device)
     if solve_hook is not None:
         solve = solve_hook(solve)
-    npool = pool.shape[0]
-    solve(pool[0])                                  # warm-up
+    npool = rhs.shape[0]
+    solve(rhs[0])                                   # warm-up
     sync()
     data.setup_s = time.perf_counter() - t0
     if cuda:
@@ -270,19 +297,22 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t0: float,
     sample = Reservoir(int(cell.workload["check_solves"]), seed)
     if trace:
         k = int(cell.workload["traced_solves"])
+        # every rank traces its own solves; all take a trace again or none
+        agree = ranks.all if ranks is not None else None
         # the device's busy time and the window it is taken over come from
         # the same solves, traced with the device's activity alone: the
         # host's operations go unrecorded, which slows a host-paced solve
         # less than recording them does
         busy, window, _ = tracefile.device_window(
-            [lambda i=i: solve(pool[i % npool]) for i in range(k)], sync)
+            [lambda i=i: solve(rhs[i % npool]) for i in range(k)], sync, agree)
         data.device_busy_s = busy * 1e-6
         data.device_window_s = window * 1e-6
         # then the same solves with the host's operations too, for the
         # kernels' shares, the launch counts and the breakdown
         tr, results = tracefile.capture(
-            lambda: op.mv(pool[0]),
-            [lambda i=i: solve(pool[i % npool]) for i in range(k)], sync)
+            lambda: op.mv(rhs[0]),
+            [lambda i=i: solve(rhs[i % npool]) for i in range(k)], sync,
+            agree)
         data.trace = tr
         for i, (x, steps) in enumerate(results):
             data.iters.append(steps)
@@ -294,22 +324,34 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t0: float,
         while True:
             j = i % npool
             a = time.perf_counter()
-            x, steps = solve(pool[j])
+            x, steps = solve(rhs[j])
             sync()
             end = time.perf_counter()
             data.solve_times.append(end - a)
             data.iters.append(steps)
             sample.offer(i, lambda: (i, j, x.clone(), steps))
             i += 1
-            if end - w0 >= seconds:
+            # on several cards rank 0 decides, after its timing has ended
+            if not more(end - w0 < seconds):
                 break
         data.window_s = end - w0
         attempted = i
     peak = torch.cuda.max_memory_allocated() if cuda else 0
+    if ranks is not None:
+        own_peak, peak = peak, ranks.largest(peak)
+        # each sampled answer whole, outside anything timed
+        sample.items = [(i, j, ranks.gather(x), steps)
+                        for i, j, x, steps in sample.items]
     del op, Pl, solve, x
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
+    if ranks is not None:
+        ranks.close()
+        if not ranks.lead:
+            return None, [f"rank {ranks.rank} on {device}: solves {attempted},"
+                          f" live steps {min(data.iters)}-{max(data.iters)},"
+                          f" memory_peak_bytes {own_peak}"]
     phases["warm-up"] = data.setup_s
     lines = [f"device: {kind}" + (f" ({power_limit()})" if cuda else ""),
              "set-up, seconds from the process's start to the end of: "
@@ -346,29 +388,34 @@ def run(cell: Cell, seed: int, seconds: float, trace: bool, t0: float,
     return result, lines
 
 
-def main(argv, t0: float) -> int:
-    parser = argparse.ArgumentParser(
-        description="Run one cell of BENCHMARK.json on this machine's card.")
-    parser.add_argument("--workload", required=True)
-    parser.add_argument("--seed", type=int, required=True)
-    parser.add_argument("--seconds", type=float, required=True)
-    parser.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    args = parser.parse_args(argv)
-    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    cell = Cell(args.workload, bench)
+def add_rank_options(parser):
+    """A follower's rank and rendezvous (``ranks.py``), which the
+    benchmark's own command never passes."""
+    hidden = argparse.SUPPRESS
+    parser.add_argument("--rank", type=int, default=0, help=hidden)
+    parser.add_argument("--rendezvous", help=hidden)
+
+
+def has_cards(chips: int, what: str) -> bool:
+    """Whether this machine has the cards ``chips`` asks for; says why not
+    on standard error."""
     import torch
 
     if not torch.cuda.is_available():
         print("no CUDA card: this benchmark runs only on the card",
               file=sys.stderr)
-        return 2
-    if torch.cuda.device_count() < cell.chips:
-        print(f"{args.workload} needs {cell.chips} cards, this machine has "
+        return False
+    if torch.cuda.device_count() < chips:
+        print(f"{what} needs {chips} cards, this machine has "
               f"{torch.cuda.device_count()}", file=sys.stderr)
-        return 2
-    # one process with few threads: the solves' host work is dispatch
-    torch.set_num_threads(1)
-    result, lines = run(cell, args.seed, args.seconds, bool(args.trace), t0)
+        return False
+    return True
+
+
+def report(result, lines) -> int:
+    """Print a run's information lines and, on rank 0, its checks and its
+    result line; refuse one in which JAX or the JAX package was loaded.
+    Returns the exit code."""
     found = forbidden_modules()
     if found:
         print(f"modules of JAX or the JAX package were loaded: {found}",
@@ -376,8 +423,39 @@ def main(argv, t0: float) -> int:
         return 3
     for line in lines:
         print(line, file=sys.stderr)
+    if result is None:              # a follower: rank 0 prints the result
+        return 0
     for name, c in result["checks"].items():
         print(f"{name} {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     sys.stderr.flush()
     print(json.dumps(result), flush=True)
     return 0
+
+
+def main(argv, t0: float) -> int:
+    parser = argparse.ArgumentParser(
+        description="Run one cell of BENCHMARK.json on this machine's card.")
+    parser.add_argument("--workload", required=True)
+    parser.add_argument("--seed", type=int, required=True)
+    parser.add_argument("--seconds", type=float, required=True)
+    parser.add_argument("--trace", type=int, choices=(0, 1), default=0)
+    add_rank_options(parser)
+    args = parser.parse_args(argv)
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    cell = Cell(args.workload, bench)
+    import torch
+
+    if not has_cards(cell.chips, args.workload):
+        return 2
+    # one process with few threads: the solves' host work is dispatch
+    torch.set_num_threads(1)
+    if cell.chips == 1:
+        result, lines = run(cell, args.seed, args.seconds, bool(args.trace),
+                            t0)
+    else:
+        result, lines = team.team_run(
+            BENCH_DIR / "run.py", argv, cell.chips, "cuda", args.rank,
+            args.rendezvous,
+            lambda r: run(cell, args.seed, args.seconds, bool(args.trace), t0,
+                          r.device, ranks=r))
+    return report(result, lines)

@@ -31,12 +31,13 @@ def test_top_level_names_are_compared_whole():
 
 
 def test_a_whole_run_loads_no_jax():
-    """A cell run end to end at a small size on the CPU."""
+    """Each cell on one card run end to end at a small size on the CPU (a
+    run on several cards checks every rank itself: ``test_kb_ranks.py``)."""
     mods = _modules_after(
         "import time\n"
         "from krylov_bench import harness\n"
         "bench = json.loads((harness.ROOT / 'BENCHMARK.json').read_text())\n"
-        "for w in bench['workloads']:\n"
+        "for w in [w for w in bench['workloads'] if w['chips'] == 1]:\n"
         "    cell = harness.Cell(w['name'], bench,\n"
         "                        overrides={'side': 8, 'rows': 512})\n"
         "    res, _ = harness.run(cell, 7, 0.05, False, time.perf_counter(),\n"
@@ -49,7 +50,7 @@ def test_a_whole_run_loads_no_jax():
 def test_the_reference_loads_nothing_of_the_program():
     mods = _modules_after(
         "import krylov_bench.reference.krylov, krylov_bench.reference.rbic,"
-        " krylov_bench.reference.operators")
+        " krylov_bench.reference.operators, krylov_bench.reference.brick")
     assert not [m for m in mods if m.split(".")[0].startswith(
         "iterativesolvers_tpu")]
     for path in (harness.BENCH_DIR / "reference").glob("*.py"):

@@ -105,7 +105,7 @@ def test_configs():
 def test_each_cell_finds_its_files(cell):
     w = [w for w in BENCH["workloads"] if w["name"] == cell][0]
     assert set(w) == {"name", "config", "traffic", "chips", "why"}
-    assert w["chips"] == 1 and _line(w["why"])
+    assert w["chips"] in (1, 4) and _line(w["why"])
     assert NAME.match(w["traffic"]) and NAME.match(w["config"])
     c = harness.Cell(cell, BENCH)
     limits = c.workload["limits"]
@@ -115,6 +115,13 @@ def test_each_cell_finds_its_files(cell):
     assert c.workload["check_solves"] >= 1 and c.workload["traced_solves"] >= 1
     assert c.step_family in {p.stem for p in
                              (harness.BENCH_DIR / "kernels").glob("*.json")}
+
+
+def test_four_card_cells_are_at_most_a_quarter():
+    """At most a quarter of the cells, rounded down, ask for four cards;
+    one always may."""
+    four = sum(w["chips"] == 4 for w in BENCH["workloads"])
+    assert four <= max(1, len(CELLS) // 4)
 
 
 def test_pairs_appear_once():

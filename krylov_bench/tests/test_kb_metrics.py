@@ -6,6 +6,7 @@ import json
 import pytest
 
 from krylov_bench import harness, tracefile
+from krylov_bench.tests import four_card
 
 STENCIL = "void stencil_kernel<float, float, true>(float const*, int const*)"
 ADD = ("void at::native::vectorized_elementwise_kernel<4, "
@@ -145,3 +146,51 @@ def test_kernel_families_classify_the_csrc_kernels():
     assert tracefile.family_of(
         "void at::native::reduce_kernel<512, 1>(at::native::ReduceOp)",
         fams) is None
+
+
+SEND_RECV = "ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)"
+ALL_REDUCE = ("ncclDevKernel_AllReduce_Sum_f32_RING_LL("
+              "ncclDevKernelArgsStorage<4096ul>)")
+
+
+def test_collective_readers_on_a_synthetic_four_rank_trace():
+    """Rank 0's trace: a calibration product (its exchange and one stencil
+    launch), then two solves of four steps, each a 20 us send/recv, a
+    10 us stencil launch and three 5 us allreduces."""
+    cell = harness.Cell(four_card.CELL["name"], four_card.bench(),
+                        overrides={"rows": 4_000_000})
+    ev = [X("user_annotation", tracefile.CALIBRATE, 0, 100),
+          X("kernel", SEND_RECV, 5, 20), X("kernel", STENCIL, 30, 10)]
+    for s0 in (200, 1300):
+        ev.append(X("user_annotation", tracefile.SOLVE, s0, 1000))
+        for k in range(4):
+            t = s0 + 10 + 200 * k
+            ev += [X("kernel", SEND_RECV, t, 20),
+                   X("kernel", STENCIL, t + 25, 10)]
+            ev += [X("kernel", ALL_REDUCE, t + 40 + 10 * m, 5)
+                   for m in range(3)]
+    run = _run(cell, ev, [3, 4])
+    assert run.launches_per_product("stencil") == 1
+    assert run.executed_steps() == 8
+    assert _metric("collective_us_per_step").read(run) == pytest.approx(35.0)
+    assert _metric("collectives_per_step").read(run) == pytest.approx(4.0)
+    # rank 0's product covers a quarter of the rows: 8 * 4M / 4 bytes
+    want = 100 * (8e6 / 3.35e12) / 10e-6
+    assert _metric("spmv_roofline").read(run) == pytest.approx(want)
+
+
+def test_collective_readers_find_nothing_on_one_card():
+    run = _run(_cell("cg.poisson7_216", rows=1_000_000), _cg_trace(), [3, 4])
+    for name in ("collective_us_per_step", "collectives_per_step"):
+        assert _metric(name).read(run) is None, name
+        assert _metric(name).read(harness.RunData(run.cell, "cpu",
+                                                  None)) is None
+
+
+def test_per_rank_bytes_of_a_product():
+    spmv = _metric("spmv_roofline")
+    brick = json.loads((harness.BENCH_DIR / "configs" /
+                        "poisson7_4x216.json").read_text())
+    assert brick["rows"] == 864 * 216 * 216 == 4 * brick["rows_per_chip"]
+    assert spmv.product_bytes("stencil", brick, 4) == 8 * 216 ** 3
+    assert spmv.product_bytes("stencil", brick) == 8 * brick["rows"]

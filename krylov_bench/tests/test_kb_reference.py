@@ -4,7 +4,9 @@ import pytest
 import torch
 
 import iterativesolvers_tpu_torch as its
+from krylov_bench import harness
 from krylov_bench.reference import krylov
+from krylov_bench.reference.brick import poisson7_brick
 from krylov_bench.reference.operators import poisson7
 from krylov_bench.reference.rbic import rbic
 
@@ -19,6 +21,25 @@ def test_poisson7_matches_the_port_stencil():
     x = _rand(side ** 3, 1)
     op = its.laplacian(side, 3, dtype=torch.float64, device="cpu")
     torch.testing.assert_close(poisson7(side)(x), op.mv(x), rtol=0, atol=1e-12)
+
+
+def test_brick_matches_the_port_stencil_of_the_whole_grid():
+    """The four-card cell's reference (its configuration's
+    ``reference_operator``) against the port's own ``StencilOperator`` of
+    the whole (24, 6, 6) grid, in float64 on the CPU."""
+    config = harness.load_module(harness.BENCH_DIR / "configs"
+                                 / "poisson7_4x216.py")
+    nz, ny, nx = 24, 6, 6
+    terms = []
+    for stride, extent in ((1, nx), (nx, ny), (nx * ny, nz)):
+        terms += [(stride, stride, extent), (-stride, stride, extent)]
+    st = its.StencilOperator(nz * ny * nx, 6, tuple(terms), [-1] * 6,
+                             dtype=torch.float64, device="cpu")
+    x = _rand(st.n, 2)
+    ref = config.reference_operator({"grid": [nz, ny, nx]})
+    torch.testing.assert_close(ref(x), st.mv(x), rtol=0, atol=1e-12)
+    torch.testing.assert_close(poisson7_brick((nz, ny, nx))(x), st.mv(x),
+                               rtol=0, atol=1e-12)
 
 
 def test_rbic_matches_the_port_preconditioner():

@@ -173,12 +173,14 @@ def device_intervals(events):
             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
 
 
-def profiled(body, cpu: bool):
+def profiled(body, cpu: bool, agree=None):
     """Run ``body()`` under ``torch.profiler`` (CUDA activity, and with
     ``cpu`` the host's operations too) until the session holds device
     activity, at most ``TRIES`` times; returns (the Chrome trace's events,
     what ``body`` returned).  The trace goes to a temporary directory under
-    ``TMPDIR`` and is deleted once read."""
+    ``TMPDIR`` and is deleted once read.  On several ranks, ``agree(held)``
+    says whether every rank's session held device activity, so that all
+    take it again or none."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CUDA]
@@ -193,14 +195,17 @@ def profiled(body, cpu: bool):
             with open(path) as fh:
                 data = json.load(fh)
         events = data["traceEvents"] if isinstance(data, dict) else data
-        if device_intervals(events):
+        held = bool(device_intervals(events))
+        if agree is not None:
+            held = agree(held)
+        if held:
             return events, out
         print(f"the trace holds no device time (try {attempt + 1} of "
               f"{TRIES}): taken again", file=sys.stderr, flush=True)
     raise RuntimeError(f"no device time in the trace in {TRIES} tries")
 
 
-def device_window(solves, sync):
+def device_window(solves, sync, agree=None):
     """Run each of ``solves``, each ended by ``sync()``, under the profiler
     with CUDA activity alone: the host's operations go unrecorded, which
     slows a solve whose host sets the pace less than recording them does.
@@ -219,15 +224,16 @@ def device_window(solves, sync):
             sync()
         return results, time.perf_counter() - t0
 
-    events, (results, seconds) = profiled(body, cpu=False)
+    events, (results, seconds) = profiled(body, cpu=False, agree=agree)
     busy = sum(b - a for a, b in merged(device_intervals(events)))
     return busy, seconds * 1e6, results
 
 
-def capture(calibrate, solves, sync):
+def capture(calibrate, solves, sync, agree=None):
     """Run ``calibrate()`` then each of ``solves`` under ``torch.profiler``
     (the host's operations and CUDA activity), each in its marked block;
-    returns (Trace, the solves' results)."""
+    returns (Trace, the solves' results).  ``agree`` as in
+    :func:`profiled`."""
     from torch.profiler import record_function
 
     def body():
@@ -241,7 +247,7 @@ def capture(calibrate, solves, sync):
                 sync()
         return results
 
-    events, results = profiled(body, cpu=True)
+    events, results = profiled(body, cpu=True, agree=agree)
     trace = Trace(events)
     if not (trace.solves and trace.solve_ops()):
         raise RuntimeError("the trace marks no device operation in the solves")
