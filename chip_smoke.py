@@ -18,7 +18,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    y against ``dia_spmv``'s on f32, bf16 and int8 diagonals, bit for bit;
    each kernel with a dot twice on the same inputs, the same bits; the
    red-black IC(0) kernel (``rbic_apply``, ``from_stencil`` with shift 0
-   and 0.5) against its plain version, one launch an apply.
+   and 0.5) against its plain version, one launch an apply; the stencil
+   kernel's halo form at the four-card deployment's shapes (216^3 blocks of
+   the (864, 216, 216) grid, planes of 46,656 rows) for rank 0, an interior
+   rank and the last rank, against the one-card launch's product of the
+   whole vector bit for bit and against its plain version, with and without
+   the dot, one launch a call.
 4. The main path: CG through ``cg(...)`` on the 216^3 Laplacian over the four
    operator paths of ``bench.py`` (matrix-free stencil; stored DIA with f32,
    bf16 and int8 diagonals).  Each run converges, agrees with the others and
@@ -330,6 +335,77 @@ def rbic_entry(torch, P, x, err, dev_timed, timed):
     }
 
 
+# the four-card deployment (krylov_bench/configs/poisson7_4x216): the
+# (864, 216, 216) grid in slabs of SIDE^3 rows, one plane each side
+HALO_GRID = (4 * SIDE, SIDE, SIDE)
+HALO_RANKS = (0, 1, 3)
+
+
+def halo_parity(torch):
+    """The stencil kernel's halo form on HALO_GRID's blocks of ranks
+    HALO_RANKS (of 4): the launch on the rank's block and the planes the
+    exchange gives it, against the one-card launch's product of the whole
+    vector (the block's rows, bit for bit) and against the halo form's
+    plain version (y within TOL_Y_F32 of max|y|, the dot within TOL_DOT),
+    with and without the dot; one launch a call.  Returns rank 0's call,
+    its plain version, max abs error of y with the dot, bytes and
+    operations of a call, and the launches made, for the kernels entry."""
+    from iterativesolvers_tpu_torch.ops.cuda_stencil import (
+        stencil_apply, stencil_apply_plain)
+
+    nz, ny, nx = HALO_GRID
+    N, n, h = nz * ny * nx, SIDE**3, ny * nx
+    terms = tuple((o, s, e) for s, e in ((1, nx), (nx, ny), (h, nz))
+                  for o in (s, -s))
+    st = (6.0, terms, (-1.0,) * len(terms))
+    g = torch.Generator(device="cuda").manual_seed(1)
+    whole = torch.randn(N, generator=g, device="cuda")
+    yw = stencil_apply(N, *st, whole)
+    before, calls, err = stencil_apply.launches, 0, 0.0
+    for rank in HALO_RANKS:
+        lo = rank * n
+        x = whole[lo:lo + n]
+        halo = dict(base=lo, n_global=N,
+                    left=whole[(lo - h) % N:][:h].contiguous(),
+                    right=whole[(lo + n) % N:][:h].contiguous())
+        for with_dot in (False, True):
+            tag = f"stencil halo rank {rank}{' (dot)' if with_dot else ''}"
+            got = stencil_apply(n, *st, x, with_dot=with_dot, **halo)
+            want = stencil_apply_plain(n, *st, x, with_dot=with_dot, **halo)
+            calls += 1
+            y, yp = (got[0], want[0]) if with_dot else (got, want)
+            same = torch.equal(y, yw[lo:lo + n])
+            print(f"  {tag} against the one-card launch's block: "
+                  f"{'the same bits' if same else 'DIFFERENT bits'}")
+            if not same:
+                raise AssertionError(f"{tag}: not the one-card bits")
+            e = check(f"{tag} y", y, yp, TOL_Y_F32)
+            if with_dot:
+                check(f"{tag} dot", got[1], want[1], TOL_DOT, kind="dot")
+                err = max(err, e)
+        if rank == 0:
+            call = (x.clone(), halo)
+    if stencil_apply.launches != before + calls:
+        raise AssertionError(f"{calls} halo-form calls launched "
+                             f"{stencil_apply.launches - before} kernels")
+    del whole, yw
+    x, halo = call
+    # entries of the block's rows (the planes' included): |A| applied to
+    # ones, summed exactly
+    ones = torch.ones_like(x)
+    nnz = int(stencil_apply_plain(
+        n, 1.0, terms, (1.0,) * len(terms), ones, base=0, n_global=N,
+        left=ones[:h], right=ones[:h]).double().sum())
+    return {"call": lambda: stencil_apply(n, *st, x, with_dot=True, **halo),
+            "plain": lambda: stencil_apply_plain(n, *st, x, with_dot=True,
+                                                 **halo),
+            "err": err,
+            # x's block read and y's written, both planes read (f32); an
+            # FMA an entry and the dot's
+            "bytes": 8 * n + 2 * 4 * h, "flops": 2 * nnz + 2 * n,
+            "launches": calls}
+
+
 def laplace_csr(torch, A):
     """The DIA matrix ``A`` as an f32 torch CSR tensor (for library_ms)."""
     n = A.shape[0]
@@ -561,11 +637,12 @@ def sweep_resources(build):
 
 def spmv_resources(build):
     """``ptxas -v`` of every instance of the DIA and stencil kernels (the
-    stencil kernel also in ``arnoldi.cu``, as ``stencil_panel_mv``):
+    stencil kernel also in ``arnoldi.cu``, as ``stencil_panel_mv``; in
+    ``stencil.cu`` its one-card and halo forms, four each):
     {mangled name: resources}.  Raises if one is missing or spills."""
     out = {}
     for lib, kern, count in (("dia_spmv", "dia_kernel", 6),
-                             ("stencil", "stencil_kernel", 4),
+                             ("stencil", "stencil_kernel", 8),
                              ("arnoldi", "stencil_kernel", 2)):
         found = {name: res for name, res in build.kernel_resources(lib).items()
                  if kern in name}
@@ -5244,6 +5321,7 @@ def main():
         if not ok:
             raise AssertionError(f"{name}: not reproducible")
     err["rbic"], P_rb = rbic_parity(torch, its, x32)
+    halo_form = halo_parity(torch)
     torch.cuda.synchronize()
 
     # ---- 4. the main path: CG at 216^3 on the four operator paths ---------
@@ -5441,6 +5519,25 @@ def main():
             "flops": nnz_ops + extra_ops,
             "library_ms": library_ms,
         })
+    kernels.append({
+        "name": "stencil_apply[halo]",
+        "route": "cuda",
+        "source": "iterativesolvers_tpu_torch/csrc/stencil.cu",
+        "replaces": "iterativesolvers_tpu/parallel/sharded.py:393",
+        # phase 3's calls, one launch each (the four-card solves are the
+        # benchmark's cg.poisson7_4x216_4chip)
+        "launches": halo_form["launches"],
+        "max_abs_err": halo_form["err"],
+        **dev_timed("stencil_apply[halo]", halo_form["call"]),
+        "plain_ms": timed("stencil_apply[halo] plain", halo_form["plain"],
+                          reps=5),
+        "bytes": halo_form["bytes"],
+        "flops": halo_form["flops"],
+        "library_ms": None,
+        "library_note": "no PyTorch call reads a block's rows from its "
+                        "exchanged planes",
+    })
+    del halo_form
     kernels.append(rbic_entry(torch, P_rb, x32, err["rbic"], dev_timed,
                               timed))
     del P_rb

@@ -137,7 +137,7 @@ int launch_fused(void* V, void* y, void* partials, void* h, void* nrm,
 
 template <typename TV>
 const void* panel_mv_kernel() {
-  return reinterpret_cast<const void*>(stencil_kernel<TV, float, false>);
+  return plain_stencil_kernel<TV, float, false>();
 }
 
 const void* panel_mv_kernel(int dtype) {

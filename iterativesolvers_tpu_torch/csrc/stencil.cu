@@ -38,6 +38,13 @@
 // reach 2x the magnitude, and at 216^3 an f32 CG on an H100 took 476 steps
 // against the stored matrix's 408.)
 //
+// The halo form (HaloStencilOperator on a mesh of ranks,
+// its_stencil_apply_halo) is the same kernel, an overload that places the
+// block among the global rows and reads the two exchanged planes where a
+// column leaves the block (stencil.cuh).  Its bound adds the planes' reads:
+// at the 216^3 block of a (864, 216, 216) grid, 8 bytes a row and
+// 2 x 4 x 46,656 bytes, 81.0 MB.
+//
 // What the TPU design needed and this one does not: the period/LCM blocking,
 // the pre-masked coefficient streams and the 1024-lane halo DMAs existed for
 // VMEM and Mosaic alignment.  Here each thread computes its masks from its
@@ -48,26 +55,30 @@
 namespace its {
 
 template <typename T>
-const void* kernel_of(int with_dot) {
-  return with_dot ? reinterpret_cast<const void*>(stencil_kernel<T, T, true>)
-                  : reinterpret_cast<const void*>(stencil_kernel<T, T, false>);
+const void* kernel_of(int with_dot, int halo) {
+  if (halo) {
+    return with_dot ? halo_stencil_kernel<T, T, true>()
+                    : halo_stencil_kernel<T, T, false>();
+  }
+  return with_dot ? plain_stencil_kernel<T, T, true>()
+                  : plain_stencil_kernel<T, T, false>();
 }
 
-const void* kernel_of(int dtype, int with_dot) {
-  if (dtype == 0) return kernel_of<float>(with_dot);
-  if (dtype == 1) return kernel_of<__nv_bfloat16>(with_dot);
+const void* kernel_of(int dtype, int with_dot, int halo) {
+  if (dtype == 0) return kernel_of<float>(with_dot, halo);
+  if (dtype == 1) return kernel_of<__nv_bfloat16>(with_dot, halo);
   return nullptr;
 }
 
 }  // namespace its
 
-// Blocks of its_stencil_apply's kernel for (dtype, with_dot) that one SM
-// holds at once, written to *blocks; returns a CUDA error code, or -1 for
-// bad arguments.
-extern "C" int its_stencil_blocks_per_sm(int dtype, int with_dot,
+// Blocks of its_stencil_apply's kernel for (dtype, with_dot), or with halo
+// = 1 of its_stencil_apply_halo's, that one SM holds at once, written to
+// *blocks; returns a CUDA error code, or -1 for bad arguments.
+extern "C" int its_stencil_blocks_per_sm(int dtype, int with_dot, int halo,
                                          int* blocks) {
   using namespace its;
-  const void* k = kernel_of(dtype, with_dot);
+  const void* k = kernel_of(dtype, with_dot, halo);
   return k == nullptr ? -1 : blocks_per_sm(k, blocks);
 }
 
@@ -104,13 +115,46 @@ extern "C" int its_stencil_apply(int dtype, int with_dot, const void* x,
                                  void* dot, int n, int grid, int vec,
                                  const void* terms, void* stream) {
   using namespace its;
-  const void* k = kernel_of(dtype, with_dot);
+  const void* k = kernel_of(dtype, with_dot, 0);
   if (k == nullptr || grid < 1 || n < 1 || terms == nullptr) return -1;
   StencilTerms t = *static_cast<const StencilTerms*>(terms);
   const int* kp = nullptr;
   int m1 = 1;
   void* x_ = const_cast<void*>(x);
   void* args[] = {&x_, &kp, &m1, &y, &partials, &ticket, &dot, &n, &vec, &t};
+  return static_cast<int>(cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args,
+                                           0, static_cast<cudaStream_t>(stream)));
+}
+
+// The halo form of its_stencil_apply: y = rows [base, base + n) of A x for
+// a vector of n_global rows whose block x is this rank's, with `left` the
+// `halo` rows below the block and `right` the `halo` rows above it (the
+// arguments of its_stencil_apply besides; no offset wider than halo).
+// hvec = 1 when left and right are 16-byte aligned and halo and n whole
+// vectors.  Returns the CUDA error code of the launch, or -1 for bad
+// arguments.
+extern "C" int its_stencil_apply_halo(int dtype, int with_dot, const void* x,
+                                      void* y, void* partials, void* ticket,
+                                      void* dot, int n, int grid, int vec,
+                                      const void* terms, const void* left,
+                                      const void* right, int halo, int base,
+                                      int n_global, int hvec, void* stream) {
+  using namespace its;
+  const void* k = kernel_of(dtype, with_dot, 1);
+  if (k == nullptr || grid < 1 || n < 1 || terms == nullptr || halo < 1 ||
+      left == nullptr || right == nullptr || base < 0 ||
+      n_global < base + n) {
+    return -1;
+  }
+  StencilTerms t = *static_cast<const StencilTerms*>(terms);
+  if (-t.min_off > halo || t.max_off > halo) return -1;
+  // StencilHalo<T> holds two pointers and four ints for every T: the
+  // kernel's argument is these bytes
+  StencilHalo<float> h{static_cast<const float*>(left),
+                       static_cast<const float*>(right), halo, base, n_global,
+                       hvec};
+  void* x_ = const_cast<void*>(x);
+  void* args[] = {&x_, &y, &partials, &ticket, &dot, &n, &vec, &t, &h};
   return static_cast<int>(cudaLaunchKernel(k, dim3(grid), dim3(kThreads), args,
                                            0, static_cast<cudaStream_t>(stream)));
 }

@@ -24,6 +24,14 @@
 // (common.cuh, load_window) and written as 16-byte stores, the valid terms
 // found once for a run where it can (run_valid); see stencil.cu for its
 // bound and design.
+//
+// Its halo form (the overload that takes a StencilHalo) computes one rank's
+// block of rows of a product whose vector is split over ranks
+// (parallel/sharded.py HaloStencilOperator): row i of the block is global
+// row base + i of a vector of n_global rows, masked as that row, and a
+// column outside the block reads the exchanged planes, `left` below it and
+// `right` above it, instead of 0.  The rank's whole product is then one
+// launch, its in-launch dot the rank's share of <x, Ax>.
 #pragma once
 
 #include "common.cuh"
@@ -56,6 +64,22 @@ struct StencilTerms {
   int sum_off[kMaxSum];
   float sum_coeff[kMaxSum];
   int min_off, max_off;         // sum_off's first and last (sorted)
+};
+
+// The halo form's block: rows [base, base + n) of a vector of n_global
+// rows, with `halo` rows on each side: left holds global rows
+// [base - halo, base), right [base + n, base + n + halo) (the ring's
+// neighbours; what wraps around the ends is masked as a column outside
+// [0, n_global)).  halo >= 1 and no offset wider than it.  vec = 1 when
+// left and right are 16-byte aligned and halo and n whole vectors of T.
+template <typename T>
+struct StencilHalo {
+  const T* left;
+  const T* right;
+  int halo;
+  int base;
+  int n_global;
+  int vec;
 };
 
 // The sum slots that row i adds (bit k: slot k), for 0 <= i < n.
@@ -141,23 +165,92 @@ __device__ __forceinline__ float stencil_row(const T* __restrict__ x, int i,
   return acc;
 }
 
+// Column j of the halo form's block (-halo <= j < n + halo): x, or the
+// plane below or above it.  Every address is clamped into its array, so no
+// load stands behind a branch.
+template <typename T>
+__device__ __forceinline__ float halo_at(const T* __restrict__ x, int j, int n,
+                                         const StencilHalo<T>& h) {
+  const T* p = j < 0 ? h.left + max(h.halo + j, 0)
+                     : (j < n ? x + j : h.right + min(j - n, h.halo - 1));
+  return to_f32(*p);
+}
+
+// load_window for the halo form: w[e] = column j0 + e of the block, by
+// 16-byte loads where the aligned vectors that cover the window lie inside
+// x, inside left or inside right; else one load a column (halo_at).
+template <typename T, int R>
+__device__ __forceinline__ void load_window_halo(const T* __restrict__ x,
+                                                 int j0, int n,
+                                                 const StencilHalo<T>& h,
+                                                 float (&w)[R]) {
+  constexpr int V = kVecOf<T>;
+  const int s = j0 & (V - 1);
+  const int g0 = j0 - s;
+  const int g1 = g0 + R + (s ? V : 0);
+  if (g0 >= 0 && g1 <= n) {
+    window_vec_at<T, R>(x, g0, s, w);
+  } else if (h.vec && g0 >= -h.halo && g1 <= 0) {
+    window_vec_at<T, R>(h.left, g0 + h.halo, s, w);
+  } else if (h.vec && g0 >= n && g1 <= n + h.halo) {
+    window_vec_at<T, R>(h.right, g0 - n, s, w);
+  } else {
+#pragma unroll
+    for (int e = 0; e < R; ++e) w[e] = halo_at(x, j0 + e, n, h);
+  }
+}
+
+// stencil_row for the halo form: row i of the block, masked as global row
+// base + i.
+template <typename T>
+__device__ __forceinline__ float stencil_row_halo(const T* __restrict__ x,
+                                                  int i, int n,
+                                                  const StencilTerms& t,
+                                                  const StencilHalo<T>& h) {
+  const unsigned valid = row_valid(h.base + i, h.n_global, t);
+  float acc = 0.0f;
+#pragma unroll
+  for (int k = 0; k < kMaxSum; ++k) {
+    if (k < t.nsum) {
+      const float sum = fmaf(t.sum_coeff[k], halo_at(x, i + t.sum_off[k], n, h),
+                             acc);
+      acc = (valid >> k) & 1u ? sum : acc;
+    }
+  }
+  return acc;
+}
+
 // The run of R rows at r0 of y = A x: y stored; with kDot also the run's x
 // values in px and the stored y values in py (rows past n left as they
-// are).  vx: x (and y) 16-byte aligned.
-template <typename TI, typename TO, int R, bool kDot>
+// are).  vx: x (and y) 16-byte aligned.  kHalo: the halo form, on the block
+// that `h` places (else h is not read).
+template <typename TI, typename TO, int R, bool kDot, bool kHalo = false>
 __device__ __forceinline__ void stencil_run(const TI* __restrict__ x,
                                             TO* __restrict__ y, int n, int r0,
                                             bool vx, const StencilTerms& t,
-                                            float (&px)[R], float (&py)[R]) {
+                                            float (&px)[R], float (&py)[R],
+                                            const StencilHalo<TI>& h = {}) {
   constexpr int V = kVecOf<TI>;
   static_assert(R % V == 0 && R % kVecOf<TO> == 0, "a run is whole vectors");
   if (vx && r0 + R <= n) {
-    // every window of an interior run lies inside x: no column check
-    const bool interior = r0 + t.min_off >= V && r0 + R + V + t.max_off <= n;
     unsigned valid[R];
-    if (!(interior && run_valid<R>(r0, t, valid))) {
+    if constexpr (kHalo) {
+      // the run's rows as global rows: every column of an interior run
+      // lies in [0, n_global)
+      const int g0 = h.base + r0;
+      const bool interior =
+          g0 + t.min_off >= 0 && g0 + R + t.max_off <= h.n_global;
+      if (!(interior && run_valid<R>(g0, t, valid))) {
 #pragma unroll
-      for (int e = 0; e < R; ++e) valid[e] = row_valid(r0 + e, n, t);
+        for (int e = 0; e < R; ++e) valid[e] = row_valid(g0 + e, h.n_global, t);
+      }
+    } else {
+      // every window of an interior run lies inside x: no column check
+      const bool interior = r0 + t.min_off >= V && r0 + R + V + t.max_off <= n;
+      if (!(interior && run_valid<R>(r0, t, valid))) {
+#pragma unroll
+        for (int e = 0; e < R; ++e) valid[e] = row_valid(r0 + e, n, t);
+      }
     }
     float acc[R];
 #pragma unroll
@@ -168,7 +261,11 @@ __device__ __forceinline__ void stencil_run(const TI* __restrict__ x,
         // a window that leaves [0, n) reads clamped rows, whose slots
         // row_valid has cleared
         float w[R];
-        load_window<TI, R>(x, r0 + t.sum_off[k], n, w);
+        if constexpr (kHalo) {
+          load_window_halo<TI, R>(x, r0 + t.sum_off[k], n, h, w);
+        } else {
+          load_window<TI, R>(x, r0 + t.sum_off[k], n, w);
+        }
         const float c = t.sum_coeff[k];
 #pragma unroll
         for (int e = 0; e < R; ++e) {
@@ -190,7 +287,13 @@ __device__ __forceinline__ void stencil_run(const TI* __restrict__ x,
     for (int e = 0; e < R; ++e) {
       const int i = r0 + e;
       if (i < n) {
-        const TO yv = from_f32<TO>(stencil_row(x, i, n, t));
+        float acc;
+        if constexpr (kHalo) {
+          acc = stencil_row_halo(x, i, n, t, h);
+        } else {
+          acc = stencil_row(x, i, n, t);
+        }
+        const TO yv = from_f32<TO>(acc);
         y[i] = yv;
         if (kDot) {
           set_at(px, e, to_f32(x[i]));
@@ -236,6 +339,51 @@ stencil_kernel(const TI* __restrict__ base, const int* __restrict__ kp, int m1,
     }
   }
   if constexpr (kDot) finish_dot(local, partials, ticket, dot);
+}
+
+// The halo form of stencil_kernel (see the top of this file): y = rows
+// [base, base + n) of A x for the rank's block x and the planes of `h`;
+// with kDot also the block's <x, y>.  The same runs, grid-stride loop and
+// dot as the one-card form; vec = 1 when x and y are 16-byte aligned.
+template <typename TI, typename TO, bool kDot>
+__global__ void __launch_bounds__(kThreads, 1)
+stencil_kernel(const TI* __restrict__ x, TO* __restrict__ y,
+               float* __restrict__ partials, unsigned* __restrict__ ticket,
+               float* __restrict__ dot, int n, int vec, StencilTerms t,
+               StencilHalo<TI> h) {
+  constexpr int R = kStencilRun;
+  const bool vx = vec != 0;
+  float px[R], py[R];
+  float local = 0.0f;
+  const int runs = n / R + (n % R != 0);
+  for (int run = blockIdx.x * blockDim.x + threadIdx.x; run < runs;
+       run += gridDim.x * blockDim.x) {
+    stencil_run<TI, TO, R, kDot, true>(x, y, n, run * R, vx, t, px, py, h);
+    if constexpr (kDot) {
+      const int cnt = min(R, n - run * R);
+#pragma unroll
+      for (int e = 0; e < R; ++e) {
+        local = e < cnt ? fmaf(px[e], py[e], local) : local;
+      }
+    }
+  }
+  if constexpr (kDot) finish_dot(local, partials, ticket, dot);
+}
+
+// The address of each form of the overloaded stencil_kernel, for the
+// launches and the occupancy queries.
+template <typename TI, typename TO, bool kDot>
+const void* plain_stencil_kernel() {
+  void (*k)(const TI*, const int*, int, TO*, float*, unsigned*, float*, int,
+            int, StencilTerms) = stencil_kernel<TI, TO, kDot>;
+  return reinterpret_cast<const void*>(k);
+}
+
+template <typename TI, typename TO, bool kDot>
+const void* halo_stencil_kernel() {
+  void (*k)(const TI*, TO*, float*, unsigned*, float*, int, int, StencilTerms,
+            StencilHalo<TI>) = stencil_kernel<TI, TO, kDot>;
+  return reinterpret_cast<const void*>(k);
 }
 
 // Fill `t` from the host arrays of ops/cuda_stencil.py's plan: the `nterms`

@@ -57,6 +57,12 @@ class LinearOperator:
         y = self.mv(x)
         return y, torch.sum(x.conj() * y)
 
+    def capturable(self, dtype) -> bool:
+        """Whether a solve's steps in ``dtype`` on this operator may be
+        captured in a CUDA graph and replayed
+        (``solvers/common.StepGraphs``): no, unless the operator says so."""
+        return False
+
     def mv_rows(self, Xr):
         """Row-panel product: ``Xr`` is (k, n) with VECTORS AS ROWS; returns
         the (k, m) row panel of ``A @ x`` per row.  Block solvers (LOBPCG,

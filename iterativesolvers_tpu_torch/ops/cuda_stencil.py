@@ -37,6 +37,19 @@ streams share no ticket and no partials.
 A CUDA tensor launches the kernel or raises (also past the kernel's limits:
 at most ``MAX_TERMS`` terms, 32-bit row indices); a CPU tensor takes the
 plain version :func:`stencil_apply_plain`, which has no such limits.
+
+The halo form (``base``, ``n_global``, ``left``, ``right``) computes one
+rank's block of a product whose vector is split in row blocks over ranks
+(``parallel/sharded.py`` ``HaloStencilOperator``): x is rows
+``[base, base + n)`` of a vector of ``n_global`` rows, ``left`` the ``h``
+rows below the block and ``right`` the ``h`` rows above it (the halo
+exchange's planes, ``h`` at least every offset).  y is those rows of
+``A x_global``: each row masked as its global row, a column outside
+``[0, n_global)`` 0, so that what the exchange wraps around the ring's ends
+is dropped.  The sum order is the one-card form's, so the blocks of the
+ranks are the bits of the whole vector's product; with the dot, the block's
+share of ``<x, Ax>``.  On a CUDA tensor the same kernel takes it in one
+launch (its halo overload, ``csrc/stencil.cuh``).
 """
 
 from __future__ import annotations
@@ -175,14 +188,17 @@ def _normal(terms, coeffs):
             tuple(coeffs))
 
 
-def stencil_sum(n, order, x):
+def stencil_sum(n, order, x, halo=None):
     """``sum c * x[i + off]`` over ``order``, a sequence of ``(off, c,
     term)``: ``term = (stride, extent)`` counts the product only where that
     grid axis stays on the grid, None counts it everywhere; a column outside
     ``[0, n)`` reads 0.  Added in the order given, starting from 0, in x's
     dtype; x is (n,) or (n, k).  The one body of the plain stencil products:
     the kernel's (:func:`stencil_apply_plain`) and
-    ``StencilOperator._apply``."""
+    ``StencilOperator._apply``.  ``halo = (base, n_global, left, right)``:
+    the halo form of the module's docstring (x 1-D)."""
+    if halo is not None:
+        return _halo_sum(n, order, x, *halo)
     i = torch.arange(n, device=x.device)
     pad = max(max((abs(off) for (off, _, _) in order), default=0), 1)
     z = x.new_zeros((pad,) + tuple(x.shape[1:]))
@@ -201,14 +217,60 @@ def stencil_sum(n, order, x):
     return y
 
 
+def _halo_sum(n, order, x, base, n_global, left, right):
+    """stencil_sum's halo form: rows ``[base, base + n)`` of the product
+    of the vector of ``n_global`` rows that holds ``left``, x and ``right``
+    from global row ``base - h``."""
+    h = left.shape[0]
+    i = base + torch.arange(n, device=x.device)
+    xp = torch.cat([left, x, right])
+    y = torch.zeros_like(x)
+    for off, c, term in order:
+        j = i + off
+        valid = (j >= 0) & (j < n_global)
+        if term is not None:
+            stride, extent = term
+            p = (i // stride) % extent + off // stride
+            valid = valid & (p >= 0) & (p < extent)
+        y = y + torch.where(valid, c * xp[h + off:h + off + n], 0.0)
+    return y
+
+
+def _halo_args(n, terms, base, n_global, left, right):
+    """``(base, n_global, left, right)`` of a halo-form call, checked, or
+    None where the call gives none of them."""
+    given = [v is not None for v in (base, n_global, left, right)]
+    if not any(given):
+        return None
+    if not all(given):
+        raise ValueError("the halo form takes base, n_global, left and right "
+                         "together")
+    base, n_global = int(base), int(n_global)
+    if base < 0 or base + n > n_global:
+        raise ValueError(f"rows [{base}, {base + n}) lie outside the "
+                         f"{n_global} rows of the vector")
+    h = left.shape[0]
+    if left.ndim != 1 or right.ndim != 1 or right.shape[0] != h:
+        raise ValueError("the halo form takes two 1-D planes of one length")
+    if h < 1 or any(abs(o) > h for (o, _, _) in terms):
+        raise ValueError(f"planes of {h} rows: they must hold every "
+                         "offset's reach")
+    return base, n_global, left, right
+
+
 def stencil_apply_plain(n, center, terms, coeffs, x, *, conj=False,
-                        with_dot=False):
+                        with_dot=False, base=None, n_global=None, left=None,
+                        right=None):
     """The kernel's function in plain PyTorch: the same sum order, f32
-    arithmetic, y in x's dtype, dot in f32."""
+    arithmetic, y in x's dtype, dot in f32; with ``base``, ``n_global``,
+    ``left`` and ``right``, the halo form (module docstring)."""
     terms, coeffs = _normal(terms, coeffs)
     plan = _plan(center, terms, coeffs, bool(conj), x.dtype)
+    halo = _halo_args(n, terms, base, n_global, left, right)
+    if halo is not None:
+        halo = halo[:2] + (halo[2].float(), halo[3].float())
     xf = x.float()
-    y = stencil_sum(n, plan.order, xf).to(x.dtype)
+    y = stencil_sum(n, plan.order, xf, halo).to(x.dtype)
     if with_dot:
         return y, torch.sum(xf * y.float())
     return y
@@ -265,8 +327,12 @@ def _lib():
     lib.its_stencil_terms_bytes.argtypes = []
     lib.its_stencil_pack_terms.restype = ctypes.c_int
     lib.its_stencil_pack_terms.argtypes = [ctypes.c_void_p] + _TERMS_ARGTYPES
+    lib.its_stencil_apply_halo.restype = ctypes.c_int
+    lib.its_stencil_apply_halo.argtypes = (
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     lib.its_stencil_blocks_per_sm.restype = ctypes.c_int
-    lib.its_stencil_blocks_per_sm.argtypes = [ctypes.c_int] * 2 + [
+    lib.its_stencil_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
         ctypes.c_void_p]
     return lib
 
@@ -336,12 +402,13 @@ def launch_plan(plan, n, with_dot, device, stream, blocks_fn, *blocks_args):
 
 
 @functools.lru_cache(maxsize=64)
-def _launch(n, center, terms, coeffs, conj, dtype, with_dot, device, stream):
+def _launch(n, center, terms, coeffs, conj, dtype, with_dot, device, stream,
+            halo=False):
     _check_terms(terms)
     _check_kernel(n, terms)
     return launch_plan(_plan(center, terms, coeffs, conj, dtype), n, with_dot,
                        device, stream, _lib().its_stencil_blocks_per_sm,
-                       _DTYPE_CODE[dtype], int(with_dot))
+                       _DTYPE_CODE[dtype], int(with_dot), int(halo))
 
 
 def aligned(*tensors) -> bool:
@@ -351,26 +418,30 @@ def aligned(*tensors) -> bool:
 
 
 def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False,
-                  out=None):
+                  out=None, base=None, n_global=None, left=None, right=None):
     """y = A x (and ``<x, Ax>`` in f32 with ``with_dot``) for the stencil
-    ``(center, terms, coeffs)``; see the module docstring.  ``out``, a
+    ``(center, terms, coeffs)``; with ``base``, ``n_global``, ``left`` and
+    ``right`` the halo form; see the module docstring.  ``out``, a
     contiguous tensor like x, takes y on a CUDA launch."""
     n = int(n)
     if not (type(terms) is tuple and type(coeffs) is tuple
             and all(type(t) is tuple for t in terms)):
         terms, coeffs = _normal(terms, coeffs)
     _check_x(n, x)
+    halo = _halo_args(n, terms, base, n_global, left, right)
     if x.device.type == "cpu":
         _check_terms(terms)
         return stencil_apply_plain(n, center, terms, coeffs, x, conj=conj,
-                                   with_dot=with_dot)
+                                   with_dot=with_dot, base=base,
+                                   n_global=n_global, left=left, right=right)
     if x.device.type != "cuda":
         raise ValueError(f"stencil kernel runs on CUDA tensors, got {x.device}")
     dev = x.device
     stream = raw_stream(dev)
     # the plan without the dot holds nothing of a stream's
     launch = _launch(n, center, terms, coeffs, bool(conj), x.dtype,
-                     bool(with_dot), dev, stream if with_dot else 0)
+                     bool(with_dot), dev, stream if with_dot else 0,
+                     halo is not None)
     y = torch.empty_like(x) if out is None else _check_out(out, x)
     if with_dot:
         dot = torch.empty((), dtype=torch.float32, device=dev)
@@ -378,9 +449,13 @@ def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False,
     else:
         ptrs = (None, None, None)
     with on_device(dev):
-        err = _lib().its_stencil_apply(
-            _DTYPE_CODE[x.dtype], int(with_dot), x.data_ptr(), y.data_ptr(),
-            *ptrs, n, launch.grid, int(aligned(x, y)), launch.terms, stream)
+        if halo is None:
+            err = _lib().its_stencil_apply(
+                _DTYPE_CODE[x.dtype], int(with_dot), x.data_ptr(),
+                y.data_ptr(), *ptrs, n, launch.grid, int(aligned(x, y)),
+                launch.terms, stream)
+        else:
+            err = _apply_halo(n, x, y, ptrs, launch, stream, *halo)
     if err != 0:
         raise RuntimeError(f"stencil kernel launch failed (error {err})")
     stencil_apply.launches += 1
@@ -388,6 +463,26 @@ def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False,
 
 
 stencil_apply.launches = 0
+
+
+def _apply_halo(n, x, y, ptrs, launch, stream, base, n_global, left, right):
+    """The halo form's launch (its_stencil_apply_halo); returns its error
+    code."""
+    h = left.shape[0]
+    if (left.dtype != x.dtype or right.dtype != x.dtype
+            or left.device != x.device or right.device != x.device
+            or not left.is_contiguous() or not right.is_contiguous()):
+        raise ValueError("left and right must be contiguous planes like x")
+    if n_global + h > max_rows(0):
+        raise ValueError(f"n_global = {n_global} is too large for 32-bit row "
+                         "indices")
+    V = run_rows(x.dtype)
+    hvec = aligned(left, right) and h % V == 0 and n % V == 0
+    return _lib().its_stencil_apply_halo(
+        _DTYPE_CODE[x.dtype], int(ptrs[0] is not None), x.data_ptr(),
+        y.data_ptr(), *ptrs, n, launch.grid, int(aligned(x, y)), launch.terms,
+        left.data_ptr(), right.data_ptr(), h, base, n_global, int(hvec),
+        stream)
 
 
 def _check_out(out, x):

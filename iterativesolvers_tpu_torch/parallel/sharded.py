@@ -58,6 +58,7 @@ from ..ops.cuda_spmv import (dia_spmv, dia_spmv_dot, dia_spmv_plain,
 from ..ops.cuda_stencil import stencil_apply, stencil_apply_rows
 from ..utils.convert import host_tensor
 from ..utils.dtypes import as_dtype
+from ..utils.profiling import span
 
 __all__ = [
     "RowMesh",
@@ -78,6 +79,9 @@ __all__ = [
 # the collectives a mesh issues, counted by kind in ``RowMesh.counts``
 COLLECTIVES = ("exchange", "fetch", "all_reduce", "all_gather",
                "reduce_scatter")
+# and the replays of captured steps (``solvers/common.StepGraphs``): the
+# graphs launched and the steps they ran
+REPLAYS = ("replay", "replay_steps")
 
 _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # moved as bytes by the all-gather (gloo has no such element type)
@@ -170,7 +174,9 @@ class RowMesh:
         self._owns_group = owns_group
         # collectives issued, by kind (COLLECTIVES); a one-rank mesh issues
         # none.  utils/profiling.collective_counts reads them over a window.
-        self.counts = dict.fromkeys(COLLECTIVES, 0)
+        # A replayed graph adds the collectives it holds, and counts itself
+        # and its steps (REPLAYS).
+        self.counts = dict.fromkeys(COLLECTIVES + REPLAYS, 0)
 
     def __repr__(self):
         return (f"RowMesh(rank={self.rank}, size={self.size}, "
@@ -186,7 +192,8 @@ class RowMesh:
         computed from the result agrees across ranks."""
         if self.size > 1:
             self.counts["all_reduce"] += 1
-            dist.all_reduce(t, op=_REDUCE_OPS[op])
+            with span("its.allreduce"):
+                dist.all_reduce(t, op=_REDUCE_OPS[op])
         return t
 
     def _host(self, t):
@@ -213,15 +220,16 @@ class RowMesh:
         self.counts["exchange"] += 1
         nxt = (self.rank + 1) % self.size
         prv = (self.rank - 1) % self.size
-        s_last, s_first = self._host(last), self._host(first)
-        left, right = torch.empty_like(s_last), torch.empty_like(s_first)
-        ops = [dist.P2POp(dist.isend, s_last, nxt, tag=0),
-               dist.P2POp(dist.isend, s_first, prv, tag=1),
-               dist.P2POp(dist.irecv, left, prv, tag=0),
-               dist.P2POp(dist.irecv, right, nxt, tag=1)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        return left.to(last.device), right.to(first.device)
+        with span("its.exchange"):
+            s_last, s_first = self._host(last), self._host(first)
+            left, right = torch.empty_like(s_last), torch.empty_like(s_first)
+            ops = [dist.P2POp(dist.isend, s_last, nxt, tag=0),
+                   dist.P2POp(dist.isend, s_first, prv, tag=1),
+                   dist.P2POp(dist.irecv, left, prv, tag=0),
+                   dist.P2POp(dist.irecv, right, nxt, tag=1)]
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+            return left.to(last.device), right.to(first.device)
 
     def all_gather(self, t):
         """``t`` of every rank, in rank order (equal shapes on all ranks),
@@ -833,15 +841,28 @@ class HaloStencilOperator(_MeshOperator):
       with shard boundaries, so in-shard reads are always on-grid and the
       global mask is needed only for the halo-sized edge corrections.
 
-    The local interior (every contribution from the rank's own rows, reads
-    outside the block zero) is the port's stencil kernel on the block,
-    ``stencil_apply`` with ``n = n_local`` (the JAX package runs its Pallas
-    kernel per shard with ``stencil_plan(n_local, ...)``): the kernel reads
-    0 outside ``[0, n_local)``, and its local masks give the global ones
-    inside the block under the two rules above.  Other dtypes (f64,
-    complex, 2-D x) take the JAX package's masked shifted slices.  ``mv_dot``
-    takes the local ``<x, Ax>`` from the kernel's pass, adds the edge
-    corrections' share and allreduces it.
+    A real 1-D f32 / bf16 x takes the whole product of the rank's rows in
+    the stencil kernel's halo form (``stencil_apply`` with ``base``,
+    ``n_global`` and the exchanged planes), which masks each row as its
+    global row and reads the planes where a column leaves the block: one
+    launch on a card, its plain version on the CPU; ``mv_dot`` allreduces
+    its dot.  That is the bits of the whole vector's one-card product, row
+    for row.
+
+    Other x (other dtypes, 2-D x) and ``mv_rows`` take the eager route
+    (``_eager``): the local interior (every contribution from the rank's own
+    rows, reads outside the block zero) comes first, the port's stencil
+    kernel on the block, ``n = n_local``, for a real f32 / bf16 panel (the
+    JAX package runs its Pallas kernel per shard with ``stencil_plan(n_local,
+    ...)``), whose local masks give the global ones inside the block under
+    the two rules above, and the JAX package's masked shifted slices
+    otherwise; then the edge corrections from the planes under the global
+    Dirichlet mask (``_edge_terms``), added after the interior's sum.
+    ``mv_dot`` adds their share to the interior's ``<x, Ax>`` and
+    allreduces it.
+
+    :meth:`capturable` says whether a solve's steps on this operator may be
+    captured in a CUDA graph and replayed (``solvers/common.StepGraphs``).
     """
 
     def __init__(self, st: StencilOperator, mesh: RowMesh):
@@ -939,7 +960,42 @@ class HaloStencilOperator(_MeshOperator):
             return y, torch.sum(x_loc.conj() * y)
         return y
 
+    def _kernel_dtype(self, dtype) -> bool:
+        """Whether vectors of ``dtype`` take the halo form (one launch of
+        the kernel on a card, its plain version on the CPU)."""
+        return (self.halo > 0 and dtype in _KERNEL_DTYPES
+                and not self._dtype.is_complex)
+
+    def _folds(self, x) -> bool:
+        """Whether a product of ``x`` is the halo form."""
+        return x.ndim == 1 and self._kernel_dtype(x.dtype)
+
+    def capturable(self, dtype) -> bool:
+        """A mesh of several cards over NCCL (whose collectives a capture
+        takes) and products that are the halo form's one launch, with no
+        host read and no host-side state."""
+        mesh = self.mesh
+        return (mesh.size > 1 and mesh.backend == "nccl"
+                and mesh.device.type == "cuda"
+                and self._kernel_dtype(as_dtype(dtype)))
+
     def _apply(self, x, conj: bool, with_dot: bool = False):
+        if not self._folds(x):
+            return self._eager(x, conj, with_dot)
+        n_local = self.n_local
+        center, eff, cs = self._stencil(conj)
+        left, right = _halo_slices(self.mesh, x, self.halo)
+        out = stencil_apply(n_local, center, eff, cs, x, with_dot=with_dot,
+                            base=self.mesh.rank * n_local, n_global=self.n,
+                            left=left, right=right)
+        if with_dot:
+            return out[0], self.mesh.all_reduce(out[1])
+        return out
+
+    def _eager(self, x, conj: bool, with_dot: bool = False):
+        """The product as the local interior, then the edge corrections
+        (``_edge_terms``): the route of every x the halo form does not
+        take."""
         halo, n_local = self.halo, self.n_local
         center, eff, cs = self._stencil(conj)
         if halo:

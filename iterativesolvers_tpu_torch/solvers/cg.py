@@ -23,11 +23,12 @@ from typing import NamedTuple
 
 import torch
 
+from ..operators.preconditioners import is_identity
 from ..utils.dtypes import real_dtype, solve_dtype
 from ..utils.profiling import span
 from .common import (SolveResult, SolverIterator, log_at, make_history,
-                     norm, prepare, print_resnorms, run_chunked, tolerance,
-                     vdot, with_highest_precision)
+                     norm, prepare, print_resnorms, run_chunked,
+                     step_graphs, tolerance, vdot, with_highest_precision)
 
 __all__ = ["cg", "cg_iterator", "CGState"]
 
@@ -100,8 +101,19 @@ def _cg_step(op, Pl, state: CGState, live, log_in_place=False) -> CGState:
     )
 
 
-def _cg_done(state: CGState, maxiter: int):
+def _cg_done(state: CGState, maxiter):
     return (state.k >= maxiter) | (state.residual <= state.tol)
+
+
+def _graphs(op, Pl, state):
+    """The CUDA graphs that replay the solve's phases, on an operator whose
+    steps may be captured (``common.step_graphs``: a mesh of several cards);
+    unpreconditioned solves only, as a preconditioner's apply may read the
+    host.  None: the steps are enqueued one by one."""
+    if not is_identity(Pl):
+        return None
+    x = state.x
+    return step_graphs(op, x.dtype, ("cg", x.dtype, tuple(x.shape)))
 
 
 @torch.no_grad()
@@ -109,11 +121,15 @@ def _cg_done(state: CGState, maxiter: int):
 def _cg_solve(op, b, x0, Pl, reltol, abstol, maxiter, initially_zero,
               chunk=256):
     state0 = _cg_init(op, b, x0, reltol, abstol, maxiter, initially_zero)
+    graphs = _graphs(op, Pl, state0)
+    # replayed steps read the limit from a tensor the graphs hold
+    limit = maxiter if graphs is None else graphs.limit(maxiter)
     final = run_chunked(
         lambda s, live: _cg_step(op, Pl, s, live, log_in_place=True),
-        lambda s: _cg_done(s, maxiter),
+        lambda s: _cg_done(s, limit),
         state0,
         chunk=chunk,
+        graphs=graphs,
     )
     return SolveResult(
         x=final.x,

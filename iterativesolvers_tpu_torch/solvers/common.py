@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import weakref
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
@@ -46,6 +47,8 @@ __all__ = [
     "log_at",
     "run_chunked",
     "chunked_steps",
+    "StepGraphs",
+    "step_graphs",
     "allreduce",
     "row_norms",
     "local_len",
@@ -365,7 +368,8 @@ def chunked_steps(iters: int, chunk: int = 256) -> int:
         done += c
 
 
-def run_chunked(step, done, state, chunk: int = 256, on_phase=None):
+def run_chunked(step, done, state, chunk: int = 256, on_phase=None,
+                graphs=None):
     """Drive ``state = step(state, live)`` until ``done(state)``, reading the
     data-dependent exit back to the host only once per phase: every read
     waits for the device, so a check per step would idle the card between
@@ -389,7 +393,14 @@ def run_chunked(step, done, state, chunk: int = 256, on_phase=None):
     Under a profiler, each executed step is a span ``its.step`` (its live
     mask included) and each host read of ``done`` a span ``its.sync``
     (``utils/profiling.span``).
+
+    ``graphs`` (a :class:`StepGraphs`, from :func:`step_graphs`): each
+    phase is one replay of a CUDA graph of its steps, captured at its
+    first use, instead of its steps enqueued one by one; the same steps,
+    masks and host reads.
     """
+    if graphs is not None and chunk > 1:
+        return graphs.run(step, done, state, chunk, on_phase)
     if chunk <= 1:
         while not _finished(done, state):
             with span("its.step"):
@@ -411,3 +422,142 @@ def _finished(done, state) -> bool:
     """``done(state)`` read back to the host: it waits for the device."""
     with span("its.sync"):
         return bool(done(state))
+
+
+class StepGraphs:
+    """The phases of :func:`run_chunked` as CUDA graphs, for the solves of
+    one solver in one dtype on one operator whose vectors are row blocks
+    over a mesh of several cards (``parallel/sharded.py``).
+
+    Every collective of a step makes each card wait for the slowest rank's
+    host to have launched its part; replayed, a phase of steps is one launch
+    a rank, and the cards set the pace together.  A phase of ``c`` steps is
+    captured at its first use (one warm-up step, masked off, on the capture
+    stream, before the first capture) and replayed at every later use, in
+    this solve and the next: the state lives in static tensors, into which
+    each solve copies its initial state, and which each replay advances by
+    ``c`` steps (the graph's last nodes copy the stepped state back).  The
+    step must take no host read and keep no host-side state, and its
+    collectives must be NCCL's, which a capture takes; every rank captures
+    and replays in the same order, as every rank runs the same phases.
+    What a solve returns is a copy of the static state.
+
+    The solve's iteration limit is the 0-d tensor :meth:`limit`, which its
+    ``done`` reads, so that a new ``maxiter`` replays the same graphs.  A
+    state tensor that is a log along its first axis (``maxiter`` rows) is
+    held at the longest a solve has given: a shorter one fills its leading
+    rows and is returned as those rows (a step writes only at the live
+    slots below the solve's limit, the same slots as in the solve's own
+    log); a longer one makes new static state and captures anew.
+
+    Memory, held while the operator lives: the static state (for CG x, r
+    and u, a vector each, the scalars, and the residual log of the largest
+    ``maxiter`` given) and the graphs' private pool (the intermediates of a
+    phase's steps: a few vectors).
+
+    The mesh counts each replay and its steps (``counts["replay"]`` and
+    ``["replay_steps"]``) and, for each replay, the collectives the graph
+    holds, as if issued again.  Under a profiler each capture is a span
+    ``its.capture`` and each replay a span ``its.replay``.
+    """
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.static = None
+        self.graphs = {}        # phase length -> (graph, collectives held)
+        self.pool = None
+        self.stream = None
+        self._limit = None
+
+    def limit(self, maxiter: int) -> torch.Tensor:
+        """The 0-d int64 tensor the captured steps read as the iteration
+        limit, set to ``maxiter`` (on the stream, in order with the
+        replays)."""
+        if self._limit is None:
+            self._limit = torch.zeros((), dtype=torch.int64,
+                                      device=self.mesh.device)
+        return self._limit.fill_(maxiter)
+
+    def _load(self, state):
+        """The solve's initial state copied into the static tensors; new
+        static tensors (and no graphs) on the first solve or for a log
+        longer than they hold."""
+        S = self.static
+        if S is None or any(d.shape[0] < t.shape[0]
+                            for d, t in zip(S, state) if t.ndim):
+            # owned copies: the caller's tensors (x0 among them) stay as
+            # they are
+            self.static, self.graphs = type(state)(
+                *(t.clone() for t in state)), {}
+            return
+        for d, t in zip(S, state):
+            (d[:t.shape[0]] if t.ndim else d).copy_(t)
+
+    def run(self, step, done, state, chunk, on_phase=None):
+        self._load(state)
+        S = self.static
+        for c in _phases(chunk):
+            if _finished(done, S):
+                break
+            graph, held = self.graphs.get(c) or self._capture(step, done, c)
+            with span("its.replay"):
+                graph.replay()
+            counts = self.mesh.counts
+            for kind, n in held.items():
+                counts[kind] += n
+            counts["replay"] += 1
+            counts["replay_steps"] += c
+            if on_phase is not None:
+                on_phase(S)
+        return type(S)(*((d[:t.shape[0]] if t.ndim else d).clone()
+                         for d, t in zip(S, state)))
+
+    def _capture(self, step, done, c):
+        S, counts = self.static, self.mesh.counts
+        if self.stream is None:
+            self.pool = torch.cuda.graph_pool_handle()
+            self.stream = torch.cuda.Stream(device=self.mesh.device)
+            # what a capture may not do (a first launch's set-up, a
+            # stream's dot ticket, NCCL's own start) happens here, in a
+            # step that changes nothing
+            self.stream.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(self.stream):
+                step(S, torch.zeros((), dtype=torch.bool,
+                                    device=S[0].device))
+            torch.cuda.current_stream().wait_stream(self.stream)
+        before = dict(counts)
+        graph = torch.cuda.CUDAGraph()
+        with span("its.capture"), torch.cuda.graph(
+                graph, pool=self.pool, stream=self.stream,
+                capture_error_mode="thread_local"):
+            s = S
+            for _ in range(c):
+                with span("its.step"):
+                    s = step(s, ~done(s))
+            for dst, src in zip(S, s):
+                if dst is not src:
+                    dst.copy_(src)
+        # the capture ran nothing: its collectives are counted at replay
+        held = {k: n - before[k] for k, n in counts.items() if n != before[k]}
+        for kind, n in held.items():
+            counts[kind] -= n
+        self.graphs[c] = (graph, held)
+        return self.graphs[c]
+
+
+def step_graphs(op, dtype, key):
+    """The :class:`StepGraphs` of ``op`` under ``key`` (the solver, and all
+    that its captured steps hold fixed but the iteration limit: dtype,
+    shape, ...), made at first use and kept while the operator lives (one
+    for each solver and dtype: the shape is the operator's block); None
+    where ``op.capturable(dtype)`` says no."""
+    if not op.capturable(dtype):
+        return None
+    cache = _STEP_GRAPHS.setdefault(op, {})
+    if key not in cache:
+        cache[key] = StepGraphs(op.mesh)
+    return cache[key]
+
+
+# operator -> {key: StepGraphs}; an entry goes with its operator
+_STEP_GRAPHS = weakref.WeakKeyDictionary()

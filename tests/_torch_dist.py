@@ -476,10 +476,72 @@ def sharded(c, a, mesh):
     return out
 
 
+def mesh_spans(c, a, mesh):
+    """The mesh's spans (``its.exchange``, ``its.allreduce``) that one
+    ``mv_dot`` and one norm of the operator record under a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    op = _operator(c, a, mesh)
+    x = shard_vector(a["x"], mesh)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _, d = op.mv_dot(x)
+        pits.solvers.common.norm(x, mesh)
+    names = [e.name for e in prof.events()]
+    return {"exchange": np.array(names.count("its.exchange")),
+            "allreduce": np.array(names.count("its.allreduce")),
+            "mv_dot": _np(d)}
+
+
+def graph_cg(c, a, mesh):
+    """CG on the operator from ``b``, then ``b2``, then ``b2`` again with
+    ``maxiter`` = ``c["short"]``: as it runs (on a mesh of cards over NCCL,
+    its phases replayed from CUDA graphs), then with its steps enqueued one
+    by one; each solve's x, residual log and steps, the replays and graphs
+    of the first two, and the graphs after the third."""
+    from iterativesolvers_tpu_torch.solvers import cg as pcg
+    from iterativesolvers_tpu_torch.solvers.common import _STEP_GRAPHS
+
+    op = _operator(c, a, mesh)
+    kw = dict(c.get("kw", {}))
+    solves = (("graph", "b", {}), ("graph2", "b2", {}),
+              ("graph3", "b2", {"maxiter": c["short"]}))
+
+    def graphs():
+        return np.array(sum(len(g.graphs)
+                            for g in _STEP_GRAPHS.get(op, {}).values()))
+
+    out = {}
+    before = dict(mesh.counts)
+    for tag, key, more in solves:
+        x, h = pits.cg(op, shard_vector(a[key], mesh), log=True, **kw,
+                       **more)
+        out.update({f"{tag}/{k}": v for k, v in _history(x, h, mesh).items()})
+        if tag == "graph2":
+            out["replays"] = np.array(mesh.counts["replay"]
+                                      - before["replay"])
+            out["replay_steps"] = np.array(mesh.counts["replay_steps"]
+                                           - before["replay_steps"])
+            out["graphs"] = graphs()
+    out["graphs3"] = graphs()
+    eager = pcg._graphs
+    pcg._graphs = lambda *args: None
+    try:
+        for tag, key, more in solves:
+            tag = tag.replace("graph", "eager")
+            x, h = pits.cg(op, shard_vector(a[key], mesh), log=True, **kw,
+                           **more)
+            out.update({f"{tag}/{k}": v
+                        for k, v in _history(x, h, mesh).items()})
+    finally:
+        pcg._graphs = eager
+    return out
+
+
 CASES = {"halo_ops": halo_ops, "interior": interior, "panel": panel,
          "gmres": gmres, "cg": cg, "pipecg": pipecg, "setup": setup,
          "bjacobi": bjacobi, "rows": rows, "mesh_ops": mesh_ops,
-         "cg_step": cg_step, "solve": solve, "sharded": sharded}
+         "cg_step": cg_step, "solve": solve, "sharded": sharded,
+         "mesh_spans": mesh_spans, "graph_cg": graph_cg}
 
 
 MESHES = {"gloo": ("gloo", lambda r: "cpu"),

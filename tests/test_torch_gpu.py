@@ -1075,3 +1075,128 @@ def test_cuda_rbic_pcg_takes_the_eager_steps(cuda):
     assert len(res) == 2
     assert all(v["spill_stores"] == v["spill_loads"] == v["stack"] == 0
                for v in res.values())
+
+
+# ---- the halo form of the stencil kernel and the replayed mesh CG ----------
+
+# grids (nz, ny, nx) split over D ranks in slabs of nz: planes of whole
+# vectors (the 16-byte loads from the planes) and planes of odd length (one
+# load a column there)
+HALO_GRIDS = {"32x24x16": (32, 24, 16), "20x9x7": (20, 9, 7)}
+
+
+def _halo_case(cuda, grid, D, rank, dtype):
+    """The brick's stencil, the whole vector, this rank's block and its
+    exchanged planes (the ring's neighbours' edge rows) on the card."""
+    from test_torch_halo_fold import _brick_terms
+
+    N = int(np.prod(grid))
+    n, h = N // D, grid[1] * grid[2]
+    lo = rank * n
+    center, terms, coeffs = _brick_terms(grid)
+    g = torch.Generator(device=cuda).manual_seed(11 + rank)
+    whole = torch.randn(N, generator=g, device=cuda).to(dtype)
+    planes = (torch.roll(whole, h)[lo:lo + h].contiguous(),
+              torch.roll(whole, -n)[lo:lo + h].contiguous())
+    return (center, terms, coeffs), whole, lo, n, h, planes
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", list(HALO_GRIDS))
+@pytest.mark.parametrize("D", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_halo_form_is_the_block_of_the_whole_product(cuda, grid, D,
+                                                          dtype):
+    """Each rank's halo-form launch, the planes passed in (no NCCL), is its
+    block of the one-card kernel's product of the whole vector bit for bit
+    (with the dot as without; D = 1: the one-card kernel and its halo form
+    of one block give the same bits), its dot within 1e-5 of the block's
+    sum; one launch a product.  The operator's eager edge route on the card
+    (the one-card launch on the block, then the edge terms) gives the same
+    bits off the edge rows and agrees within the reordered add on them
+    (``tests/test_torch_halo_fold.py``)."""
+    from test_torch_halo_fold import BOUND, PlaneMesh
+
+    for rank in range(D):
+        (center, terms, coeffs), whole, lo, n, h, (left, right) = _halo_case(
+            cuda, HALO_GRIDS[grid], D, rank, dtype)
+        args = (center, terms, coeffs)
+        N = whole.shape[0]
+        x = whole[lo:lo + n].clone()
+        yw, dw = cuda_stencil.stencil_apply(N, *args, whole, with_dot=True)
+        before = cuda_stencil.stencil_apply.launches
+        for with_dot in (False, True):
+            out = cuda_stencil.stencil_apply(
+                n, *args, x, with_dot=with_dot, base=lo, n_global=N,
+                left=left, right=right)
+            y = out[0] if with_dot else out
+            assert torch.equal(y, yw[lo:lo + n])
+        assert cuda_stencil.stencil_apply.launches == before + 2
+        xd, yd = x.double(), y.double()
+        assert (abs(float(out[1]) - float(xd @ yd))
+                <= 1e-5 * float((xd * yd).abs().sum()) + 1e-6)
+        if D == 1 or dtype != torch.float32:
+            continue
+        mesh = PlaneMesh(rank, D, whole.cpu(), h)
+        mesh.device = cuda
+        mesh.planes = (left, right)
+        op = pits.parallel.HaloStencilOperator(
+            pits.StencilOperator(N, *args, dtype=dtype, device=cuda), mesh)
+        assert torch.equal(op.mv(x), y)
+        eager = op._eager(x, False)
+        absum = cuda_stencil.stencil_apply_plain(
+            N, abs(center), terms, tuple(abs(c) for c in coeffs),
+            whole.abs().double().cpu())[lo:lo + n].to(cuda)
+        edge = torch.zeros(n, dtype=torch.bool, device=cuda)
+        edge[:h] = edge[n - h:] = True
+        assert torch.equal(eager[~edge], y[~edge])
+        assert bool(((eager - y).abs().double() <= BOUND * absum).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [2, 4])
+def test_cuda_replayed_mesh_cg_is_the_eager_mesh_cg(cuda, tmp_path, D):
+    """CG on D NCCL ranks (one card each) on the (64, 32, 32) brick, from b
+    and then from b2: its phases replayed from CUDA graphs, captured in the
+    first solve and replayed again in the second, give the eager mesh
+    solve's x and residual log bit for bit, and its steps; the replays run
+    every executed step.  A third solve from b2 with a smaller maxiter
+    replays the same graphs (no capture) and stops at maxiter, as the
+    eager solve does."""
+    from _torch_dist import launch
+    from test_torch_halo_fold import _brick_terms
+
+    from iterativesolvers_tpu_torch.ops import _build
+    from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+    if torch.cuda.device_count() < D:
+        pytest.skip(f"NCCL takes one card per rank: needs {D} cards")
+    _build.build_all()
+    grid = (64, 32, 32)
+    N = int(np.prod(grid))
+    center, terms, coeffs = _brick_terms(grid)
+    spec = {"kind": "stencil", "n": N, "center": center,
+            "terms": [list(t) for t in terms], "coeffs": list(coeffs),
+            "dtype": "float32"}
+    rng = np.random.default_rng(D)
+    b, b2 = (rng.standard_normal(N).astype(np.float32) for _ in range(2))
+    short = 50
+    got = launch([({"name": "g", "kind": "graph_cg", "op": spec,
+                    "kw": {"reltol": 1e-6}, "short": short},
+                   {"b": b, "b2": b2})],
+                 D, tmp_path, backend="nccl", timeout=600)
+    for r in got:
+        steps = 0
+        for tag in ("", "2", "3"):
+            for key in ("x", "resnorm", "iters"):
+                np.testing.assert_array_equal(r[f"g/graph{tag}/{key}"],
+                                              r[f"g/eager{tag}/{key}"])
+            assert bool(r[f"g/graph{tag}/converged"]) is (tag != "3")
+            if tag != "3":
+                steps += chunked_steps(int(r[f"g/graph{tag}/iters"]))
+        assert int(r["g/graph3/iters"]) == short
+        assert r["g/graph3/resnorm"].shape == (short,)
+        np.testing.assert_array_equal(r["g/graph/x"], got[0]["g/graph/x"])
+        assert int(r["g/replay_steps"]) == steps
+        assert 0 < int(r["g/graphs"]) < int(r["g/replays"])
+        assert int(r["g/graphs3"]) == int(r["g/graphs"])

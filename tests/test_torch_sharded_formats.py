@@ -553,14 +553,17 @@ def test_ell_with_adjoint_matches_jax(both):
 # the public names of DIAMatrix / ELLMatrix (and LinearOperator) whose
 # inherited form is right on the sharded class, and the test that shows it:
 # shape and dtype read the sharded class's own fields, mesh is set on every
-# instance, H / T wrap its rmv / mv, and ELL's mv_rows is the product of
-# the columns Xr.T
+# instance, H / T wrap its rmv / mv, ELL's mv_rows is the product of the
+# columns Xr.T, and capturable is LinearOperator's no (only the halo stencil
+# replays its steps)
 INHERITED = {"shape": "test_products_match_jax",
              "dtype": "test_whole_and_cast_forms_match_jax_bit_for_bit",
              "mesh": "test_products_match_jax",
              "H": "test_solves_match_jax (LSQR)",
              "T": "test_solves_match_jax (LSQR)",
-             "mv_rows": "test_products_match_jax"}
+             "mv_rows": "test_products_match_jax",
+             "capturable": "test_torch_halo_fold.py::"
+                           "test_steps_replay_on_a_mesh_of_cards_over_nccl"}
 
 
 @pytest.mark.parametrize("cls, base", [

@@ -43,11 +43,11 @@ def measure(root):
     St = its.laplacian(cs.SIDE, 3)
     A64 = fixtures.laplace_dia(cs.SIDE, 3, dtype="float64")
     dev = torch.device("cuda", torch.cuda.current_device())
-    # the grid of the stencil launch with the dot: the control drops one
-    # of its blocks
+    # the grid of the one-card stencil launch (f32, with the dot, no halo):
+    # the control drops one of its blocks
     lib = cuda_stencil._lib()
     grid = cuda_stencil.grid_for(
-        cuda_stencil.blocks_per_sm(lib.its_stencil_blocks_per_sm, 0, 1,
+        cuda_stencil.blocks_per_sm(lib.its_stencil_blocks_per_sm, 0, 1, 0,
                                    device=dev), dev, St.n,
         cuda_stencil.STENCIL_RUN)
     table = cs.dot_order_spread(torch, its, St, A64, grid)
