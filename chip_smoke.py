@@ -23,13 +23,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
    the (864, 216, 216) grid, planes of 46,656 rows) for rank 0, an interior
    rank and the last rank, against the one-card launch's product of the
    whole vector bit for bit and against its plain version, with and without
-   the dot, one launch a call.
+   the dot, one launch a call; the CG step's vector kernels (``cg_rho``,
+   ``cg_direction``, ``cg_update`` in its one-card and mesh forms) against
+   their plain versions on the launch's grid, bit for bit, and against the eager step's torch operations
+   given the same scalars (u', x' and r' bit for bit), one launch a call.
 4. The main path: CG through ``cg(...)`` on the 216^3 Laplacian over the four
    operator paths of ``bench.py`` (matrix-free stencil; stored DIA with f32,
    bf16 and int8 diagonals).  Each run converges, agrees with the others and
    with an f64 solve, reaches the true residual of the same f32 solve through
-   the plain version (no kernel), and launched its kernel once per CG step,
-   masked steps included.  Then the spread of sound orders of CG's dot (the
+   the plain version (no kernel, the eager step), and launched its kernel
+   and the step's direction and update kernels once per CG step, masked
+   steps included.  Then the spread of sound orders of CG's dot (the
    kernel's, torch.sum's, an f64 sum) on b = 1 and two seeded b, each within
    the limits set from it, and a control (a dot without one block's rows)
    that the limits must reject.
@@ -67,10 +71,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
     one card over gloo run GMRES(20) at reltol 0 on the row-sharded 216^3
     stencil with its launch counts, its witness (the sweeps' plain
     versions), its step time and a trace; converging GMRES(10) on the
-    shifted Laplacian (f32 and bf16 panels) and CG, each against its witness
-    and the single-card solves of phases 4 and 9; and pipelined CG on the
-    shifted Laplacian, one allreduce a step (CG's three counted beside it),
-    against the same solve on one card.
+    shifted Laplacian (f32 and bf16 panels) and CG (the CG step's direction
+    and update kernels, the update in its mesh form, once a step), each
+    against its witness and the single-card solves of phases 4 and 9; and
+    pipelined CG on the shifted Laplacian, one allreduce a step (CG's two
+    counted beside it), against the same solve on one card.
 13. The Krylov solvers at 216^3 through their public calls: MINRES (on the
     stencil and the int8 DIA matrix), QMR and BiCGStab(2) on the Laplacian,
     held to the JAX package's own f32 runs; pipelined CG (stencil and int8
@@ -115,7 +120,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
     and two seeded b, each held to the JAX package's own f32 run on a CPU
     (``jax_reference/precond_f32_216.py``) and to its f64 twin on the card;
     CG on the int8 216^3 Laplacian with and without RB-IC (the red-black
-    kernel ``rbic_apply``, one launch an ldiv call); LOBPCG with
+    kernel ``rbic_apply``, one launch an ldiv call; the CG step's
+    ``cg_direction`` and ``cg_update`` once a step, ``cg_rho`` once a PCG
+    step); LOBPCG with
     IC(0) (natural, multicolor) and RB-IC at 101^3 against the analytic
     eigenvalues; ILU(0) GMRES(20) (natural, multicolor) at 100^3 and IC(0)
     GMRES(20) on a ``.mtx`` Laplacian; the six stationary variants on the
@@ -333,6 +340,120 @@ def rbic_entry(torch, P, x, err, dev_timed, timed):
         "library_ms": None,
         "library_note": "no PyTorch call computes the red-black IC(0) apply",
     }
+
+
+def cg_step_parity(torch, x):
+    """The CG step's vector kernels at 216^3 (``ops/cuda_cg.py``) on
+    seeded vectors: each launch against its plain version on the card on
+    the launch's grid, bit for bit (vectors, sums, the residual, the count
+    and the log slot; the update in its one-card form and in its mesh form,
+    which returns this rank's |r'|^2), and u', x' and r' against the eager
+    step's torch operations given the same scalars, bit for bit; one launch
+    a call.  Returns the largest error (0 unless a check failed) and, for
+    the kernels entries, each kernel's call, plain call and library call
+    (None for the update) by name."""
+    from iterativesolvers_tpu_torch.ops import cuda_cg, cuda_stencil
+
+    dev, n = x.device, x.shape[0]
+    g = torch.Generator(device=dev).manual_seed(1)
+    u, r, c, c2 = (torch.randn(n, generator=g, device=dev) for _ in range(4))
+    live = torch.ones((), dtype=torch.bool, device=dev)
+    rho_prev = torch.tensor(1.7, device=dev)
+    residual = torch.linalg.vector_norm(r)
+    grids = cuda_cg.launch_plan(n, dev, cuda_stencil.raw_stream(dev)).grids
+    kernels = (cuda_cg.cg_rho, cuda_cg.cg_direction, cuda_cg.cg_update)
+    before = [f.launches for f in kernels]
+    dot = cuda_cg.cg_rho(c, r)
+    u2, rho = cuda_cg.cg_direction(c, u, residual, rho_prev, live,
+                                   square=True)
+    sigma = torch.sum(u2 * c2)
+    k, log = torch.tensor(7, device=dev), torch.zeros(16, device=dev)
+    out = cuda_cg.cg_update(x, u2, r, c2, rho, sigma, live, residual, k, log)
+    mesh_form = cuda_cg.cg_update(x, u2, r, c2, rho, sigma, live)
+    if [f.launches - b for f, b in zip(kernels, before)] != [1, 1, 2]:
+        raise AssertionError("a CG step kernel call did not launch once")
+    log_p = torch.zeros(16, device=dev)
+    out_p = cuda_cg.cg_update_plain(x, u2, r, c2, rho, sigma, live,
+                                    residual, k, log_p, grid=grids[2])
+    alpha = rho / sigma
+    pairs = {
+        "cg_rho": (dot, cuda_cg.cg_rho_plain(c, r, grids[0])),
+        "cg_direction": ((u2, rho), cuda_cg.cg_direction_plain(
+            c, u, residual, rho_prev, live, square=True)),
+        "cg_update": (out + (log,), out_p + (log_p,)),
+        "cg_update mesh form": (mesh_form, cuda_cg.cg_update_plain(
+            x, u2, r, c2, rho, sigma, live, grid=grids[2])),
+        "cg_direction against the eager step": (
+            u2, torch.addcmul((rho / rho_prev) * u, live.float(), c)),
+        "cg_update against the eager step": (
+            out[:2], (torch.addcmul(x, alpha, u2),
+                      torch.addcmul(r, alpha, c2, value=-1)))}
+    err = 0.0
+    for name, (got, want) in pairs.items():
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        e = max(float((a.double() - b.double()).abs().max())
+                for a, b in zip(got, want))
+        err = max(err, e)
+        print(f"  {name}: {'the same bits' if same else 'DIFFERENT bits'}"
+              f" (max_abs_err {e:.3e})")
+        if not same:
+            raise AssertionError(f"{name}: not its plain version's bits")
+    beta = rho / rho_prev
+    calls = {
+        "cg_rho": (lambda: cuda_cg.cg_rho(c, r),
+                   lambda: cuda_cg.cg_rho_plain(c, r, grids[0]),
+                   lambda: torch.dot(c, r)),
+        "cg_direction": (
+            lambda: cuda_cg.cg_direction(c, u, residual, rho_prev, live,
+                                         square=True),
+            lambda: cuda_cg.cg_direction_plain(c, u, residual, rho_prev, live,
+                                               square=True),
+            lambda: torch.addcmul(c, beta, u)),
+        "cg_update": (
+            lambda: cuda_cg.cg_update(x, u2, r, c2, rho, sigma, live,
+                                      residual, k, log),
+            lambda: cuda_cg.cg_update_plain(x, u2, r, c2, rho, sigma, live,
+                                            residual, k, log_p,
+                                            grid=grids[2]),
+            None)}
+    return err, calls
+
+
+def cg_step_entries(calls, err, launches, dev_timed, timed, n):
+    """The CG step kernels' ``kernels`` entries at 216^3: device and host
+    time of one call beside the byte bound (rho reads c and r; the
+    direction reads c and u and writes u'; the update reads x, u, r and c
+    and writes x' and r': 2, 3 and 6 passes of 4n bytes), the plain
+    version's time on the card, and the one PyTorch call that computes the
+    same (``torch.dot`` for rho, ``torch.addcmul`` with a 0-d beta for the
+    direction; none for the update); ``launches`` those of phase 4's
+    stencil CG solve (phase 16's RB-IC PCG solve fills rho's)."""
+    passes = {"cg_rho": (2, 2), "cg_direction": (3, 2), "cg_update": (6, 6)}
+    out = []
+    for name, (call, plain, library) in calls.items():
+        nbytes, ops = passes[name]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": "iterativesolvers_tpu_torch/csrc/cg_step.cu",
+            "replaces": "no TPU kernel: the XLA fusion of "
+                        "iterativesolvers_tpu/solvers/cg.py _cg_step",
+            "launches": launches[name],
+            "max_abs_err": err,
+            **dev_timed(name, call),
+            "plain_ms": timed(f"{name} plain", plain, reps=5),
+            "bytes": nbytes * 4 * n,
+            "flops": ops * n,
+            "library_ms": (timed(f"{name} library", library)
+                           if library else None),
+            **({} if library else {
+                "library_note": "no PyTorch call updates x and r and sums "
+                                "|r'|^2 in one launch (the eager step takes "
+                                "two addcmul and a norm)"}),
+        })
+    return out
 
 
 # the four-card deployment (krylov_bench/configs/poisson7_4x216): the
@@ -1259,6 +1380,7 @@ def dist_solves(torch, mesh):
     results and (rank 0) the gathered solutions, on the host."""
 
     import iterativesolvers_tpu_torch as its
+    from iterativesolvers_tpu_torch.ops import cuda_cg
     from iterativesolvers_tpu_torch.ops import cuda_panel_ortho as cpo
     from iterativesolvers_tpu_torch.ops.cuda_stencil import stencil_apply
     from iterativesolvers_tpu_torch.parallel import (HaloStencilOperator,
@@ -1270,7 +1392,8 @@ def dist_solves(torch, mesh):
     St = its.laplacian(SIDE, 3, device=dev)
     op = HaloStencilOperator(St, mesh)
     b = torch.ones(op.n_local, device=dev)
-    counters = (cpo.panel_dots, cpo.panel_update, stencil_apply)
+    counters = (cpo.panel_dots, cpo.panel_update, stencil_apply,
+                cuda_cg.cg_rho, cuda_cg.cg_direction, cuda_cg.cg_update)
     res, xs = {"rank": mesh.rank}, {}
 
     def sync():
@@ -1451,8 +1574,9 @@ def check_ranks(torch, its, ranks, xs, secs, true_res, rel_diff, refs):
     xs = {k: v.to(dev) for k, v in xs.items()}
     r0 = ranks[0]
     cycles = GM_LONG // GM_RESTART
+    no_cg = {"cg_rho": 0, "cg_direction": 0, "cg_update": 0}
     want = {"panel_dots": 2 * GM_LONG, "panel_update": 2 * GM_LONG,
-            "stencil_apply": GM_LONG + cycles}
+            "stencil_apply": GM_LONG + cycles, **no_cg}
     want_w = dict(want, panel_dots=0, panel_update=0)
     for r in ranks:
         g, gw = r["gmres_500"], r["gmres_500_witness"]
@@ -1528,12 +1652,18 @@ def check_ranks(torch, its, ranks, xs, secs, true_res, rel_diff, refs):
     if not (c["converged"]
             and res <= min(TRUE_RES_F32, PLAIN_RES_FACTOR * res_pl)):
         raise AssertionError(f"distributed CG: true relative residual {res}")
-    if c["launches"]["stencil_apply"] != c["steps"]:
+    # the product and the step's direction and update (its mesh form, the
+    # rank's |r|^2 allreduced) once a step run; no rho without a
+    # preconditioner
+    if c["launches"] != dict(no_cg, panel_dots=0, panel_update=0,
+                             stencil_apply=c["steps"], cg_direction=c["steps"],
+                             cg_update=c["steps"]):
         raise AssertionError(f"distributed CG launches {c['launches']}")
     out["cg"] = dict(c, true_rel_residual=res, single_card_iters=h1.iters,
                      x_rel_diff_single_card=d1, x_rel_diff_f64=d64)
-    # pipelined CG on the shifted Laplacian: one allreduce a step (CG
-    # three), against the same solve on one card
+    # pipelined CG on the shifted Laplacian: one allreduce a step (CG two:
+    # sigma and |r|^2, its rho the residual's square), against the same
+    # solve on one card
     p = r0["pipelined_cg"]
     x1, h1 = its.pipelined_cg(
         its.StencilOperator(n, 7.0, St.terms, St.coeffs, device=dev),
@@ -1550,8 +1680,9 @@ def check_ranks(torch, its, ranks, xs, secs, true_res, rel_diff, refs):
             and d1 <= WITNESS_KRYLOV_X_REL):
         raise AssertionError(f"distributed pipelined CG: {p}")
     if not (p["allreduces"] == 1 + p["steps"]
-            and c["allreduces"] == 1 + 3 * c["steps"]
-            and p["launches"]["stencil_apply"] == 1 + p["steps"]):
+            and c["allreduces"] == 1 + 2 * c["steps"]
+            and p["launches"]["stencil_apply"] == 1 + p["steps"]
+            and all(p["launches"][k] == 0 for k in no_cg)):
         raise AssertionError(f"allreduces or launches: CG {c}, pipelined {p}")
     out["pipelined_cg"] = dict(p, true_rel_residual=res,
                                single_card_iters=h1.iters,
@@ -3342,11 +3473,16 @@ class PrecondPhase:
     ``counters`` every kernel wrapper, ``bound`` the bound of (bytes,
     operations).  ``runs`` holds the runs by name, ``eager`` the eager
     computations' timings, ``host_s`` the builders' host seconds and
-    ``launches`` the launches by kernels-line key and run."""
+    ``launches`` the launches by kernels-line key and run, the CG step's
+    vector kernels (``step_launches`` of a run's row) among them."""
 
     def __init__(self, torch, its, A_int8, counters, bound):
+        from iterativesolvers_tpu_torch.ops import cuda_cg
+
         self.torch, self.its = torch, its
         self.A_int8, self.counters, self.bound = A_int8, counters, bound
+        self.step_counters = (cuda_cg.cg_rho, cuda_cg.cg_direction,
+                              cuda_cg.cg_update)
         self.dev = torch.device(P16_DEVICE)
         self.runs, self.eager, self.host_s = {}, {}, {}
         self.launches, self.bad = {}, []
@@ -3354,7 +3490,7 @@ class PrecondPhase:
 
     # -- helpers ---------------------------------------------------------------
     def reset(self):
-        for f in self.counters:
+        for f in self.counters + self.step_counters:
             f.launches = 0
 
     def counts(self):
@@ -3386,7 +3522,8 @@ class PrecondPhase:
             for k, v in row.items() if not isinstance(v, (dict, list))),
             flush=True)
         self.runs[name] = row
-        for kernel, c in row.get("launches", {}).items():
+        for kernel, c in (row.get("launches", {}) | row.get("step_launches",
+                                                            {})).items():
             key = (f"{kernel}[{dia_dtype}]" if kernel.startswith("dia_")
                    else kernel)
             self.launches.setdefault(key, {})[name] = c
@@ -3402,9 +3539,12 @@ class PrecondPhase:
         self.reset()
         out, wall = timed_run(torch, lambda: call(None))
         c = self.counts()
+        step_c = {f.__name__: f.launches for f in self.step_counters
+                  if f.launches}
         steps = max(steps_of(out), 1)
         row = {"wall_ms": wall, "steps_run": steps,
-               "us_per_step": wall / steps * 1e3, "launches": c}
+               "us_per_step": wall / steps * 1e3, "launches": c,
+               "step_launches": step_c}
         if trace_steps:
             tout, by_kernel, syncs = syncs_and_trace(
                 torch, lambda: call(trace_steps), name)
@@ -3683,17 +3823,24 @@ class PrecondPhase:
                 lambda r: chunked_steps(r[1].iters))
             x64 = its.cg(A64, b.double(), Pl=Pl64, **RBIC_AB)
             # CG calls ldiv once a step run; each f32 RB-IC apply of
-            # from_stencil on the card is one rbic_apply
-            want = {"dia_spmv_dot": chunked_steps(h.iters)}
-            if Pl is not None and self.dev.type == "cuda":
-                want["rbic_apply"] = chunked_steps(h.iters)
+            # from_stencil on the card is one rbic_apply; the step's vector
+            # kernels launch once a step run, rho only with RB-IC
+            steps = chunked_steps(h.iters)
+            want = {"dia_spmv_dot": steps}
+            want_step = {}
+            if self.dev.type == "cuda":
+                want_step = {"cg_direction": steps, "cg_update": steps}
+                if Pl is not None:
+                    want["rbic_apply"] = want_step["cg_rho"] = steps
             res, d64 = self.true_res(A64, x, b), self.rel(x, x64)
             row = {"iters": h.iters, "tpu_record_iters":
                    TPU_RBIC_AB_STEPS[tag], "converged": h.isconverged,
                    "true_residual": res, "x_rel_diff_f64": d64,
-                   "expected_launches": want, **row}
+                   "expected_launches": want,
+                   "expected_step_launches": want_step, **row}
             ok = (h.isconverged and res <= TRUE_RES_F32 and d64 <= X_F64_REL
-                  and row["launches"] == want)
+                  and row["launches"] == want
+                  and row["step_launches"] == want_step)
             self.record(f"tpu_cg_rbic_ab {tag} int8 {side}^3", row, ok,
                         "int8")
 
@@ -5211,7 +5358,8 @@ def main():
 
     import iterativesolvers_tpu_torch as its
     from iterativesolvers_tpu_torch import native
-    from iterativesolvers_tpu_torch.ops import (_build, cuda_arnoldi, cuda_mgs,
+    from iterativesolvers_tpu_torch.ops import (_build, cuda_arnoldi,
+                                               cuda_cg, cuda_mgs,
                                                cuda_panel_ortho, cuda_rbic,
                                                cuda_stencil)
     from iterativesolvers_tpu_torch.ops.cuda_spmv import (
@@ -5322,6 +5470,7 @@ def main():
             raise AssertionError(f"{name}: not reproducible")
     err["rbic"], P_rb = rbic_parity(torch, its, x32)
     halo_form = halo_parity(torch)
+    err["cg_step"], cg_calls = cg_step_parity(torch, x32)
     torch.cuda.synchronize()
 
     # ---- 4. the main path: CG at 216^3 on the four operator paths ---------
@@ -5330,6 +5479,7 @@ def main():
     paths = {"stencil": St, "dia_f32": dias["f32"], "dia_bf16": dias["bf16"],
              "dia_int8": dias["int8"]}
     counters = (stencil_apply, dia_spmv, dia_spmv_dot)
+    step_counters = (cuda_cg.cg_rho, cuda_cg.cg_direction, cuda_cg.cg_update)
     b = torch.ones(n, device="cuda")
     A64 = A.astype(torch.float64)
 
@@ -5351,24 +5501,32 @@ def main():
         raise AssertionError("f64 CG did not reach the true residual")
     print(f"  f32 floor: the f64 solution rounded to f32 has true relative "
           f"residual {true_res(x64.float()):.3e}")
-    # the same f32 solve with the f32 DIA product of the plain version: it
-    # launches no kernel, and its true residual is the floor of f32 CG here
+    # the same f32 solve with the f32 DIA product of the plain version and
+    # the eager step (the step's kernels routed off): it launches no kernel,
+    # and its true residual is the floor of f32 CG here
     plain_op = its.FunctionOperator(
         lambda v: dia_spmv_plain(A.diags, A.offsets, v), A.shape,
         torch.float32)
-    for f in counters:
+    for f in counters + step_counters:
         f.launches = 0
-    x_pl, h_pl = its.cg(plain_op, b, reltol=RELTOL, log=True, chunk=CHUNK)
+    takes = cuda_cg.takes
+    cuda_cg.takes = lambda *vectors: False
+    try:
+        x_pl, h_pl = its.cg(plain_op, b, reltol=RELTOL, log=True,
+                            chunk=CHUNK)
+    finally:
+        cuda_cg.takes = takes
     res_pl = true_res(x_pl)
     print(f"  f32 DIA through the plain version: {h_pl}, true relative "
           f"residual {res_pl:.3e}, |x - x64| / |x64| {rel_diff(x_pl, x64):.3e}")
-    if any(f.launches for f in counters):
+    if any(f.launches for f in counters + step_counters):
         raise AssertionError("the plain-version solve launched a kernel")
     if not (h_pl.isconverged and res_pl <= TRUE_RES_F32):
         raise AssertionError("f32 CG through the plain version did not reach "
                              "the true residual")
+    cg_launches = {}
     for name, op in paths.items():
-        for f in counters:
+        for f in counters + step_counters:
             f.launches = 0
         t0 = time.perf_counter()
         x, h = its.cg(op, b, reltol=RELTOL, log=True, chunk=CHUNK)
@@ -5379,6 +5537,15 @@ def main():
         kernel = "stencil_apply" if name == "stencil" else "dia_spmv_dot"
         want = {f.__name__: (steps if f.__name__ == kernel else 0)
                 for f in counters}
+        # the step's vector kernels: direction and update once a step, no
+        # rho (no preconditioner)
+        step_counts = {f.__name__: f.launches for f in step_counters}
+        if step_counts != {"cg_rho": 0, "cg_direction": steps,
+                           "cg_update": steps}:
+            raise AssertionError(f"{name}: step kernel launches "
+                                 f"{step_counts} for {steps} steps")
+        if name == "stencil":
+            cg_launches = step_counts
         rel, err64 = true_res(x), rel_diff(x, x64)
         print(f"  {name}: {h}, {secs_run:.3f} s, true relative residual "
               f"{rel:.3e} (plain version {res_pl:.3e}), |x - x64| / |x64| "
@@ -5538,6 +5705,9 @@ def main():
                         "exchanged planes",
     })
     del halo_form
+    kernels += cg_step_entries(cg_calls, err["cg_step"], cg_launches,
+                               dev_timed, timed, n)
+    del cg_calls
     kernels.append(rbic_entry(torch, P_rb, x32, err["rbic"], dev_timed,
                               timed))
     del P_rb
@@ -5752,7 +5922,8 @@ def main():
                 "dia_spmv[f32 diagonals]": "dia_spmv[f32]",
                 "dia_spmv[int8 diagonals]": "dia_spmv[int8]",
                 "panel_mgs[bf16 panel]": "panel_mgs",
-                "rbic_apply": "rbic_apply"}
+                "rbic_apply": "rbic_apply", "cg_rho": "cg_rho",
+                "cg_direction": "cg_direction", "cg_update": "cg_update"}
     if not set(p16) <= set(p16_keys.values()):
         raise AssertionError(f"phase 16 launched {sorted(p16)}, expected "
                              f"only {sorted(p16_keys.values())}")
@@ -5762,6 +5933,12 @@ def main():
         if k["name"] == "rbic_apply":
             # the RB-IC PCG solve's applies, held there to its ldiv calls
             k["launches"] = sum(k["phase16_launches"].values())
+        if k["name"] == "cg_rho":
+            # the RB-IC PCG solve's, held there to its steps (phase 4's CG
+            # launches none)
+            k["launches"] = next(
+                c for run, c in k["phase16_launches"].items()
+                if run.startswith("tpu_cg_rbic_ab rbic"))
 
     # ---- 17. the rest of parallel/ on ranks -------------------------------
     clock("phase 17")

@@ -41,7 +41,8 @@ RANK_TIMEOUT = 300.0              # seconds the ranks may take in all
 def entry(device="cuda"):
     """Return (fn, example_args): ``fn(state)`` is one CG step on the f32
     ``laplace_dia(64, 2)`` on ``device`` (on a card its SpMV and dot are
-    the DIA kernel's one launch)."""
+    the DIA kernel's one launch, its vector work ``ops/cuda_cg.py``'s
+    two)."""
     import torch
 
     from iterativesolvers_tpu_torch.operators.preconditioners import (

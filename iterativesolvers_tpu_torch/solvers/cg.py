@@ -15,6 +15,12 @@ Per iteration: 1 SpMV + 2 global reductions (<u,c> and |r|; +1 for <c,r> when
 preconditioned).  On a row-sharded operator (``op.mesh``, parallel/) every
 reduction is allreduced over the mesh, so the scalars, and the host's exit
 decision from them, are the same on every rank.
+
+A real f32 solve vector takes the step's vector work in the launches of
+``ops/cuda_cg.py`` (their plain versions on the CPU): without a
+preconditioner ``rho`` is then the square of the state's residual, the
+reference's ``it.residual^2`` (src/cg.jl:50-51), where the eager step sums
+<r, r>.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from typing import NamedTuple
 import torch
 
 from ..operators.preconditioners import is_identity
+from ..ops import cuda_cg
 from ..utils.dtypes import real_dtype, solve_dtype
 from ..utils.profiling import span
 from .common import (SolveResult, SolverIterator, log_at, make_history,
@@ -68,16 +75,23 @@ def _cg_step(op, Pl, state: CGState, live, log_in_place=False) -> CGState:
     """One CG step, masked by the 0-d bool tensor ``live``: where it is
     false the returned state equals ``state``.
 
-    The mask acts on the scalar coefficients (``beta -> 1``, ``c -> 0``,
-    ``alpha -> 0``), so it costs no extra pass over a vector; it relies on the
-    vectors being finite, which they are unless the solve diverged.  The
-    vectors of ``state`` are never written.  The residual log is copied
+    The vectors of ``state`` are never written.  The residual log is copied
     first, unless ``log_in_place``: only ``cg``'s own loop, which holds no
-    earlier state, writes the log in place, to avoid a copy of
-    ``maxiter`` values per step.  Under a profiler the preconditioner's
-    apply is a span ``its.precond`` and the product a span ``its.spmv``."""
+    earlier state, writes the log in place, to avoid a copy of ``maxiter``
+    values per step.  Under a profiler the preconditioner's apply is a span
+    ``its.precond`` and the product a span ``its.spmv``.
+
+    A contiguous 1-D f32 solve vector (``ops/cuda_cg.takes``; one card or
+    a mesh) takes the step's vector work in ``ops/cuda_cg.py``'s launches,
+    their plain versions on the CPU (:func:`_vector_step`); every other
+    solve vector the eager step below.  The eager step masks its scalar
+    coefficients (``beta -> 1``, ``c -> 0``, ``alpha -> 0``), so it costs no
+    extra pass over a vector; it relies on the vectors being finite, which
+    they are unless the solve diverged."""
     with span("its.precond"):
         c = Pl.ldiv(state.r)
+    if cuda_cg.takes(state.x, state.r, state.u, c):
+        return _vector_step(op, Pl, state, c, live, log_in_place)
     rho = vdot(c, state.r, op.mesh)
     beta = torch.where(live, rho / state.rho, 1.0)
     keep = live.to(c.dtype)
@@ -87,18 +101,55 @@ def _cg_step(op, Pl, state: CGState, live, log_in_place=False) -> CGState:
     alpha = torch.where(live, rho / sigma, 0.0)
     x = torch.addcmul(state.x, alpha, u)
     r = torch.addcmul(state.r, alpha, c, value=-1)
-    residual = torch.where(live, norm(r, op.mesh), state.residual)
+    residual, k, log = _advance(state, norm(r, op.mesh), live, log_in_place)
+    return CGState(x=x, r=r, u=u, residual=residual,
+                   rho=torch.where(live, rho, state.rho), k=k,
+                   tol=state.tol, resnorm_log=log)
+
+
+def _advance(state: CGState, residual, live, log_in_place):
+    """The new state's ``(residual, k, resnorm_log)`` after a step whose
+    new residual norm is ``residual``, masked by ``live`` (``_cg_step``)."""
+    residual = torch.where(live, residual, state.residual)
     log = log_at(state.resnorm_log, state.k, residual, live, log_in_place)
-    return CGState(
-        x=x,
-        r=r,
-        u=u,
-        residual=residual,
-        rho=torch.where(live, rho, state.rho),
-        k=state.k + live.to(state.k.dtype),
-        tol=state.tol,
-        resnorm_log=log,
-    )
+    return residual, state.k + live.to(state.k.dtype), log
+
+
+def _vector_step(op, Pl, state: CGState, c, live, log_in_place) -> CGState:
+    """``_cg_step`` on a contiguous 1-D f32 solve vector, ``c`` = Pl^{-1} r
+    given: the direction in one launch (PCG: after <c, r> in one, allreduced
+    on a mesh; CG: rho = residual^2, the reference's unpreconditioned
+    recurrence, so no reduction before the product), the operator's
+    ``mv_dot``, then the update of x and r with |r|^2 in one.  On one card
+    that launch also writes the residual, the count and the log slot; on a
+    mesh it gives this rank's |r|^2, which is allreduced here.  The masked
+    outputs are copies of the state's bits."""
+    mesh = op.mesh
+    if is_identity(Pl):
+        u, rho = cuda_cg.cg_direction(c, state.u, state.residual, state.rho,
+                                      live, square=True)
+    else:
+        dot = cuda_cg.cg_rho(c, state.r)
+        u, rho = cuda_cg.cg_direction(
+            c, state.u, dot if mesh is None else mesh.all_reduce(dot),
+            state.rho, live)
+    with span("its.spmv"):
+        c, sigma = op.mv_dot(u)
+    if not cuda_cg.takes(u, c):
+        # a product outside the solve dtype (a FunctionOperator's)
+        c, sigma = c.to(u.dtype).contiguous(), sigma.to(u.dtype)
+    if mesh is None:
+        log = state.resnorm_log if log_in_place else state.resnorm_log.clone()
+        x, r, residual, k = cuda_cg.cg_update(
+            state.x, u, state.r, c, rho, sigma, live, state.residual,
+            state.k, log)
+    else:
+        x, r, rr = cuda_cg.cg_update(state.x, u, state.r, c, rho, sigma,
+                                     live)
+        residual, k, log = _advance(state, torch.sqrt(mesh.all_reduce(rr)),
+                                    live, log_in_place)
+    return CGState(x=x, r=r, u=u, residual=residual, rho=rho, k=k,
+                   tol=state.tol, resnorm_log=log)
 
 
 def _cg_done(state: CGState, maxiter):

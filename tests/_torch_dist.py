@@ -164,6 +164,11 @@ def _solve(c, a, mesh, solver):
     kw = dict(c.get("kw", {}))
     if "panel_dtype" in kw:
         kw["panel_dtype"] = DTYPES.get(kw["panel_dtype"])
+    if "jacobi" in kw:
+        # a diagonal preconditioner of one value: this rank's rows of it
+        kw["Pl"] = pits.DiagonalPreconditioner(
+            torch.full(b.shape, kw.pop("jacobi"), dtype=b.dtype),
+            device=b.device)
     calls = {}
     with warnings.catch_warnings(record=True) as caught, \
             _counted(calls, ROUTES):

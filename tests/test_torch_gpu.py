@@ -1200,3 +1200,179 @@ def test_cuda_replayed_mesh_cg_is_the_eager_mesh_cg(cuda, tmp_path, D):
         assert int(r["g/replay_steps"]) == steps
         assert 0 < int(r["g/graphs"]) < int(r["g/replays"])
         assert int(r["g/graphs3"]) == int(r["g/graphs"])
+
+
+# ---- the CG step's vector kernels (csrc/cg_step.cu) ----------------------------
+
+def _cg_vectors(cuda, n, seed=5):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return [torch.randn(n, generator=g, device=cuda) for _ in range(5)]
+
+
+def _close_sum(got, products):
+    """A sum in the kernels' order against torch's f64 sum of the same f32
+    products: within 1e-5 of the sum of their magnitudes (another order)."""
+    p = products.double()
+    return abs(float(got) - float(p.sum())) <= 1e-5 * float(p.abs().sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [67**3, 1001, 3])
+def test_cuda_cg_step_kernels_are_the_eager_step_given_its_scalars(cuda, n):
+    """Given the eager step's scalars, the direction and update launches
+    write its u', x' and r' bit for bit (on the card ``addcmul`` is one
+    fused multiply-add, but with ``value=-1`` it rounds the product first:
+    the kernels round as it does); each sum is
+    the plain version's on the launch's grid bit for bit, within 1e-5 of
+    torch's; the residual is the correctly rounded square root, the count
+    and the log slot advance; PCG's rho launch likewise.  n = 1001 and 3
+    end in a part run (one load a row)."""
+    from iterativesolvers_tpu_torch.ops import cuda_cg
+
+    x, u, r, c, c2 = _cg_vectors(cuda, n)
+    live = torch.ones((), dtype=torch.bool, device=cuda)
+    rho_prev = torch.tensor(1.7, device=cuda)
+    sigma = torch.sum(u * c2).abs() + 1.0
+    dev = x.device
+    plan = cuda_cg.launch_plan(n, dev, cuda_stencil.raw_stream(dev))
+    dot = cuda_cg.cg_rho(c, r)
+    assert torch.equal(dot, cuda_cg.cg_rho_plain(c, r, plan.grids[0]))
+    assert _close_sum(dot, c * r)
+    residual = torch.sqrt(torch.sum(r * r))
+    for square, src in ((False, dot), (True, residual)):
+        rho = src * src if square else src
+        u_e = torch.addcmul((rho / rho_prev) * u, live.to(c.dtype), c)
+        u2, rho2 = cuda_cg.cg_direction(c, u, src, rho_prev, live,
+                                        square=square)
+        assert torch.equal(u2, u_e) and torch.equal(rho2, rho)
+    alpha = rho / sigma
+    x_e = torch.addcmul(x, alpha, u2)
+    r_e = torch.addcmul(r, alpha, c2, value=-1)
+    k = torch.tensor(4, device=cuda)
+    log = torch.zeros(8, device=cuda)
+    x2, r2, res, k2 = cuda_cg.cg_update(x, u2, r, c2, rho, sigma, live,
+                                        residual, k, log)
+    assert torch.equal(x2, x_e) and torch.equal(r2, r_e)
+    x3, r3, rr = cuda_cg.cg_update(x, u2, r, c2, rho, sigma, live)
+    assert torch.equal(x3, x_e) and torch.equal(r3, r_e)
+    assert torch.equal(rr, cuda_cg.kernel_sum(r_e * r_e, plan.grids[2]))
+    assert _close_sum(rr, r_e * r_e)
+    assert torch.equal(res, torch.sqrt(rr.double()).float())
+    assert int(k2) == 5 and torch.equal(log[4], res)
+    assert int((log != 0).sum()) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precond", ["none", "rbic"])
+def test_cuda_cg_masked_step_returns_its_state(cuda, precond):
+    """A step masked off returns every field of its state bit for bit, and
+    neither a live nor a masked step writes a tensor of the state it was
+    given (``cg_iterator``'s checkpoints)."""
+    from iterativesolvers_tpu_torch.solvers import cg as pcg
+
+    st = pits.laplacian(24, 3, device=cuda)
+    Pl = (pits.RedBlackICPreconditioner.from_stencil(st)
+          if precond == "rbic" else pits.IdentityPreconditioner())
+    it = pits.cg_iterator(st, _cg_vectors(cuda, st.n)[0], Pl=Pl)
+    for _ in range(3):
+        next(it)
+    s = it.state
+    on = torch.ones((), dtype=torch.bool, device=cuda)
+    frozen = [t.clone() for t in s]
+    off = pcg._cg_step(st, Pl, s, ~on)
+    for a, f in zip(off, frozen):
+        assert torch.equal(a, f) and a.dtype == f.dtype
+    nxt = pcg._cg_step(st, Pl, s, on)
+    assert int(nxt.k) == int(s.k) + 1 and nxt.x.dtype == torch.float32
+    for a, f in zip(s, frozen):
+        assert torch.equal(a, f)
+
+
+@pytest.mark.gpu
+def test_cuda_cg_step_kernels_launch_once_a_step(cuda):
+    """f32 CG and RB-IC PCG launch the direction and update kernels once an
+    executed step, and the rho kernel once a PCG step only; an f64 solve
+    launches none.  Each solve's steps within 2 of the eager step's and x
+    within 1e-4; no kernel spills or keeps a stack frame."""
+    from iterativesolvers_tpu_torch.ops import _build, cuda_cg
+    from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+
+    st = pits.laplacian(48, 3, device=cuda)
+    b = _cg_vectors(cuda, st.n)[0]
+    kernels = (cuda_cg.cg_rho, cuda_cg.cg_direction, cuda_cg.cg_update)
+    for Pl, rho_per_step in ((None, 0), (
+            pits.RedBlackICPreconditioner.from_stencil(st), 1)):
+        before = [f.launches for f in kernels]
+        x, h = pits.cg(st, b, Pl=Pl, reltol=1e-6, log=True)
+        steps = chunked_steps(h.iters)
+        got = [f.launches - n0 for f, n0 in zip(kernels, before)]
+        assert h.isconverged and got == [rho_per_step * steps, steps, steps]
+        takes = cuda_cg.takes
+        cuda_cg.takes = lambda *v: False
+        try:
+            xe, he = pits.cg(st, b, Pl=Pl, reltol=1e-6, log=True)
+        finally:
+            cuda_cg.takes = takes
+        assert abs(h.iters - he.iters) <= 2
+        assert float(torch.linalg.vector_norm(x - xe)
+                     / torch.linalg.vector_norm(xe)) <= 1e-4
+    before = [f.launches for f in kernels]
+    pits.cg(pits.laplacian(16, 3, dtype=torch.float64, device=cuda),
+            torch.ones(16**3, dtype=torch.float64, device=cuda))
+    assert [f.launches for f in kernels] == before
+    res = {k: v for k, v in _build.kernel_resources("cg_step").items()
+           if "cg_" in k and "kernel" in k}
+    assert len(res) == 3
+    assert all(v["spill_stores"] == v["spill_loads"] == v["stack"] == 0
+               for v in res.values())
+
+
+@pytest.mark.gpu
+def test_cuda_cg_update_on_two_streams_at_once(cuda):
+    """The update launch enqueued on two streams behind a sleep kernel each:
+    each stream sums on partials and a ticket of its own, and every output
+    equals the launch on the default stream, bit for bit."""
+    from iterativesolvers_tpu_torch.ops import cuda_cg
+
+    x, u, r, c, _ = _cg_vectors(cuda, 67**3)
+    live = torch.ones((), dtype=torch.bool, device=cuda)
+    rho, sigma = torch.tensor(2.5, device=cuda), torch.tensor(3.5, device=cuda)
+    want = cuda_cg.cg_update(x, u, r, c, rho, sigma, live)
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = ([], [])
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+    for _ in range(10):
+        for s, out in zip(streams, outs):
+            with torch.cuda.stream(s):
+                out.append(cuda_cg.cg_update(x, u, r, c, rho, sigma, live))
+    torch.cuda.synchronize()
+    for out in outs:
+        for got in out:
+            assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+def test_cuda_cg_step_kernels_refuse_bad_scalars_and_logs(cuda):
+    """A 0-d input of another dtype, shape or card, or a log that is not a
+    contiguous 1-D f32 tensor on the vectors' card, raises before a launch."""
+    from iterativesolvers_tpu_torch.ops import cuda_cg
+
+    x, u, r, c, _ = _cg_vectors(cuda, 1001)
+    f32, on = torch.tensor(2.0, device=cuda), torch.tensor(True, device=cuda)
+    k, log = torch.tensor(3, device=cuda), torch.zeros(8, device=cuda)
+    before = (cuda_cg.cg_direction.launches, cuda_cg.cg_update.launches)
+    for bad in (f32.double(), f32.reshape(1), f32.cpu()):
+        with pytest.raises(ValueError, match="0-d"):
+            cuda_cg.cg_direction(c, u, bad, f32, on)
+        with pytest.raises(ValueError, match="0-d"):
+            cuda_cg.cg_update(x, u, r, c, f32, bad, on)
+    with pytest.raises(ValueError, match="0-d"):
+        cuda_cg.cg_update(x, u, r, c, f32, f32, on, f32, k.int(), log)
+    for bad_log in (log.double(), log.reshape(2, 4), log[::2], log.cpu()):
+        with pytest.raises(ValueError, match="log"):
+            cuda_cg.cg_update(x, u, r, c, f32, f32, on, f32, k, bad_log)
+    assert (cuda_cg.cg_direction.launches,
+            cuda_cg.cg_update.launches) == before
