@@ -352,7 +352,7 @@ def cg_step_parity(torch, x):
     a call.  Returns the largest error (0 unless a check failed) and, for
     the kernels entries, each kernel's call, plain call and library call
     (None for the update) by name."""
-    from iterativesolvers_tpu_torch.ops import cuda_cg, cuda_stencil
+    from iterativesolvers_tpu_torch.ops import _launch, cuda_cg
 
     dev, n = x.device, x.shape[0]
     g = torch.Generator(device=dev).manual_seed(1)
@@ -360,7 +360,7 @@ def cg_step_parity(torch, x):
     live = torch.ones((), dtype=torch.bool, device=dev)
     rho_prev = torch.tensor(1.7, device=dev)
     residual = torch.linalg.vector_norm(r)
-    grids = cuda_cg.launch_plan(n, dev, cuda_stencil.raw_stream(dev)).grids
+    grids = cuda_cg.launch_plan(n, dev, _launch.raw_stream(dev)).grids
     kernels = (cuda_cg.cg_rho, cuda_cg.cg_direction, cuda_cg.cg_update)
     before = [f.launches for f in kernels]
     dot = cuda_cg.cg_rho(c, r)
@@ -908,7 +908,7 @@ def gmres_parity(torch, its, cm, ca, n):
     residency = {}
     dev = torch.cuda.current_device()
     for label, V in panels.items():
-        code, es = cm._DTYPE_CODE[V.dtype], V.element_size()
+        code, es = cm.DTYPE_CODE[V.dtype], V.element_size()
         smem = cm._smem(code, dev)
         full = cm.plan_residency(n, cm._grid(code, n, dev), es, smem)
         with half_grid(cm, ca):
@@ -5358,10 +5358,10 @@ def main():
 
     import iterativesolvers_tpu_torch as its
     from iterativesolvers_tpu_torch import native
-    from iterativesolvers_tpu_torch.ops import (_build, cuda_arnoldi,
-                                               cuda_cg, cuda_mgs,
-                                               cuda_panel_ortho, cuda_rbic,
-                                               cuda_stencil)
+    from iterativesolvers_tpu_torch.ops import (_build, _launch,
+                                               cuda_arnoldi, cuda_cg,
+                                               cuda_mgs, cuda_panel_ortho,
+                                               cuda_rbic, cuda_stencil)
     from iterativesolvers_tpu_torch.ops.cuda_spmv import (
         dia_spmv, dia_spmv_dot, dia_spmv_plain)
     from iterativesolvers_tpu_torch.ops.cuda_stencil import (
@@ -5569,9 +5569,9 @@ def main():
         if abs(h.iters - h_st.iters) > CG_STEP_SPREAD or not diff <= 1e-4:
             raise AssertionError(f"{name} disagrees with the stencil path")
     # the spread of sound dot orders, and the control the limits reject
-    grid = cuda_stencil._launch(St.n, St.center, St.terms, St.coeffs, False,
-                                torch.float32, True, x32.device,
-                                cuda_stencil.raw_stream(x32.device)).grid
+    grid = cuda_stencil._launch_of(St.n, St.center, St.terms, St.coeffs,
+                                   False, torch.float32, True, x32.device,
+                                   _launch.raw_stream(x32.device)).grid
     spread = check_spread(dot_order_spread(torch, its, St, A64, grid))
 
     # ---- 5. timing --------------------------------------------------------

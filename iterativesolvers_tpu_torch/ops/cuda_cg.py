@@ -33,24 +33,20 @@ ticket of the in-launch sum) is kept per n, device and stream
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
 
-from . import _build
-from .cuda_stencil import (VEC_BYTES, blocks_per_sm, dot_ticket, grid_for,
-                           max_rows, on_device, raw_stream)
+from ._launch import (THREADS, aligned, dot_ticket, grid_for, launch,
+                      library, max_rows, query, raw_stream)
 
 __all__ = ["takes", "cg_rho", "cg_direction", "cg_update", "cg_rho_plain",
            "cg_direction_plain", "cg_update_plain", "kernel_sum",
-           "plain_grid", "launch_plan", "RUN", "THREADS"]
+           "plain_grid", "launch_plan", "RUN"]
 
-# rows a thread takes at once (csrc/cg_step.cu kRun) and threads a block
-# (csrc/common.cuh kThreads)
+# rows a thread takes at once (csrc/cg_step.cu kRun)
 RUN = 4
-THREADS = 256
 # the grid of the plain version on the CPU: 8 blocks on each of an H100
 # SXM's 132 SMs, as the kernels' occupancy gives there
 PLAIN_BLOCKS = 8 * 132
@@ -164,25 +160,6 @@ def cg_update_plain(x, u, r, c, rho, sigma, live, residual=None, k=None,
     return x2, r2, res, k + live.to(k.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("cg_step")
-    lib.its_cg_blocks_per_sm.restype = ctypes.c_int
-    lib.its_cg_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.its_cg_rho.restype = ctypes.c_int
-    lib.its_cg_rho.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                               + [ctypes.c_void_p])
-    lib.its_cg_direction.restype = ctypes.c_int
-    lib.its_cg_direction.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    lib.its_cg_update.restype = ctypes.c_int
-    lib.its_cg_update.argtypes = (
-        [ctypes.c_void_p] * 17 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-        + [ctypes.c_void_p])
-    return lib
-
-
 class Plan(NamedTuple):
     """A launch's constant part on one device and stream: each kernel's
     grid (rho, direction, update), the blocks' partial sums (``partials``,
@@ -204,13 +181,12 @@ def launch_plan(n, device, stream) -> Plan:
     raw handle): as many blocks as the SMs hold, from each kernel's
     occupancy; one partial a block of the largest grid, shared by the two
     launches that sum (a stream runs one at a time), and the stream's
-    ticket (``cuda_stencil.dot_ticket``).  Kept for the process: a captured
+    ticket (``_launch.dot_ticket``).  Kept for the process: a captured
     graph holds their addresses."""
     if n > max_rows(0):
         raise ValueError(f"n = {n} is too large for 32-bit row indices")
-    lib = _lib()
-    grids = tuple(grid_for(blocks_per_sm(lib.its_cg_blocks_per_sm, w,
-                                         device=device), device, n, RUN)
+    fn = library("cg_step").its_cg_blocks_per_sm
+    grids = tuple(grid_for(query(fn, w, device=device), device, n, RUN)
                   for w in (_RHO, _DIRECTION, _UPDATE))
     partials = torch.empty(max(grids) + 1, dtype=torch.float32, device=device)
     ptr = partials.data_ptr()
@@ -249,20 +225,6 @@ def _scalars(index, dtypes, *scalars):
     return ptrs
 
 
-def _launched(err, what):
-    if err != 0:
-        raise RuntimeError(f"CG {what} kernel launch failed (error {err})")
-
-
-def _aligned(*ptrs) -> int:
-    """1 where every address lies on a 16-byte boundary (the kernels'
-    vector path), else 0."""
-    acc = 0
-    for p in ptrs:
-        acc |= p
-    return int(acc % VEC_BYTES == 0)
-
-
 def cg_rho(c, r):
     """<c, r> as a 0-d f32 tensor (module docstring)."""
     n, index = _vectors(c, r)
@@ -273,11 +235,9 @@ def cg_rho(c, r):
     plan = launch_plan(n, dev, stream)
     out = torch.empty_like(plan.scalar)
     cp, rp = c.data_ptr(), r.data_ptr()
-    with on_device(dev):
-        err = _lib().its_cg_rho(cp, rp, plan.partials_ptr, plan.ticket,
-                                out.data_ptr(), n, plan.grids[_RHO],
-                                _aligned(cp, rp), stream)
-    _launched(err, "rho")
+    launch(library("cg_step").its_cg_rho, cp, rp, plan.partials_ptr,
+           plan.ticket, out.data_ptr(), n, plan.grids[_RHO], aligned(cp, rp),
+           stream, device=dev, what="CG rho")
     cg_rho.launches += 1
     return out
 
@@ -297,11 +257,9 @@ def cg_direction(c, u, rho_src, rho_prev, live, *, square=False):
     out = torch.empty_like(u)
     rho = torch.empty_like(plan.scalar)
     cp, up, op = c.data_ptr(), u.data_ptr(), out.data_ptr()
-    with on_device(dev):
-        err = _lib().its_cg_direction(
-            cp, up, op, src, int(square), prev, on, rho.data_ptr(), n,
-            plan.grids[_DIRECTION], _aligned(cp, up, op), stream)
-    _launched(err, "direction")
+    launch(library("cg_step").its_cg_direction, cp, up, op, src, int(square),
+           prev, on, rho.data_ptr(), n, plan.grids[_DIRECTION],
+           aligned(cp, up, op), stream, device=dev, what="CG direction")
     cg_direction.launches += 1
     return out, rho
 
@@ -333,11 +291,9 @@ def cg_update(x, u, r, c, rho, sigma, live, residual=None, k=None, log=None):
     x2, r2 = torch.empty_like(x), torch.empty_like(r)
     ptrs = (x.data_ptr(), u.data_ptr(), r.data_ptr(), c.data_ptr(),
             x2.data_ptr(), r2.data_ptr())
-    with on_device(dev):
-        err = _lib().its_cg_update(
-            *ptrs, *scalars, plan.partials_ptr, plan.ticket, *tail, n,
-            plan.grids[_UPDATE], _aligned(*ptrs), stream)
-    _launched(err, "update")
+    launch(library("cg_step").its_cg_update, *ptrs, *scalars,
+           plan.partials_ptr, plan.ticket, *tail, n, plan.grids[_UPDATE],
+           aligned(*ptrs), stream, device=dev, what="CG update")
     cg_update.launches += 1
     if residual is None:
         return x2, r2, rr

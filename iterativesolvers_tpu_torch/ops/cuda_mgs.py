@@ -29,21 +29,20 @@ Arnoldi kernel of ``ops/cuda_arnoldi.py`` takes the same plan).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
 
-from . import _build
-from .cuda_stencil import _THREADS
+from ._launch import THREADS, launch, library, query, raw_stream
 from .orthogonalize import mgs_rows
 
 __all__ = ["panel_mgs", "panel_mgs_plain", "check_panel", "plan_residency",
-           "Residency", "PANEL_DTYPES", "ROW_REGS"]
+           "Residency", "PANEL_DTYPES", "DTYPE_CODE", "ROW_REGS"]
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-PANEL_DTYPES = tuple(_DTYPE_CODE)
+# the panel dtypes' codes in the sweep kernels' C calls
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+PANEL_DTYPES = tuple(DTYPE_CODE)
 
 # The register tier (entries a thread; kRowRegs in csrc/panel_mgs.cuh).
 ROW_REGS = 144
@@ -54,12 +53,12 @@ TILE_BYTES = 32
 STAGES = 4
 
 
-def tile_size(itemsize: int, threads: int = _THREADS) -> int:
+def tile_size(itemsize: int, threads: int = THREADS) -> int:
     """Entries of a row tile, for a panel of ``itemsize``-byte entries."""
     return TILE_BYTES // itemsize * threads
 
 
-def ring_bytes(itemsize: int, threads: int = _THREADS) -> int:
+def ring_bytes(itemsize: int, threads: int = THREADS) -> int:
     """Shared memory of the ring of row tiles."""
     return STAGES * 2 * (TILE_BYTES * threads + 16)
 
@@ -89,7 +88,7 @@ class Residency(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def plan_residency(n: int, grid: int, itemsize: int, smem_limit: int,
-                   threads: int = _THREADS) -> Residency:
+                   threads: int = THREADS) -> Residency:
     """The residency of the sweep over ``n`` entries on ``grid`` blocks of
     ``threads``, for a panel of ``itemsize``-byte entries, where a block
     may take ``smem_limit`` bytes of dynamic shared memory: chunk
@@ -135,7 +134,7 @@ def check_panel(V, k, do=None):
     """The panel and step scalars every panel kernel takes: V a contiguous
     (m1, n) f32 or bf16 tensor, k (and do) 0-d int32 tensors on its
     device, and m1 >= 2 where a row k + 1 is written."""
-    if V.ndim != 2 or V.dtype not in _DTYPE_CODE or not V.is_contiguous():
+    if V.ndim != 2 or V.dtype not in DTYPE_CODE or not V.is_contiguous():
         raise ValueError(f"V must be a contiguous (m1, n) f32 or bf16 panel, "
                          f"got {V.dtype} {tuple(V.shape)}")
     scalars = (k,) if do is None else (k, do)
@@ -156,36 +155,12 @@ def _check_kernel(n):
         raise ValueError(f"n = {n} is too large for 32-bit row indices")
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("panel_mgs")
-    lib.its_panel_mgs.restype = ctypes.c_int
-    lib.its_panel_mgs.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                                  + [ctypes.c_int] * 5 + [ctypes.c_void_p])
-    lib.its_panel_mgs_smem.restype = ctypes.c_int
-    lib.its_panel_mgs_smem.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    lib.its_panel_mgs_grid.restype = ctypes.c_int
-    lib.its_panel_mgs_grid.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    return lib
-
-
-def smem_query(fn, name, dtype_code, device_index):
-    """The dynamic shared memory a block of a sweep kernel may take on the
-    device, as its library's ``*_smem`` entry ``fn`` reports it: the
-    device's limit a block less the kernel's static shared memory."""
-    nbytes = ctypes.c_int(0)
-    with torch.cuda.device(device_index):
-        err = fn(dtype_code, ctypes.byref(nbytes))
-    if err != 0:
-        raise RuntimeError(f"{name} shared memory query failed (error {err})")
-    return nbytes.value
-
-
 @functools.lru_cache(maxsize=8)
 def _smem(dtype_code, device_index):
-    """The dynamic shared memory a block of the kernel may take."""
-    return smem_query(_lib().its_panel_mgs_smem, "panel_mgs", dtype_code,
-                      device_index)
+    """The dynamic shared memory a block of the kernel may take on the
+    device: its limit a block less the kernel's static shared memory."""
+    return query(library("panel_mgs").its_panel_mgs_smem, dtype_code,
+                 device=torch.device("cuda", device_index))
 
 
 @functools.lru_cache(maxsize=64)
@@ -193,14 +168,9 @@ def _grid(dtype_code, n, device_index):
     """The cooperative grid the kernel takes on this device: one block on
     each SM, with the most dynamic shared memory a plan gives it, and no
     more blocks than n needs."""
-    grid = ctypes.c_int(0)
-    smem = _smem(dtype_code, device_index)
-    with torch.cuda.device(device_index):
-        err = _lib().its_panel_mgs_grid(dtype_code, n, smem,
-                                        ctypes.byref(grid))
-    if err != 0:
-        raise RuntimeError(f"panel_mgs occupancy query failed (error {err})")
-    return grid.value
+    return query(library("panel_mgs").its_panel_mgs_grid, dtype_code, n,
+                 _smem(dtype_code, device_index),
+                 device=torch.device("cuda", device_index))
 
 
 def panel_mgs(V, w, k, do):
@@ -215,7 +185,7 @@ def panel_mgs(V, w, k, do):
                          f"{V.device}")
     m1, n = V.shape
     _check_kernel(n)
-    code = _DTYPE_CODE[V.dtype]
+    code = DTYPE_CODE[V.dtype]
     grid = _grid(code, n, V.device.index)
     plan = plan_residency(n, grid, V.element_size(),
                           _smem(code, V.device.index))
@@ -224,14 +194,10 @@ def panel_mgs(V, w, k, do):
     partials = torch.empty((m1 + 1) * grid, dtype=torch.float32, device=dev)
     h = torch.empty(m1, dtype=torch.float32, device=dev)
     nrm = torch.empty((), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _lib().its_panel_mgs(
-            code, V.data_ptr(), w.data_ptr(), y.data_ptr(),
-            partials.data_ptr(), h.data_ptr(), nrm.data_ptr(), k.data_ptr(),
-            do.data_ptr(), n, m1, grid, *plan.args, stream)
-    if err != 0:
-        raise RuntimeError(f"panel_mgs kernel launch failed (error {err})")
+    launch(library("panel_mgs").its_panel_mgs, code, V.data_ptr(),
+           w.data_ptr(), y.data_ptr(), partials.data_ptr(), h.data_ptr(),
+           nrm.data_ptr(), k.data_ptr(), do.data_ptr(), n, m1, grid,
+           *plan.args, raw_stream(dev), device=dev, what="panel_mgs")
     panel_mgs.launches += 1
     return h, nrm
 

@@ -21,12 +21,9 @@ A CUDA tensor launches the kernel (counted on ``panel_dots.launches`` /
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from . import _build
+from ._launch import aligned, launch, library, raw_stream
 
 __all__ = ["panel_dots", "panel_dots_plain", "panel_update",
            "panel_update_plain", "PANEL_DTYPES"]
@@ -85,7 +82,7 @@ def _check_kernel(V, w):
     if n % 4 != 0 or n // 4 >= 2**31 - 2**12:
         raise ValueError(f"a row of {n} entries is not a multiple of 4 or "
                          f"too long for the kernels")
-    if V.data_ptr() % 16 or w.data_ptr() % 16:
+    if not aligned(V, w):
         raise ValueError("V and w must be 16-byte aligned")
 
 
@@ -94,20 +91,6 @@ def _device(V):
         raise ValueError(f"panel_ortho kernels run on CUDA tensors, got "
                          f"{V.device}")
     return V.device
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("panel_ortho")
-    lib.its_panel_ortho_grid.restype = ctypes.c_int
-    lib.its_panel_ortho_grid.argtypes = [ctypes.c_int]
-    lib.its_panel_dots.restype = ctypes.c_int
-    lib.its_panel_dots.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 5
-                                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    lib.its_panel_update.restype = ctypes.c_int
-    lib.its_panel_update.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                                     + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    return lib
 
 
 def panel_dots(V, w, k):
@@ -119,16 +102,13 @@ def panel_dots(V, w, k):
     dev = _device(V)
     _check_kernel(V, w)
     m1, n = V.shape[0], w.numel()
-    grid = _lib().its_panel_ortho_grid(n)
+    lib = library("panel_ortho")
+    grid = lib.its_panel_ortho_grid(n)
     partials = torch.empty(m1 * grid, dtype=torch.float32, device=dev)
     out = torch.empty(m1, dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _lib().its_panel_dots(
-            _DTYPE_CODE[V.dtype], V.data_ptr(), w.data_ptr(),
-            partials.data_ptr(), out.data_ptr(), k.data_ptr(), n, m1, stream)
-    if err != 0:
-        raise RuntimeError(f"panel_dots kernel launch failed (error {err})")
+    launch(lib.its_panel_dots, _DTYPE_CODE[V.dtype], V.data_ptr(),
+           w.data_ptr(), partials.data_ptr(), out.data_ptr(), k.data_ptr(), n,
+           m1, raw_stream(dev), device=dev, what="panel_dots")
     panel_dots.launches += 1
     return out
 
@@ -145,18 +125,15 @@ def panel_update(V, w, h, k):
     dev = _device(V)
     _check_kernel(V, w)
     m1, n = V.shape[0], w.numel()
-    grid = _lib().its_panel_ortho_grid(n)
+    lib = library("panel_ortho")
+    grid = lib.its_panel_ortho_grid(n)
     y = torch.empty_like(w)
     partials = torch.empty(grid, dtype=torch.float32, device=dev)
     ss = torch.empty((), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = _lib().its_panel_update(
-            _DTYPE_CODE[V.dtype], V.data_ptr(), w.data_ptr(), h.data_ptr(),
-            y.data_ptr(), partials.data_ptr(), ss.data_ptr(), k.data_ptr(),
-            n, m1, stream)
-    if err != 0:
-        raise RuntimeError(f"panel_update kernel launch failed (error {err})")
+    launch(lib.its_panel_update, _DTYPE_CODE[V.dtype], V.data_ptr(),
+           w.data_ptr(), h.data_ptr(), y.data_ptr(), partials.data_ptr(),
+           ss.data_ptr(), k.data_ptr(), n, m1, raw_stream(dev), device=dev,
+           what="panel_update")
     panel_update.launches += 1
     return y, ss
 

@@ -37,20 +37,16 @@ does not take, CPU tensors among them.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple
 
 import torch
 
-from . import _build
-from .cuda_stencil import (blocks_per_sm, grid_for, grouped_terms, max_rows,
-                           on_device, raw_stream, STENCIL_RUN, VEC_BYTES)
+from ._launch import (aligned, grid_for, launch, library, max_rows, query,
+                      raw_stream)
+from .cuda_stencil import MAX_TERMS, STENCIL_RUN, grouped_terms
 
 __all__ = ["RBICForm", "rbic_apply", "rbic_apply_plain", "shift_sum",
            "takes", "validity", "MAX_TERMS"]
-
-# terms the kernel takes (csrc/stencil.cuh kMaxTerms): a 4-D grid's
-MAX_TERMS = 8
 
 
 def grid_axes(n, terms):
@@ -175,34 +171,15 @@ def pack_args(form: RBICForm):
         (ctypes.c_float * T)(*form.coeffs))
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("rbic")
-    lib.its_rbic_apply.restype = ctypes.c_int
-    lib.its_rbic_apply.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
-                                   + [ctypes.c_void_p] * 2)
-    lib.its_rbic_terms_bytes.restype = ctypes.c_int
-    lib.its_rbic_terms_bytes.argtypes = []
-    # out, nterms, off, step, stride, extent, magic, bit, nsum, center_bit,
-    # sum_off, sum_coeff, term_off, term_coeff
-    lib.its_rbic_pack_terms.restype = ctypes.c_int
-    lib.its_rbic_pack_terms.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 6
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 4)
-    lib.its_rbic_blocks_per_sm.restype = ctypes.c_int
-    lib.its_rbic_blocks_per_sm.argtypes = [ctypes.c_int, ctypes.c_void_p]
-    return lib
-
-
 def _plan(form: RBICForm, x, stream) -> _Plan:
-    lib = _lib()
+    lib = library("rbic")
     buf = ctypes.create_string_buffer(lib.its_rbic_terms_bytes())
     packed = pack_args(form)      # alive through the call
     args = [a if isinstance(a, int) else ctypes.addressof(a) for a in packed]
     if lib.its_rbic_pack_terms(buf, *args) != 0:
         raise ValueError("red-black IC(0) terms the kernel does not take")
-    grid0, grid1 = (grid_for(blocks_per_sm(lib.its_rbic_blocks_per_sm, p,
-                                           device=x.device),
+    grid0, grid1 = (grid_for(query(lib.its_rbic_blocks_per_sm, p,
+                                   device=x.device),
                              x.device, form.n, STENCIL_RUN) for p in (0, 1))
     return _Plan(grid0, grid1, ctypes.addressof(buf), buf, stream,
                  torch.empty_like(x, memory_format=torch.contiguous_format))
@@ -235,13 +212,9 @@ def rbic_apply(form: RBICForm, x):
     z = torch.empty_like(x)
     # each pass's vector path: its input and output on 16-byte boundaries
     xp, wp, zp = x.data_ptr(), w.data_ptr(), z.data_ptr()
-    with on_device(dev):
-        err = _lib().its_rbic_apply(
-            xp, wp, zp, form.scales.data_ptr(), form.n, plan.grid0,
-            plan.grid1, int((xp | wp) % VEC_BYTES == 0),
-            int((wp | zp) % VEC_BYTES == 0), plan.terms, stream)
-    if err != 0:
-        raise RuntimeError(f"red-black IC(0) kernel launch failed (error {err})")
+    launch(library("rbic").its_rbic_apply, xp, wp, zp, form.scales.data_ptr(),
+           form.n, plan.grid0, plan.grid1, aligned(xp, wp), aligned(wp, zp),
+           plan.terms, stream, device=dev, what="red-black IC(0)")
     rbic_apply.launches += 1
     return z
 

@@ -23,7 +23,7 @@ counted.
 
 The kernel takes runs of ``run_rows(diag dtype)`` rows a thread (16 bytes
 of each diagonal), and finishes the dot in the same launch on a ticket
-(``cuda_stencil.dot_ticket``) and partial sums kept per shape, device and
+(``_launch.dot_ticket``) and partial sums kept per shape, device and
 stream, so that launches on concurrent streams share neither.
 """
 
@@ -34,10 +34,8 @@ import functools
 
 import torch
 
-from . import _build
-from .cuda_stencil import (VEC_BYTES, _check_out, aligned, blocks_per_sm,
-                           dot_ticket, grid_for, max_rows, on_device,
-                           raw_stream, run_rows)
+from ._launch import (aligned, check_out, dot_ticket, grid_for, launch,
+                      library, max_rows, query, raw_stream, run_rows)
 
 __all__ = ["dia_spmv", "dia_spmv_dot", "dia_spmv_rows", "dia_spmv_plain",
            "MAX_DIAGS", "DIAG_DTYPES"]
@@ -105,27 +103,13 @@ def _check_kernel(n, offsets):
         raise ValueError(f"n = {n} is too large for 32-bit row indices")
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("dia_spmv")
-    lib.its_dia_spmv.restype = ctypes.c_int
-    lib.its_dia_spmv.argtypes = (
-        [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-         ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-        + [ctypes.c_void_p])
-    lib.its_dia_blocks_per_sm.restype = ctypes.c_int
-    lib.its_dia_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    return lib
-
-
 @functools.lru_cache(maxsize=64)
 def _grid(dtype, with_dot, nd, n, device, stream):
     """The grid (as many blocks as the SMs hold, with the dot as without
     it) and with the dot the partials and ticket of ``stream``, the current
     stream (made on it)."""
-    bps = blocks_per_sm(_lib().its_dia_blocks_per_sm, _DIAG_CODE[dtype],
-                        int(with_dot), nd, device=device)
+    bps = query(library("dia_spmv").its_dia_blocks_per_sm, _DIAG_CODE[dtype],
+                int(with_dot), nd, device=device)
     grid = grid_for(bps, device, n, run_rows(dtype))
     if not with_dot:
         return grid, None, None
@@ -141,10 +125,10 @@ def _diag_args(ptrs, offsets):
     arrays = ((ctypes.c_void_p * nd)(*ptrs),
               (ctypes.c_int * nd)(*[int(o) for o in offsets]))
     return (ctypes.addressof(arrays[0]), ctypes.addressof(arrays[1]),
-            all(p % VEC_BYTES == 0 for p in ptrs), arrays)
+            aligned(*ptrs), arrays)
 
 
-def _launch(diags, offsets, x, u, out=None):
+def _run(diags, offsets, x, u, out=None):
     """(y, dot, launches): one launch for each group of ``MAX_DIAGS``
     diagonals, the dot (``u`` given) in the last."""
     if x.device.type != "cuda":
@@ -153,7 +137,7 @@ def _launch(diags, offsets, x, u, out=None):
     _check_kernel(n, tuple(offsets))
     dev = x.device
     stream = raw_stream(dev)
-    y = torch.empty_like(x) if out is None else _check_out(out, x)
+    y = torch.empty_like(x) if out is None else check_out(out, x)
     dot = None
     starts = range(0, len(diags), MAX_DIAGS)
     for g0 in starts:
@@ -170,13 +154,10 @@ def _launch(diags, offsets, x, u, out=None):
             red = (None, None, None)
         uu = u if with_dot else x
         vec = diags_aligned and aligned(x, uu, y)
-        with on_device(dev):
-            err = _lib().its_dia_spmv(
-                _DIAG_CODE[ds[0].dtype], int(with_dot), dptr, optr, len(ds),
-                x.data_ptr(), uu.data_ptr(), y.data_ptr(), *red, n, grid,
-                int(vec), int(g0 > 0), stream)
-        if err != 0:
-            raise RuntimeError(f"DIA kernel launch failed (error {err})")
+        launch(library("dia_spmv").its_dia_spmv, _DIAG_CODE[ds[0].dtype],
+               int(with_dot), dptr, optr, len(ds), x.data_ptr(),
+               uu.data_ptr(), y.data_ptr(), *red, n, grid, int(vec),
+               int(g0 > 0), stream, device=dev, what="DIA")
     return y, dot, len(starts)
 
 
@@ -186,7 +167,7 @@ def dia_spmv(diags, offsets, x, out=None):
     _check(diags, offsets, x, None)
     if x.device.type == "cpu":
         return dia_spmv_plain(diags, offsets, x)
-    y, _, launches = _launch(diags, offsets, x, None, out)
+    y, _, launches = _run(diags, offsets, x, None, out)
     dia_spmv.launches += launches
     return y
 
@@ -219,7 +200,7 @@ def dia_spmv_dot(diags, offsets, x, u):
     _check(diags, offsets, x, u)
     if x.device.type == "cpu":
         return dia_spmv_plain(diags, offsets, x, u)
-    y, dot, launches = _launch(diags, offsets, x, u)
+    y, dot, launches = _run(diags, offsets, x, u)
     dia_spmv_dot.launches += launches
     return y, dot
 

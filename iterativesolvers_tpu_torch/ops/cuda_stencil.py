@@ -23,16 +23,17 @@ n < 2048 or for a block period too large for VMEM; this kernel takes every
 n >= 1.
 
 The kernel takes runs of ``STENCIL_RUN`` rows a thread, with 16-byte loads
-and stores, and finds the grid positions by a multiply-high and a shift: the constants of
-:func:`fast_divisor`, computed here in the cached plan.  Its dot is summed
-in an order fixed by n and the grid (``csrc/common.cuh``; the grid is
-chosen as without the dot), and finished in the same launch by the block
-that finishes last, which counts on a ticket: one int32 per device and stream
-(:func:`dot_ticket`), 0 between launches.  What does not change from call to call (the grid, the
-terms packed for the C call, the blocks' partial sums) is kept per stencil,
-n, dtype, device and, with the dot, stream (:func:`launch_plan`), so that a
-call costs the host little beside the kernel, and launches on concurrent
-streams share no ticket and no partials.
+and stores, and finds the grid positions by a multiply-high and a shift:
+the constants of :func:`fast_divisor`, computed here in the cached plan.
+Its dot is summed in an order fixed by n and the grid (``csrc/common.cuh``;
+the grid is chosen as without the dot), and finished in the same launch by
+the block that finishes last, which counts on a ticket: one int32 per
+device and stream (``_launch.dot_ticket``), 0 between launches.  What does
+not change from call to call (the grid, the terms packed for the C call,
+the blocks' partial sums) is kept per stencil, n, dtype, device and, with
+the dot, stream (:func:`launch_plan`), so that a call costs the host little
+beside the kernel, and launches on concurrent streams share no ticket and
+no partials.
 
 A CUDA tensor launches the kernel or raises (also past the kernel's limits:
 at most ``MAX_TERMS`` terms, 32-bit row indices); a CPU tensor takes the
@@ -54,37 +55,24 @@ launch (its halo overload, ``csrc/stencil.cuh``).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
 
-from . import _build
+from ._launch import (aligned, check_out, dot_ticket, grid_for, launch,
+                      library, max_rows, query, raw_stream, run_rows)
 
 __all__ = ["stencil_apply", "stencil_apply_rows", "stencil_apply_plain",
-           "stencil_sum", "MAX_TERMS", "VEC_BYTES", "STENCIL_RUN", "run_rows",
-           "fast_divisor", "dot_ticket", "grid_for"]
+           "stencil_sum", "sum_plan", "normal_terms", "check_kernel",
+           "grouped_terms", "packed_terms", "launch_plan", "MAX_TERMS",
+           "STENCIL_RUN", "fast_divisor"]
 
 MAX_TERMS = 8
-_THREADS = 256
-# bytes of one vector load or store (csrc/common.cuh kVecBytes)
-VEC_BYTES = 16
 # rows a thread of the stencil kernel takes (csrc/stencil.cuh kStencilRun)
 STENCIL_RUN = 8
-# the kernels' indices are 32-bit: rows, windows (a run and one vector past
-# it) and the grid-stride loop's run index stay below 2^31 for
-# n + span + INDEX_SLACK < 2^31 (a grid of at most 2^16 blocks)
-INDEX_SLACK = 2**24
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def run_rows(dtype) -> int:
-    """Elements of ``dtype`` in one 16-byte vector (4 for f32, 8 for bf16,
-    16 for int8): the rows a thread of the DIA kernel takes for diagonals of
-    ``dtype``."""
-    return VEC_BYTES // torch.empty((), dtype=dtype).element_size()
 
 
 def fast_divisor(d: int):
@@ -104,31 +92,7 @@ def fast_divisor(d: int):
     return -(-(1 << (31 + lg)) // d), lg - 1
 
 
-@functools.lru_cache(maxsize=None)
-def dot_ticket(device, stream: int) -> torch.Tensor:
-    """The counter of the kernels' in-launch dot on ``device``'s stream
-    ``stream`` (a raw handle, :func:`raw_stream`): blocks draw tickets from
-    it and the last one sets it back to 0.  One per device and stream, so
-    that launches that may overlap draw from tickets of their own; kept for
-    the process, since the launch plans hold its address."""
-    return torch.zeros(1, dtype=torch.int32, device=device)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
-def grid_for(blocks_per_sm: int, device, n: int, rows: int) -> int:
-    """Blocks of ``_THREADS`` threads for ``n`` rows in runs of ``rows``:
-    as many as the SMs hold at once (``blocks_per_sm`` each), or fewer where
-    n needs fewer; a grid-stride loop covers the rest."""
-    runs = -(-n // rows)
-    return max(1, min(-(-runs // _THREADS),
-                      max(1, blocks_per_sm) * _sm_count(device)))
-
-
-class _Plan(NamedTuple):
+class SumPlan(NamedTuple):
     """The sum in the order it is added: ``(off, coeff, term)`` with
     ``term = (stride, extent)`` for an off-diagonal term and None for the
     center; and the kernel's arguments (ints and ctypes arrays)."""
@@ -138,7 +102,10 @@ class _Plan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=64)
-def _plan(center, terms, coeffs, conj, dtype) -> _Plan:
+def sum_plan(center, terms, coeffs, conj, dtype) -> SumPlan:
+    """The :class:`SumPlan` of the stencil with each coefficient rounded
+    to ``dtype`` (conjugated with ``conj``), offsets negated with ``conj``;
+    terms and coefficients as :func:`normal_terms` gives them."""
     def rnd(c):
         if conj and isinstance(c, complex):
             c = c.conjugate()
@@ -160,7 +127,7 @@ def _plan(center, terms, coeffs, conj, dtype) -> _Plan:
         IntS(*[o for (o, _, _) in order]),
         FloatS(*[c for (_, c, _) in order]),
     )
-    return _Plan(tuple(order), args)
+    return SumPlan(tuple(order), args)
 
 
 def grouped_terms(terms, bits):
@@ -182,8 +149,9 @@ def grouped_terms(terms, bits):
             IntK(*[bits[j] for j in group]))
 
 
-def _normal(terms, coeffs):
-    """Terms and coefficients as tuples (hashable: `_plan` is cached)."""
+def normal_terms(terms, coeffs):
+    """Terms and coefficients as tuples (hashable: :func:`sum_plan` is
+    cached)."""
     return (tuple((int(o), int(s), int(e)) for (o, s, e) in terms),
             tuple(coeffs))
 
@@ -264,8 +232,8 @@ def stencil_apply_plain(n, center, terms, coeffs, x, *, conj=False,
     """The kernel's function in plain PyTorch: the same sum order, f32
     arithmetic, y in x's dtype, dot in f32; with ``base``, ``n_global``,
     ``left`` and ``right``, the halo form (module docstring)."""
-    terms, coeffs = _normal(terms, coeffs)
-    plan = _plan(center, terms, coeffs, bool(conj), x.dtype)
+    terms, coeffs = normal_terms(terms, coeffs)
+    plan = sum_plan(center, terms, coeffs, bool(conj), x.dtype)
     halo = _halo_args(n, terms, base, n_global, left, right)
     if halo is not None:
         halo = halo[:2] + (halo[2].float(), halo[3].float())
@@ -291,15 +259,9 @@ def _check_terms(terms):
         raise ValueError("stencil strides and extents must be positive")
 
 
-def max_rows(span: int) -> int:
-    """The largest n the stencil and DIA kernels take with offsets up to
-    ``span``: 32-bit indices (``INDEX_SLACK``)."""
-    return 2**31 - 1 - INDEX_SLACK - span
-
-
-def _check_kernel(n, terms):
-    """The kernel's limits, checked before a launch (the plain version has
-    none)."""
+def check_kernel(n, terms):
+    """The stencil kernels' limits, checked before a launch (the plain
+    version has none)."""
     if len(terms) > MAX_TERMS:
         raise ValueError(f"at most {MAX_TERMS} stencil terms, got {len(terms)}")
     if any(max(s, e) >= 2**31 for (_, s, e) in terms):
@@ -309,64 +271,11 @@ def _check_kernel(n, terms):
         raise ValueError(f"n = {n} is too large for 32-bit row indices")
 
 
-# the plan's arguments of its_stencil_pack_terms (stencil.cuh pack_terms):
-# nterms, off, step, stride, extent, magic, bit, nsum, center_bit, sum_off,
-# sum_coeff
-_TERMS_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
-
-
-@functools.lru_cache(maxsize=None)
-def _lib():
-    lib = _build.load("stencil")
-    lib.its_stencil_apply.restype = ctypes.c_int
-    lib.its_stencil_apply.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-        + [ctypes.c_void_p] * 2)
-    lib.its_stencil_terms_bytes.restype = ctypes.c_int
-    lib.its_stencil_terms_bytes.argtypes = []
-    lib.its_stencil_pack_terms.restype = ctypes.c_int
-    lib.its_stencil_pack_terms.argtypes = [ctypes.c_void_p] + _TERMS_ARGTYPES
-    lib.its_stencil_apply_halo.restype = ctypes.c_int
-    lib.its_stencil_apply_halo.argtypes = (
-        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-        + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    lib.its_stencil_blocks_per_sm.restype = ctypes.c_int
-    lib.its_stencil_blocks_per_sm.argtypes = [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    return lib
-
-
-def raw_stream(device) -> int:
-    """The handle of ``device``'s current CUDA stream, without building a
-    Stream object (a wrapper's host time counts beside a ~40 µs kernel)."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
-
-
-def on_device(device):
-    """The context in which a C call launches on ``device``: none where it
-    is the current device already (the common case, and the cheap one)."""
-    if device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
-def blocks_per_sm(fn, *args, device) -> int:
-    """``fn(*args, &blocks)`` of a kernel library on ``device``: the blocks
-    of that kernel one SM holds at once."""
-    blocks = ctypes.c_int(0)
-    with on_device(device):
-        err = fn(*args, ctypes.byref(blocks))
-    if err != 0:
-        raise RuntimeError(f"occupancy query failed (error {err})")
-    return blocks.value
-
-
-def packed_terms(plan: _Plan):
+def packed_terms(plan: SumPlan):
     """The plan's terms packed as the kernels' ``StencilTerms`` (a host
     buffer the C calls copy), once per stencil, so that a launch passes one
     pointer."""
-    lib = _lib()
+    lib = library("stencil")
     buf = ctypes.create_string_buffer(lib.its_stencil_terms_bytes())
     args = [a if isinstance(a, int) else ctypes.addressof(a) for a in plan.args]
     if lib.its_stencil_pack_terms(buf, *args) != 0:
@@ -392,8 +301,8 @@ def launch_plan(plan, n, with_dot, device, stream, blocks_fn, *blocks_args):
     *blocks_args, &blocks)``, with the dot as without it; with the dot also
     the blocks' partials and the ticket of ``stream``, the current stream
     (made on it)."""
-    grid = grid_for(blocks_per_sm(blocks_fn, *blocks_args, device=device),
-                    device, n, STENCIL_RUN)
+    grid = grid_for(query(blocks_fn, *blocks_args, device=device), device, n,
+                    STENCIL_RUN)
     partials = (torch.empty(grid, dtype=torch.float32, device=device)
                 if with_dot else None)
     buf = packed_terms(plan)
@@ -402,19 +311,14 @@ def launch_plan(plan, n, with_dot, device, stream, blocks_fn, *blocks_args):
 
 
 @functools.lru_cache(maxsize=64)
-def _launch(n, center, terms, coeffs, conj, dtype, with_dot, device, stream,
-            halo=False):
+def _launch_of(n, center, terms, coeffs, conj, dtype, with_dot, device,
+               stream, halo=False):
     _check_terms(terms)
-    _check_kernel(n, terms)
-    return launch_plan(_plan(center, terms, coeffs, conj, dtype), n, with_dot,
-                       device, stream, _lib().its_stencil_blocks_per_sm,
+    check_kernel(n, terms)
+    return launch_plan(sum_plan(center, terms, coeffs, conj, dtype), n,
+                       with_dot, device, stream,
+                       library("stencil").its_stencil_blocks_per_sm,
                        _DTYPE_CODE[dtype], int(with_dot), int(halo))
-
-
-def aligned(*tensors) -> bool:
-    """Every tensor starts on a 16-byte boundary (the kernels' vector path;
-    else they take their per-row loads)."""
-    return all(t.data_ptr() % VEC_BYTES == 0 for t in tensors)
 
 
 def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False,
@@ -426,7 +330,7 @@ def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False,
     n = int(n)
     if not (type(terms) is tuple and type(coeffs) is tuple
             and all(type(t) is tuple for t in terms)):
-        terms, coeffs = _normal(terms, coeffs)
+        terms, coeffs = normal_terms(terms, coeffs)
     _check_x(n, x)
     halo = _halo_args(n, terms, base, n_global, left, right)
     if x.device.type == "cpu":
@@ -439,25 +343,21 @@ def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False,
     dev = x.device
     stream = raw_stream(dev)
     # the plan without the dot holds nothing of a stream's
-    launch = _launch(n, center, terms, coeffs, bool(conj), x.dtype,
-                     bool(with_dot), dev, stream if with_dot else 0,
-                     halo is not None)
-    y = torch.empty_like(x) if out is None else _check_out(out, x)
+    lp = _launch_of(n, center, terms, coeffs, bool(conj), x.dtype,
+                    bool(with_dot), dev, stream if with_dot else 0,
+                    halo is not None)
+    y = torch.empty_like(x) if out is None else check_out(out, x)
     if with_dot:
         dot = torch.empty((), dtype=torch.float32, device=dev)
-        ptrs = (launch.partials.data_ptr(), launch.ticket, dot.data_ptr())
+        ptrs = (lp.partials.data_ptr(), lp.ticket, dot.data_ptr())
     else:
         ptrs = (None, None, None)
-    with on_device(dev):
-        if halo is None:
-            err = _lib().its_stencil_apply(
-                _DTYPE_CODE[x.dtype], int(with_dot), x.data_ptr(),
-                y.data_ptr(), *ptrs, n, launch.grid, int(aligned(x, y)),
-                launch.terms, stream)
-        else:
-            err = _apply_halo(n, x, y, ptrs, launch, stream, *halo)
-    if err != 0:
-        raise RuntimeError(f"stencil kernel launch failed (error {err})")
+    if halo is None:
+        launch(library("stencil").its_stencil_apply, _DTYPE_CODE[x.dtype],
+               int(with_dot), x.data_ptr(), y.data_ptr(), *ptrs, n, lp.grid,
+               aligned(x, y), lp.terms, stream, device=dev, what="stencil")
+    else:
+        _apply_halo(n, x, y, ptrs, lp, stream, *halo)
     stencil_apply.launches += 1
     return (y, dot) if with_dot else y
 
@@ -465,9 +365,8 @@ def stencil_apply(n, center, terms, coeffs, x, *, conj=False, with_dot=False,
 stencil_apply.launches = 0
 
 
-def _apply_halo(n, x, y, ptrs, launch, stream, base, n_global, left, right):
-    """The halo form's launch (its_stencil_apply_halo); returns its error
-    code."""
+def _apply_halo(n, x, y, ptrs, lp, stream, base, n_global, left, right):
+    """The halo form's launch (its_stencil_apply_halo)."""
     h = left.shape[0]
     if (left.dtype != x.dtype or right.dtype != x.dtype
             or left.device != x.device or right.device != x.device
@@ -478,18 +377,11 @@ def _apply_halo(n, x, y, ptrs, launch, stream, base, n_global, left, right):
                          "indices")
     V = run_rows(x.dtype)
     hvec = aligned(left, right) and h % V == 0 and n % V == 0
-    return _lib().its_stencil_apply_halo(
-        _DTYPE_CODE[x.dtype], int(ptrs[0] is not None), x.data_ptr(),
-        y.data_ptr(), *ptrs, n, launch.grid, int(aligned(x, y)), launch.terms,
-        left.data_ptr(), right.data_ptr(), h, base, n_global, int(hvec),
-        stream)
-
-
-def _check_out(out, x):
-    if (out.shape != x.shape or out.dtype != x.dtype
-            or out.device != x.device or not out.is_contiguous()):
-        raise ValueError("out must be a contiguous tensor like x")
-    return out
+    launch(library("stencil").its_stencil_apply_halo, _DTYPE_CODE[x.dtype],
+           int(ptrs[0] is not None), x.data_ptr(), y.data_ptr(), *ptrs, n,
+           lp.grid, aligned(x, y), lp.terms, left.data_ptr(),
+           right.data_ptr(), h, base, n_global, int(hvec), stream,
+           device=x.device, what="stencil")
 
 
 def stencil_apply_rows(n, center, terms, coeffs, X, *, conj=False):
@@ -501,7 +393,7 @@ def stencil_apply_rows(n, center, terms, coeffs, X, *, conj=False):
     bits as :func:`stencil_apply` of that row on the same device (the plain
     sum is elementwise, so its layout does not change a bit)."""
     n = int(n)
-    terms, coeffs = _normal(terms, coeffs)
+    terms, coeffs = normal_terms(terms, coeffs)
     if X.ndim != 2 or X.shape[1] != n:
         raise ValueError(f"X must have shape (k, {n}), got {tuple(X.shape)}")
     if X.dtype not in _DTYPE_CODE:
@@ -512,7 +404,7 @@ def stencil_apply_rows(n, center, terms, coeffs, X, *, conj=False):
                                    conj=conj).T
     if X.device.type != "cuda":
         raise ValueError(f"stencil kernel runs on CUDA tensors, got {X.device}")
-    _check_kernel(n, terms)
+    check_kernel(n, terms)
     X = X if X.stride(1) == 1 else X.contiguous()
     Y = torch.empty_like(X, memory_format=torch.contiguous_format)
     for i in range(X.shape[0]):

@@ -9,14 +9,14 @@ import pytest
 import torch
 
 import iterativesolvers_tpu_torch as pits
-from iterativesolvers_tpu_torch.ops import cuda_cg
+from iterativesolvers_tpu_torch.ops import _launch, cuda_cg
 from iterativesolvers_tpu_torch.solvers import cg as pcg
 from iterativesolvers_tpu_torch.solvers.common import chunked_steps
 
 torch.set_num_threads(1)
 
 F32 = np.float32
-T, RUN = cuda_cg.THREADS, cuda_cg.RUN
+T, RUN = _launch.THREADS, cuda_cg.RUN
 
 
 def _warp(lanes):

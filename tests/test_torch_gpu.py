@@ -10,13 +10,15 @@ Tolerances: f32 y within 1e-6 of max|y| (FMA contraction), bf16 y within
 (another sum order).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 import iterativesolvers_tpu_torch as pits
-from iterativesolvers_tpu_torch.ops import (cuda_arnoldi, cuda_mgs, cuda_rbic,
-                                           cuda_spmv, cuda_stencil)
+from iterativesolvers_tpu_torch.ops import (_launch, cuda_arnoldi, cuda_mgs,
+                                           cuda_rbic, cuda_spmv, cuda_stencil)
 from iterativesolvers_tpu_torch.utils import fixtures as pfix
 
 torch.set_num_threads(1)
@@ -28,6 +30,21 @@ def cuda():
         pytest.skip("needs a CUDA card: the kernels are built by nvcc and "
                     "run only there")
     return torch.device("cuda")
+
+
+@pytest.mark.gpu
+def test_cuda_every_library_has_its_prototypes(cuda):
+    """Every built library, loaded through ``_launch.library``: each of its
+    ``extern "C"`` entries takes the argtypes of its prototype and returns
+    an int."""
+    from iterativesolvers_tpu_torch.ops import _build
+
+    for name in sorted(_build.build_all()):
+        lib = _launch.library(name)
+        for entry, argtypes in _launch.prototypes(name).items():
+            fn = getattr(lib, entry)
+            assert fn.argtypes == argtypes, (name, entry)
+            assert fn.restype is ctypes.c_int, (name, entry)
 
 
 @pytest.mark.gpu
@@ -394,7 +411,7 @@ def test_cuda_sweeps_spill_tier_matches_plain(cuda, monkeypatch, name, dtype):
     _small_grid(monkeypatch, 2)
     St = pits.laplacian(67, 3, device=cuda)
     itemsize = torch.empty((), dtype=dtype).element_size()
-    smem = cuda_mgs._smem(cuda_mgs._DTYPE_CODE[dtype],
+    smem = cuda_mgs._smem(cuda_mgs.DTYPE_CODE[dtype],
                           torch.cuda.current_device())
     assert cuda_mgs.plan_residency(St.n, 2, itemsize, smem).spill > 0
     kernel, plain = _sweeps(St)[name]
@@ -659,19 +676,19 @@ def test_cuda_grid_dot_is_repeatable_within_its_bound(cuda, case):
     St = pits.laplacian(67, 3, device=cuda)
     g = torch.Generator(device=cuda).manual_seed(11)
     x = torch.randn(St.n, generator=g, device=cuda)
-    stream = cuda_stencil.raw_stream(x.device)
+    stream = _launch.raw_stream(x.device)
     if case == "stencil":
         op, R = St, cuda_stencil.STENCIL_RUN
-        grid = cuda_stencil._launch(St.n, St.center, St.terms, St.coeffs,
-                                    False, torch.float32, True, x.device,
-                                    stream).grid
+        grid = cuda_stencil._launch_of(St.n, St.center, St.terms,
+                                       St.coeffs, False, torch.float32, True,
+                                       x.device, stream).grid
     else:
         dtype = {"dia_f32": torch.float32, "dia_bf16": torch.bfloat16,
                  "dia_int8": torch.int8}[case]
         op = pits.compress_values(pfix.laplace_dia(67, 3, dtype=np.float32,
                                                    device=cuda), dtype)
         assert op.dtype == dtype
-        R = cuda_stencil.run_rows(dtype)
+        R = _launch.run_rows(dtype)
         grid = cuda_spmv._grid(dtype, True, len(op.diags), St.n, x.device,
                                stream)[0]
     (y1, d1), (y2, d2) = op.mv_dot(x), op.mv_dot(x)
@@ -1234,7 +1251,7 @@ def test_cuda_cg_step_kernels_are_the_eager_step_given_its_scalars(cuda, n):
     rho_prev = torch.tensor(1.7, device=cuda)
     sigma = torch.sum(u * c2).abs() + 1.0
     dev = x.device
-    plan = cuda_cg.launch_plan(n, dev, cuda_stencil.raw_stream(dev))
+    plan = cuda_cg.launch_plan(n, dev, _launch.raw_stream(dev))
     dot = cuda_cg.cg_rho(c, r)
     assert torch.equal(dot, cuda_cg.cg_rho_plain(c, r, plan.grids[0]))
     assert _close_sum(dot, c * r)

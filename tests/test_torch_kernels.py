@@ -18,7 +18,7 @@ from iterativesolvers_tpu.ops import pallas_spmv, pallas_stencil
 from iterativesolvers_tpu.utils.fixtures import advection_diffusion, laplace_dia
 
 import iterativesolvers_tpu_torch as pits
-from iterativesolvers_tpu_torch.ops import cuda_spmv, cuda_stencil
+from iterativesolvers_tpu_torch.ops import _launch, cuda_spmv, cuda_stencil
 from iterativesolvers_tpu_torch.utils import fixtures as pfix
 
 from _torch_port import port_dia, port_stencil, to_numpy, to_torch
@@ -220,7 +220,7 @@ def test_stencil_wrapper_checks_its_arguments():
     # which a CPU tensor takes, has none
     terms = ((1, 1, 4),) * (cuda_stencil.MAX_TERMS + 1)
     with pytest.raises(ValueError, match="at most"):
-        cuda_stencil._check_kernel(16, terms)
+        cuda_stencil.check_kernel(16, terms)
     x = torch.arange(16.0)
     assert torch.equal(
         cuda_stencil.stencil_apply(16, 1.0, terms, (1.0,) * len(terms), x),
@@ -285,5 +285,5 @@ def test_operators_past_the_kernel_limits_still_go_to_the_wrapper(
     # MAX_DIAGS a launch); its one limit is 32-bit row indices
     cuda_spmv._check_kernel(40, offsets)
     with pytest.raises(ValueError, match="32-bit"):
-        cuda_spmv._check_kernel(cuda_stencil.max_rows(max(offsets)) + 1,
+        cuda_spmv._check_kernel(_launch.max_rows(max(offsets)) + 1,
                                 offsets)

@@ -17,8 +17,9 @@ import torch
 
 import iterativesolvers_tpu_torch as pits
 from iterativesolvers_tpu_torch.ops import _build, cuda_arnoldi, cuda_mgs
-from iterativesolvers_tpu_torch.ops.cuda_stencil import (_THREADS, _normal,
-                                                         _plan, stencil_sum)
+from iterativesolvers_tpu_torch.ops._launch import THREADS
+from iterativesolvers_tpu_torch.ops.cuda_stencil import (normal_terms,
+                                                         stencil_sum, sum_plan)
 
 NS = [1, 125, 300_763, 216**3, 240**3]
 GRIDS = [1, 66, 132, 264]
@@ -58,7 +59,7 @@ def test_plan_covers_chunks_within_limits(n, grid, itemsize):
     assert plan.grid == grid and plan.chunk == -(-n // grid)
     lens = [max(0, min(plan.chunk, n - b * plan.chunk)) for b in range(grid)]
     assert sum(lens) == n and lens[0] == min(n, plan.chunk)
-    rt = cuda_mgs.ROW_REGS * _THREADS
+    rt = cuda_mgs.ROW_REGS * THREADS
     rest = max(0, plan.chunk - rt)
     assert min(plan.chunk, rt) + min(rest, plan.smem) + plan.spill == plan.chunk
     assert plan.smem >= 0 and plan.spill >= 0
@@ -103,7 +104,7 @@ def test_plan_at_216_cubed(itemsize):
     n = 216**3
     full = cuda_mgs.plan_residency(n, 132, itemsize, H100_SMEM)
     assert full.spill == 0 and full.onchip_share == 1.0
-    assert full.smem >= full.chunk - cuda_mgs.ROW_REGS * _THREADS
+    assert full.smem >= full.chunk - cuda_mgs.ROW_REGS * THREADS
     half = cuda_mgs.plan_residency(n, 66, itemsize, H100_SMEM)
     assert half.spill > 0 and half.onchip_share < 1.0
 
@@ -156,12 +157,12 @@ def test_row_masks_give_the_stencil_product(make):
     plan's order, is the plain stencil product exactly; an unset slot reads
     row i with a coefficient of 0, as the kernel does."""
     St = make()
-    terms, coeffs = _normal(St.terms, St.coeffs)
+    terms, coeffs = normal_terms(St.terms, St.coeffs)
     masks = cuda_arnoldi._row_masks(St.n, St.center, terms, coeffs,
                                     torch.device("cpu"))
     assert masks.dtype == torch.int16 and masks.shape == (St.n,)
     masks = masks.int()
-    order = _plan(St.center, terms, coeffs, False, torch.float32).order
+    order = sum_plan(St.center, terms, coeffs, False, torch.float32).order
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(St.n)
                          .astype(np.float32))
     i = torch.arange(St.n)

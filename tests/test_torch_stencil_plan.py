@@ -19,10 +19,11 @@ import pytest
 import torch
 
 import iterativesolvers_tpu_torch as pits
-from iterativesolvers_tpu_torch.ops import _build, cuda_spmv, cuda_stencil
-from iterativesolvers_tpu_torch.ops.cuda_stencil import (_normal, _plan,
-                                                         fast_divisor,
-                                                         stencil_sum)
+from iterativesolvers_tpu_torch.ops import (_build, _launch, cuda_spmv,
+                                           cuda_stencil)
+from iterativesolvers_tpu_torch.ops.cuda_stencil import (fast_divisor,
+                                                         normal_terms,
+                                                         stencil_sum, sum_plan)
 from iterativesolvers_tpu_torch.utils import fixtures as pfix
 
 N216 = 216**3
@@ -58,10 +59,10 @@ def test_fast_divisor_replays_floor_division_over_216_cubed(d):
 @pytest.mark.parametrize("d", [1, 3, 5, 7, 216, 46_656, 1003, 65_537,
                                2**31 - 1])
 def test_fast_divisor_at_the_largest_n(d):
-    """Near the largest n that _check_kernel admits: the last 2^20 rows,
+    """Near the largest n that check_kernel admits: the last 2^20 rows,
     and the rows on either side of each multiple of d up there, where the
     multiply-high's error is largest."""
-    top = cuda_stencil.max_rows(46_656)
+    top = _launch.max_rows(46_656)
     i = np.arange(top - (1 << 20), top + 1, dtype=np.uint64)
     k = np.arange(max(1, (top - (1 << 24)) // d), top // d + 1,
                   dtype=np.uint64)[-(1 << 16):]
@@ -83,23 +84,15 @@ def test_fast_divisor_past_31_bits():
 
 def test_check_kernel_admits_up_to_max_rows():
     terms = ((46_656, 46_656, 216), (-46_656, 46_656, 216))
-    top = cuda_stencil.max_rows(46_656)
-    cuda_stencil._check_kernel(top, terms)
+    top = _launch.max_rows(46_656)
+    cuda_stencil.check_kernel(top, terms)
     with pytest.raises(ValueError, match="32-bit"):
-        cuda_stencil._check_kernel(top + 1, terms)
+        cuda_stencil.check_kernel(top + 1, terms)
     cuda_spmv._check_kernel(top, (-46_656, 0, 46_656))
     with pytest.raises(ValueError, match="32-bit"):
         cuda_spmv._check_kernel(top + 1, (-46_656, 0, 46_656))
     with pytest.raises(ValueError, match="2\\^31"):
-        cuda_stencil._check_kernel(100, ((1, 2**31, 1),))
-
-
-@pytest.mark.parametrize("dtype, rows", [(torch.float32, 4),
-                                         (torch.bfloat16, 8),
-                                         (torch.int8, 16)])
-def test_run_rows_are_one_16_byte_vector(dtype, rows):
-    assert cuda_stencil.run_rows(dtype) == rows
-    assert rows * torch.empty((), dtype=dtype).element_size() == 16
+        cuda_stencil.check_kernel(100, ((1, 2**31, 1),))
 
 
 def _const(src, name):
@@ -109,11 +102,9 @@ def _const(src, name):
 
 
 def test_constants_match_the_kernels():
-    """The constants Python and csrc/ share: the vector width, the threads
-    a block, the kernels' term and diagonal limits."""
-    common = (_build.CSRC / "common.cuh").read_text()
-    assert _const(common, "kVecBytes") == cuda_stencil.VEC_BYTES
-    assert _const(common, "kThreads") == cuda_stencil._THREADS
+    """The constants Python and csrc/ share: the kernels' term and
+    diagonal limits and the stencil kernel's run (the vector width and the
+    threads a block: tests/test_torch_launch.py)."""
     stencil = (_build.CSRC / "stencil.cuh").read_text()
     assert _const(stencil, "kMaxTerms") == cuda_stencil.MAX_TERMS
     assert _const(stencil, "kStencilRun") == cuda_stencil.STENCIL_RUN
@@ -262,8 +253,8 @@ def test_run_replay_gives_the_stencil_product(name, conj, vec, V, R):
     a run's valid terms it finds row_valid's; the vector path uses aligned
     windows and clamped ones, and both ways to the valid terms."""
     St = STENCILS[name]()
-    terms, coeffs = _normal(St.terms, St.coeffs)
-    plan = _plan(St.center, terms, coeffs, conj, torch.float32)
+    terms, coeffs = normal_terms(St.terms, St.coeffs)
+    plan = sum_plan(St.center, terms, coeffs, conj, torch.float32)
     rng = np.random.default_rng(len(name))
     x = rng.integers(-8, 9, St.n).astype(np.float32)
     y, seen = _replay_stencil(plan, x, St.n, vec, V, R)
@@ -283,8 +274,8 @@ def test_plan_carries_the_fast_div_constants(name):
     fast_div constants of its stride and extent, and the groups' shared
     positions (reuse) agree with recomputing every term's."""
     St = STENCILS[name]()
-    terms, coeffs = _normal(St.terms, St.coeffs)
-    p = _unpack(_plan(St.center, terms, coeffs, False, torch.float32))
+    terms, coeffs = normal_terms(St.terms, St.coeffs)
+    p = _unpack(sum_plan(St.center, terms, coeffs, False, torch.float32))
     for t in range(p["k"]):
         assert tuple(p["magic"][4 * t:4 * t + 2]) == fast_divisor(
             p["stride"][t])
@@ -350,7 +341,7 @@ def test_dia_run_replay_gives_the_plain_product(dtype, vec, n, offsets):
     rng = np.random.default_rng(1)
     x = rng.integers(-8, 9, n).astype(np.float32)
     vals = [d.float().numpy() for d in diags]
-    y = _replay_dia(vals, offsets, x, cuda_stencil.run_rows(dtype), vec)
+    y = _replay_dia(vals, offsets, x, _launch.run_rows(dtype), vec)
     want = cuda_spmv.dia_spmv_plain(diags, offsets, torch.from_numpy(x))
     np.testing.assert_array_equal(y, want.numpy())
 

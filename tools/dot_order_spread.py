@@ -34,7 +34,7 @@ def measure(root):
     import torch
 
     import iterativesolvers_tpu_torch as its
-    from iterativesolvers_tpu_torch.ops import _build, cuda_stencil
+    from iterativesolvers_tpu_torch.ops import _build, _launch, cuda_stencil
     from iterativesolvers_tpu_torch.utils import fixtures
 
     if pathlib.Path(its.__file__).resolve().parent.parent != root.resolve():
@@ -45,11 +45,10 @@ def measure(root):
     dev = torch.device("cuda", torch.cuda.current_device())
     # the grid of the one-card stencil launch (f32, with the dot, no halo):
     # the control drops one of its blocks
-    lib = cuda_stencil._lib()
-    grid = cuda_stencil.grid_for(
-        cuda_stencil.blocks_per_sm(lib.its_stencil_blocks_per_sm, 0, 1, 0,
-                                   device=dev), dev, St.n,
-        cuda_stencil.STENCIL_RUN)
+    lib = _launch.library("stencil")
+    grid = _launch.grid_for(
+        _launch.query(lib.its_stencil_blocks_per_sm, 0, 1, 0, device=dev),
+        dev, St.n, cuda_stencil.STENCIL_RUN)
     table = cs.dot_order_spread(torch, its, St, A64, grid)
     return {"grid": grid, **{f"{o} / {b}": row for (o, b), row in table.items()}}
 

@@ -1,18 +1,23 @@
-"""Time the stencil and DIA kernels at 216^3 on one card, and compare two
-checkouts of the port in turns.
+"""Time the port's kernels at 216^3 on one card, and compare two checkouts
+of the port in turns.
 
     python3 tools/spmv_ab.py [--parent DIR]
 
 Each checkout is measured in a process of its own (both packages have the
 same name), which builds its kernels and times, at n = 216^3 with a seeded
 x: ``stencil_apply`` (with and without the dot, f32), ``dia_spmv_dot`` and
-``dia_spmv`` on f32, bf16 and int8 diagonals of ``laplace_dia``, and
+``dia_spmv`` on f32, bf16 and int8 diagonals of ``laplace_dia``,
 ``stencil_panel_mv`` on f32 and bf16 panels, through the calls a solver
-makes (``mv_dot``, ``mv``).  For each it prints ``ms``, ``device_ms`` and
+makes (``mv_dot``, ``mv``), the CG step's ``cg_rho``, ``cg_direction`` and
+``cg_update`` (its one-card form) on seeded vectors, and ``rbic_apply``
+through the ``ldiv`` of ``RedBlackICPreconditioner.from_stencil``.  For
+each it prints ``ms``, ``device_ms`` and
 ``host_us`` as ``chip_smoke.kernel_timing`` (of this checkout) takes them:
 CUDA events around 20 back-to-back calls; one call between events behind a
 sleep kernel, so that the host's time does not show; the host time of one
-call.
+call; and ``host_med_us``, the host time of one call as the median over 30
+batches of 100 calls (a synchronisation between batches, outside the
+timing, so that the card's queue never fills).
 
 With ``--parent DIR`` (a checkout of another commit, e.g. from ``git
 archive``) it runs parent, this checkout, this checkout, parent, and prints
@@ -24,8 +29,10 @@ import argparse
 import importlib.util
 import json
 import pathlib
+import statistics
 import subprocess
 import sys
+import time
 
 SIDE = 216
 HERE = pathlib.Path(__file__).resolve().parent.parent
@@ -41,7 +48,7 @@ def chip_smoke():
     return mod
 
 
-def cases(torch, its, fixtures, ca):
+def cases(torch, its, fixtures, ca, cg):
     """name -> call, at 216^3."""
     n = SIDE**3
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -61,7 +68,35 @@ def cases(torch, its, fixtures, ca):
     for label, V in (("bf16", panel.to(torch.bfloat16)), ("f32", panel)):
         out[f"stencil_panel_mv {label}"] = (
             lambda V=V: ca.stencil_panel_mv(*args, V, k5))
+    u, r, c = (torch.randn(n, generator=g, device="cuda") for _ in range(3))
+    live = torch.ones((), dtype=torch.bool, device="cuda")
+    rho, rho_prev = (torch.tensor(v, device="cuda") for v in (2.0, 1.7))
+    residual, sigma = torch.linalg.vector_norm(r), torch.sum(u * c)
+    k, log = torch.tensor(7, device="cuda"), torch.zeros(16, device="cuda")
+    out["cg_rho"] = lambda: cg.cg_rho(c, r)
+    out["cg_direction"] = lambda: cg.cg_direction(c, u, residual, rho_prev,
+                                                  live, square=True)
+    out["cg_update"] = lambda: cg.cg_update(x, u, r, c, rho, sigma, live,
+                                            residual, k, log)
+    P = its.RedBlackICPreconditioner.from_stencil(
+        its.laplacian(SIDE, 3, device="cuda"))
+    out["rbic_apply (ldiv)"] = lambda: P.ldiv(x)
     return out
+
+
+def host_median_us(torch, fn, batches=30, calls=100):
+    """The host time of one call of ``fn``: the median over ``batches`` of
+    ``calls`` calls enqueued back to back, the card synchronised between
+    batches."""
+    per = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(per)
 
 
 def measure(root):
@@ -73,13 +108,14 @@ def measure(root):
     import iterativesolvers_tpu_torch as its
     from iterativesolvers_tpu_torch.ops import _build
     from iterativesolvers_tpu_torch.ops import cuda_arnoldi as ca
+    from iterativesolvers_tpu_torch.ops import cuda_cg as cg
     from iterativesolvers_tpu_torch.utils import fixtures
 
     if pathlib.Path(its.__file__).resolve().parent.parent != root.resolve():
         raise AssertionError(f"imported {its.__file__}, not from {root}")
     _build.build_all()
-    return {name: timing(torch, fn)
-            for name, fn in cases(torch, its, fixtures, ca).items()}
+    return {name: dict(timing(torch, fn), host_med_us=host_median_us(torch, fn))
+            for name, fn in cases(torch, its, fixtures, ca, cg).items()}
 
 
 def main():
@@ -112,7 +148,8 @@ def main():
     for name, rows in table.items():
         print(f"{name}: " + "; ".join(
             f"{r['run']} {r['ms']:.4f} ms (device {r['device_ms']:.4f}, "
-            f"host {r['host_us']:.1f} us)" for r in rows))
+            f"host {r['host_us']:.1f} us, median {r['host_med_us']:.2f})"
+            for r in rows))
     print(json.dumps({"spmv_ab": table}))
 
 
