@@ -37,11 +37,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
    kernel's, torch.sum's, an f64 sum) on b = 1 and two seeded b, each within
    the limits set from it, and a control (a dot without one block's rows)
    that the limits must reject.
-5. Timing with CUDA events: CG per-iteration time on each path (504- minus
-   248-iteration solves, as ``bench.py``), and each kernel beside its byte
+5. Timing with CUDA events: CG per-iteration time on each path (solves
+   capped at 504 minus 248 iterations, as ``bench.py``, over the steps each
+   runs more, ``chunked_steps``), and each kernel beside its byte
    bound, its plain version and ``torch.sparse`` CSR SpMV of the same matrix.
-6. Trace: one 504-step solve per path under ``torch.profiler``: the device's
-   busy time and share of the solve, and the kernels that take it.
+6. Trace: one solve capped at 248 steps per path under ``torch.profiler``:
+   the device's busy time and share of a step, and the kernels that take it.
 7. GMRES kernel parity at 216^3: panel MGS, the panel stencil SpMV and the
    fused Arnoldi step against their plain versions, on f32 and bf16 panels;
    the two sweep kernels also on half their grid (part of the working
@@ -689,9 +690,10 @@ def check_spread(table):
     return {f"{o} / {b}": row for (o, b), row in table.items()}
 
 
-# steps of phase 6's traced CG solves (a trace's cost grows with its
+# the cap of phase 6's traced CG solves (a trace's cost grows with its
 # events): the chunked loop's first five phases, 8 + 16 + ... + 128, which
-# it runs whole (a maxiter between runs to the end of its phase, masked)
+# it runs whole, and the phase queued behind them before the exit read
+# (``chunked_steps``; a maxiter between runs to the end of its phase, masked)
 CG_TRACE = 248
 
 # ---- GMRES (phases 7-11) ---------------------------------------------------
@@ -1704,7 +1706,8 @@ def check_ranks(torch, its, ranks, xs, secs, true_res, rel_diff, refs):
 # Recorded runs are f32 solves that are rounding-bound in both packages
 # (pipelined CG and IDR(8) on the Laplacian; QMR, BiCGStab(2) and IDR(8) on
 # the advection-diffusion stencil at the fixture's beta = 1000, capped at
-# KRYLOV_CAP steps: run_chunked's warm-up phases, none masked): held to
+# KRYLOV_CAP steps: whole phases of run_chunked, and one phase masked
+# behind them, which the launches count through ``chunked_steps``): held to
 # their launches and a finite x, their true residual and witness printed
 # beside the JAX package's own.
 KRYLOV_MAXITER = 1000
@@ -4613,7 +4616,8 @@ class MeshRank:
         for name, op in ops:
             x, h = self.timed(name, lambda: its.cg(
                 op, b, reltol=RELTOL, log=True, chunk=CHUNK,
-                maxiter=KRYLOV_MAXITER), lambda o: chunked_steps(o[1].iters))
+                maxiter=KRYLOV_MAXITER),
+                lambda o: chunked_steps(o[1].iters, CHUNK))
             self.history(name, h)
             self.keep(name, x)
             del x
@@ -5588,14 +5592,16 @@ def main():
                       chunk=CHUNK)
 
     per_iter = {}
+    # the steps the two capped solves run (masked ones included) apart
+    timed_steps = chunked_steps(504, CHUNK) - chunked_steps(248, CHUNK)
     for name, op in paths.items():
         t_long = timed(f"cg {name} maxiter=504", lambda: solve(op, 504), 1,
                        3)
         t_short = timed(f"cg {name} maxiter=248", lambda: solve(op, 248), 1,
                         3)
-        per_iter[name] = (t_long - t_short) / (504 - 248) * 1e3
+        per_iter[name] = (t_long - t_short) / timed_steps * 1e3
     print(json.dumps({
-        "cg_us_per_iter": per_iter, "timed_iters": 504 - 248,
+        "cg_us_per_iter": per_iter, "timed_iters": timed_steps,
         "cg_to_reltol": {k: {"iters": h.iters, "s": secs[k]}
                          for k, (_, h, _) in runs.items()},
         "dot_order_spread": spread,
@@ -5603,9 +5609,9 @@ def main():
 
     # ---- 6. trace: where the time of a CG step goes ------------------------
     clock("phase 6")
-    # one profiled CG_TRACE-step solve per path; the device's busy time is
-    # the sum of its kernels' times, a step against the untimed 504-step
-    # solve's median above
+    # one profiled solve capped at CG_TRACE steps per path; the device's
+    # busy time is the sum of its kernels' times, a step against a step of
+    # the untimed solve capped at 504 above
     trace = {}
     for name, op in paths.items():
         def traced(op=op):
@@ -5618,9 +5624,11 @@ def main():
         busy = sum(by_kernel.values())
         wall = statistics.median(samples[f"cg {name} maxiter=504"])
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]
-        trace[name] = {"steps": CG_TRACE, "wall_ms_504": wall,
+        trace[name] = {"steps": chunked_steps(CG_TRACE, CHUNK),
+                       "wall_ms_504": wall,
                        "traced_wall_ms": traced_ms, "device_busy_ms": busy,
-                       "busy_share": busy / CG_TRACE * 504 / wall,
+                       "busy_share": busy / chunked_steps(CG_TRACE, CHUNK)
+                       * chunked_steps(504, CHUNK) / wall,
                        "top_device_ms": dict(top)}
     print(json.dumps({"trace": trace}))
 

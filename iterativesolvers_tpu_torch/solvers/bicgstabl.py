@@ -23,7 +23,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.dtypes import real_dtype, solve_dtype
-from .common import (SolveResult, SolverIterator, live_print, log_at,
+from .common import (CHUNK, SolveResult, SolverIterator, live_print, log_at,
                      make_history, norm, prepare, random_like, run_chunked,
                      select, tolerance, vdot, with_highest_precision)
 
@@ -116,7 +116,7 @@ def _bicgstabl_done(s: BiCGStabState, max_mv: int):
 @torch.no_grad()
 @with_highest_precision
 def _bicgstabl_core(op, b, x0, Pl, r_shadow, reltol, abstol, l, max_mv,
-                    initially_zero, verbose=False, chunk=256):
+                    initially_zero, verbose=False, chunk=CHUNK):
     """The solve with the shadow residual ``r_shadow`` given (this rank's
     rows on a mesh); returns the SolveResult and the product count."""
     state0 = _bicgstabl_init(op, b, x0, Pl, reltol, abstol, l, max_mv,
@@ -157,7 +157,7 @@ def bicgstabl(
     seed: int = 0,
     log: bool = False,
     verbose: bool = False,
-    chunk: int = 256,
+    chunk: int = CHUNK,
 ):
     """Solve A x = b with BiCGStab(l) (~ bicgstabl/bicgstabl!,
     src/bicgstabl.jl:142-219).  ``chunk``: as ``cg``'s, in l-cycles."""

@@ -30,7 +30,7 @@ from ..operators.linear_operator import as_operator
 from ..operators.preconditioners import as_preconditioner
 from ..utils.dtypes import real_dtype, solve_dtype
 from ..utils.history import ConvergenceHistory
-from .common import (SolverIterator, allreduce, log_at, resolve_tols,
+from .common import (CHUNK, SolverIterator, allreduce, log_at, resolve_tols,
                      row_norms, run_chunked, with_highest_precision)
 
 __all__ = ["block_cg", "block_cg_iterator"]
@@ -130,7 +130,7 @@ def _prepare(A, B, x0, Pl, reltol, abstol, maxiter, solver):
 
 @torch.no_grad()
 @with_highest_precision
-def _block_cg_solve(op, Br, Xr, Pl, reltol, abstol, maxiter, chunk=256):
+def _block_cg_solve(op, Br, Xr, Pl, reltol, abstol, maxiter, chunk=CHUNK):
     s0 = _block_cg_init(op, Br, Xr, reltol, abstol, maxiter)
     return run_chunked(
         lambda s, live: _block_cg_step(op, Pl, s, maxiter, live,
@@ -149,7 +149,7 @@ def block_cg(
     reltol: float | None = None,
     maxiter: int | None = None,
     log: bool = False,
-    chunk: int = 256,
+    chunk: int = CHUNK,
 ):
     """Solve ``A X = B`` for an (n, k) block of right-hand sides with
     batched CG (see module docstring).  Per-column tolerances follow the

@@ -33,9 +33,9 @@ from ..operators.preconditioners import is_identity
 from ..ops import cuda_cg
 from ..utils.dtypes import real_dtype, solve_dtype
 from ..utils.profiling import span
-from .common import (SolveResult, SolverIterator, log_at, make_history,
-                     norm, prepare, print_resnorms, run_chunked,
-                     step_graphs, tolerance, vdot, with_highest_precision)
+from .common import (CHUNK, SolveResult, SolverIterator, log_at, make_history,
+                     norm, prepare, print_resnorms, run_chunked, step_graphs,
+                     tolerance, vdot, with_highest_precision)
 
 __all__ = ["cg", "cg_iterator", "CGState"]
 
@@ -170,7 +170,7 @@ def _graphs(op, Pl, state):
 @torch.no_grad()
 @with_highest_precision
 def _cg_solve(op, b, x0, Pl, reltol, abstol, maxiter, initially_zero,
-              chunk=256):
+              chunk=CHUNK):
     state0 = _cg_init(op, b, x0, reltol, abstol, maxiter, initially_zero)
     graphs = _graphs(op, Pl, state0)
     # replayed steps read the limit from a tensor the graphs hold
@@ -202,7 +202,7 @@ def cg(
     maxiter: int | None = None,
     log: bool = False,
     verbose: bool = False,
-    chunk: int = 256,
+    chunk: int = CHUNK,
 ):
     """Solve A x = b with (preconditioned) conjugate gradients.
 
@@ -211,9 +211,10 @@ def cg(
     when ``log=True``.  The solve runs on the operator's device; a numpy or
     host ``b`` / ``x0`` is moved there.
 
-    ``chunk``: convergence-check granularity of the masked chunked loop (see
-    ``common.run_chunked``); every check waits for the device.  Numerics are
-    identical at any value.  ``verbose`` prints the residual of every
+    ``chunk``: the steps of a phase of the masked chunked loop, after which
+    the host reads the exit (``common.run_chunked``: one phase late, so the
+    card keeps working; ``chunk <= 1`` waits for it before every step).
+    Numerics are identical at any value.  ``verbose`` prints the residual of every
     iteration after the solve.
     """
     op, b, x0, Pl, reltol_, abstol_, maxiter, initially_zero = prepare(

@@ -24,7 +24,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.dtypes import real_dtype, solve_dtype
-from .common import (SolveResult, SolverIterator, live_print, log_at,
+from .common import (CHUNK, SolveResult, SolverIterator, live_print, log_at,
                      make_history, norm, prepare, run_chunked, select,
                      tolerance, with_highest_precision)
 
@@ -98,7 +98,7 @@ def _bounds(lmin, lmax, dtype, device):
 @torch.no_grad()
 @with_highest_precision
 def _cheb_core(op, b, x0, Pl, lmin, lmax, reltol, abstol, maxiter,
-               initially_zero, verbose=False, chunk=256):
+               initially_zero, verbose=False, chunk=CHUNK):
     state0 = _cheb_init(op, b, x0, reltol, abstol, maxiter, initially_zero)
     d, half_c = _bounds(lmin, lmax, state0.x.dtype, state0.x.device)
     final = run_chunked(
@@ -129,7 +129,7 @@ def chebyshev(
     maxiter: int | None = None,
     log: bool = False,
     verbose: bool = False,
-    chunk: int = 256,
+    chunk: int = CHUNK,
 ):
     """Solve A x = b by Chebyshev iteration given eigenvalue bounds
     (~ chebyshev/chebyshev!, src/chebyshev.jl:93-170).  ``chunk``: as

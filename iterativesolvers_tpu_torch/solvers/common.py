@@ -2,8 +2,9 @@
 
 Each solver defines a state ``NamedTuple`` of tensors, an ``init`` and a
 ``step``.  The classic API drives the step on the device through
-:func:`run_chunked`, which reads the data-dependent exit back to the host only
-once per phase; the iterator API (:class:`SolverIterator`) exposes the same
+:func:`run_chunked`, which reads the data-dependent exit back to the host once
+per phase of steps, one phase late, so the card is never left idle at a
+check; the iterator API (:class:`SolverIterator`) exposes the same
 step eagerly, and its state doubles as a checkpoint.
 
 Shared behavioral contract (SURVEY §2.3):
@@ -47,6 +48,7 @@ __all__ = [
     "log_at",
     "run_chunked",
     "chunked_steps",
+    "CHUNK",
     "StepGraphs",
     "step_graphs",
     "allreduce",
@@ -345,6 +347,10 @@ def with_highest_precision(f):
 
 _WARMUP = (8, 16, 32, 64, 128)
 
+# the steady phase of run_chunked and every solver's default ``chunk``:
+# chosen on the H100 against 32 and against the JAX package's 256 (PERF.md)
+CHUNK = 16
+
 
 def _phases(chunk: int):
     """Phase lengths of :func:`run_chunked`: the warm-up ladder below
@@ -356,24 +362,26 @@ def _phases(chunk: int):
         yield chunk
 
 
-def chunked_steps(iters: int, chunk: int = 256) -> int:
+def chunked_steps(iters: int, chunk: int = CHUNK, *,
+                  step_reads_host: bool = False) -> int:
     """Steps :func:`run_chunked` executes, masked ones included, for a solve
-    that stops after ``iters`` live steps."""
-    if chunk <= 1:
-        return int(iters)
-    done = 0
-    for c in _phases(chunk):
-        if done >= iters:
-            return done
-        done += c
+    that stops after ``iters`` live steps: the phases through the one that
+    holds the last live step, and the one queued behind it before the host
+    read that the solve was done (none with ``step_reads_host``)."""
+    if chunk <= 1 or iters <= 0:
+        return max(int(iters), 0)
+    phases = _phases(chunk)
+    ran = 0
+    while ran < iters:
+        ran += next(phases)
+    return ran if step_reads_host else ran + next(phases)
 
 
-def run_chunked(step, done, state, chunk: int = 256, on_phase=None,
-                graphs=None):
-    """Drive ``state = step(state, live)`` until ``done(state)``, reading the
-    data-dependent exit back to the host only once per phase: every read
-    waits for the device, so a check per step would idle the card between
-    steps.
+def run_chunked(step, done, state, chunk: int = CHUNK, on_phase=None,
+                graphs=None, *, step_reads_host: bool = False):
+    """Drive ``state = step(state, live)`` until ``done(state)``, in phases
+    of steps between which the host reads the data-dependent exit without
+    waiting for the card to run dry.
 
     Inside a phase every step runs, and ``live = ~done(state)`` is handed to
     it as a 0-d bool tensor on the device.  ``step`` must return ``state``
@@ -385,22 +393,29 @@ def run_chunked(step, done, state, chunk: int = 256, on_phase=None,
     vector; see ``cg._cg_step``).
 
     Phases follow the warm-up ladder 8, 16, 32, 64, 128 (those below
-    ``chunk``), then ``chunk``: a solve converging at iteration ~10 should
-    not run a full steady-state chunk of masked steps.  ``chunk <= 1``
-    checks ``done`` on the host before every step.  ``on_phase(state)``,
-    if given, runs after each phase (``verbose``'s :func:`live_print`).
+    ``chunk``), then ``chunk``.  ``done`` is read once before the first
+    phase, waiting for the device (a solve that starts converged runs no
+    step).  After that each phase's ``done`` goes to pinned host memory
+    behind an event, and the host reads it one phase late: with phase k+1
+    queued, it waits for phase k's flag alone, so the card never runs dry
+    at a check.  A solve whose last live step falls in phase j so runs
+    phases 1 ... j+1 (:func:`chunked_steps`); the ranks of a mesh, which
+    read the same flags, stop after the same phase.  ``step_reads_host``
+    (LOBPCG's ``eigh``, svdl's ``svd``: a step that waits for the device
+    itself) reads each phase's ``done`` after it, waiting, and runs no
+    phase past the last live one.  ``chunk <= 1`` reads ``done`` before
+    every step, waiting.  ``on_phase(state)``, if given, runs after each
+    phase (``verbose``'s :func:`live_print`).
 
     Under a profiler, each executed step is a span ``its.step`` (its live
-    mask included) and each host read of ``done`` a span ``its.sync``
+    mask included) and each exit read a span ``its.sync``
     (``utils/profiling.span``).
 
     ``graphs`` (a :class:`StepGraphs`, from :func:`step_graphs`): each
     phase is one replay of a CUDA graph of its steps, captured at its
     first use, instead of its steps enqueued one by one; the same steps,
-    masks and host reads.
+    masks and exit reads.
     """
-    if graphs is not None and chunk > 1:
-        return graphs.run(step, done, state, chunk, on_phase)
     if chunk <= 1:
         while not _finished(done, state):
             with span("its.step"):
@@ -408,20 +423,76 @@ def run_chunked(step, done, state, chunk: int = 256, on_phase=None,
             if on_phase is not None:
                 on_phase(state)
         return state
+    if graphs is not None:
+        return graphs.run(step, done, state, chunk, on_phase)
+    if _finished(done, state):
+        return state
+    flags = None if step_reads_host else _ExitFlags()
     for c in _phases(chunk):
-        if _finished(done, state):
-            return state
         for _ in range(c):
             with span("its.step"):
                 state = step(state, ~done(state))
         if on_phase is not None:
             on_phase(state)
+        if _exit_after(done, state, flags):
+            return state
 
 
 def _finished(done, state) -> bool:
     """``done(state)`` read back to the host: it waits for the device."""
     with span("its.sync"):
         return bool(done(state))
+
+
+def _exit_after(done, state, flags) -> bool:
+    """The exit read after a phase that left ``state``: with ``flags`` (an
+    :class:`_ExitFlags`), the flag of the phase before it; without, this
+    phase's, waiting for the device."""
+    if flags is None:
+        return _finished(done, state)
+    with span("its.sync"):
+        flags.post(done(state))
+        return flags.late()
+
+
+class _ExitFlags:
+    """The exit flags of one :func:`run_chunked` call's phases, each read
+    one phase late.  On the card a flag is copied into a slot of a pinned
+    host buffer, behind the phase that computed it, and an event recorded
+    behind the copy; reading it waits for that event alone.  Two slots
+    suffice: a slot is written again only after its flag was read.  On the
+    CPU a flag is the stored bool."""
+
+    def __init__(self):
+        self.posted = 0
+        self.host = None        # the pinned slots, on the card
+        self.events = None
+        self.slots = [False, False]
+
+    def post(self, flag):
+        """Queue the flag of the phase just enqueued (a 0-d bool tensor)."""
+        i = self.posted % 2
+        if flag.is_cuda:
+            if self.host is None:
+                self.host = torch.empty(2, dtype=torch.bool, pin_memory=True)
+                self.slots = self.host.numpy()
+                self.events = (torch.cuda.Event(), torch.cuda.Event())
+            self.host[i].copy_(flag, non_blocking=True)
+            self.events[i].record(torch.cuda.current_stream(flag.device))
+        else:
+            self.slots[i] = bool(flag)
+        self.posted += 1
+
+    def late(self) -> bool:
+        """The flag of the phase before the one posted last, once it has
+        reached the host; False after the first phase (the read before it
+        found the solve not done)."""
+        if self.posted < 2:
+            return False
+        i = self.posted % 2             # the slot of flag posted - 2
+        if self.events is not None:
+            self.events[i].synchronize()
+        return bool(self.slots[i])
 
 
 class StepGraphs:
@@ -495,20 +566,20 @@ class StepGraphs:
 
     def run(self, step, done, state, chunk, on_phase=None):
         self._load(state)
-        S = self.static
-        for c in _phases(chunk):
-            if _finished(done, S):
-                break
+        S, counts = self.static, self.mesh.counts
+        flags = _ExitFlags()
+        for c in () if _finished(done, S) else _phases(chunk):
             graph, held = self.graphs.get(c) or self._capture(step, done, c)
             with span("its.replay"):
                 graph.replay()
-            counts = self.mesh.counts
             for kind, n in held.items():
                 counts[kind] += n
             counts["replay"] += 1
             counts["replay_steps"] += c
             if on_phase is not None:
                 on_phase(S)
+            if _exit_after(done, S, flags):
+                break
         return type(S)(*((d[:t.shape[0]] if t.ndim else d).clone()
                          for d, t in zip(S, state)))
 

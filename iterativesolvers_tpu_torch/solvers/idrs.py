@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.dtypes import real_dtype, solve_dtype
-from .common import (SolveResult, SolverIterator, live_print, log_at,
+from .common import (CHUNK, SolveResult, SolverIterator, live_print, log_at,
                      make_history, norm, prepare, random_like, run_chunked,
                      select, tolerance, vdot, with_highest_precision)
 
@@ -206,7 +206,7 @@ def _stepper(op, Pl, P, smoothing, state0, log_in_place):
 @torch.no_grad()
 @with_highest_precision
 def _idrs_core(op, b, x0, Pl, P, reltol, abstol, s, maxiter, smoothing,
-               initially_zero, verbose=False, chunk=256):
+               initially_zero, verbose=False, chunk=CHUNK):
     """The solve with the shadow space ``P`` (s, n) given (this rank's
     columns on a mesh)."""
     state0 = _idrs_init(op, b, x0, reltol, abstol, s, maxiter, initially_zero)
@@ -244,7 +244,7 @@ def idrs(
     seed: int = 0,
     log: bool = False,
     verbose: bool = False,
-    chunk: int = 256,
+    chunk: int = CHUNK,
 ):
     """Solve A x = b with IDR(s) (~ idrs/idrs!, src/idrs.jl:11-64).
     ``chunk``: as ``cg``'s."""

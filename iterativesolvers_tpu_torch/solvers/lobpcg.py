@@ -13,7 +13,8 @@ blocked, as the JAX package does it:
   so the subproblem is a plain ``eigh`` of S'AS on the device.
 * The first iteration (span{X, W}) is peeled off the loop; the later ones
   (span{X, W, P}) run in :func:`run_chunked` phases of 8 masked steps, one
-  host read a phase.
+  host read after each, waiting (``step_reads_host``: ``eigh`` checks its
+  result on the host every step, so the card runs dry there anyway).
 
 Every panel is (k, n) rows (vectors as rows); the SpMVs go through the
 operators' ``mv_rows`` (on the stencil and DIA operators the CUDA kernel once
@@ -357,7 +358,7 @@ def _lobpcg_main(opA, opB, prec, Y, BY, S, tol, largest, maxiter):
     S = run_chunked(
         lambda s, live: _lobpcg_main_step(opA, opB, prec, Y, BY, s, largest,
                                           live, log_in_place=True),
-        done, S, chunk=8)
+        done, S, chunk=8, step_reads_host=True)
     return S, _residual_norms(S, opA.mesh)
 
 

@@ -24,7 +24,7 @@ import torch
 
 from ..ops.givens import givens
 from ..utils.dtypes import real_dtype, solve_dtype
-from .common import (SolveResult, SolverIterator, live_print, log_at,
+from .common import (CHUNK, SolveResult, SolverIterator, live_print, log_at,
                      make_history, norm, prepare, run_chunked, select,
                      tolerance, vdot, with_highest_precision)
 
@@ -144,7 +144,7 @@ def _minres_done(state: MINRESState, maxiter: int):
 @torch.no_grad()
 @with_highest_precision
 def _minres_core(op, b, x0, reltol, abstol, maxiter, initially_zero, skew,
-                 verbose=False, chunk=256):
+                 verbose=False, chunk=CHUNK):
     state0 = _minres_init(op, b, x0, reltol, abstol, maxiter, initially_zero,
                           skew)
     final = run_chunked(
@@ -174,7 +174,7 @@ def minres(
     maxiter: int | None = None,
     log: bool = False,
     verbose: bool = False,
-    chunk: int = 256,
+    chunk: int = CHUNK,
 ):
     """Solve A x = b for Hermitian (or skew-Hermitian) A
     (~ minres/minres!, src/minres.jl:161-244).  ``chunk``: as ``cg``'s."""

@@ -28,7 +28,7 @@ from typing import NamedTuple
 import torch
 
 from ..utils.dtypes import real_dtype, solve_dtype
-from .common import (SolveResult, log_at, make_history, norm, prepare,
+from .common import (CHUNK, SolveResult, log_at, make_history, norm, prepare,
                      run_chunked, select, tolerance, with_highest_precision)
 
 __all__ = ["pipelined_cg"]
@@ -112,7 +112,7 @@ def _pipecg_step(op, Pl, st: PipeCGState, live=None,
 @torch.no_grad()
 @with_highest_precision
 def _pipecg_core(op, b, x0, Pl, reltol, abstol, maxiter, initially_zero,
-                 chunk=256):
+                 chunk=CHUNK):
     state0 = _pipecg_init(op, b, x0, Pl, reltol, abstol, maxiter,
                           initially_zero)
     final = run_chunked(
@@ -139,7 +139,7 @@ def pipelined_cg(
     reltol: float | None = None,
     maxiter: int | None = None,
     log: bool = False,
-    chunk: int = 256,
+    chunk: int = CHUNK,
 ):
     """Communication-reduced CG for sharded operators: one allreduce a step,
     issued before the step's SpMV.  Same API as ``cg``."""

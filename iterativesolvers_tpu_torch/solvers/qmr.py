@@ -25,7 +25,7 @@ import torch
 
 from ..ops.givens import givens
 from ..utils.dtypes import real_dtype, solve_dtype
-from .common import (SolveResult, SolverIterator, live_print, log_at,
+from .common import (CHUNK, SolveResult, SolverIterator, live_print, log_at,
                      make_history, norm, prepare, run_chunked, select,
                      tolerance, vdot, with_highest_precision)
 
@@ -153,7 +153,7 @@ def _qmr_done(s: QMRState, maxiter: int):
 @torch.no_grad()
 @with_highest_precision
 def _qmr_core(op, b, x0, reltol, abstol, maxiter, initially_zero,
-              verbose=False, chunk=256):
+              verbose=False, chunk=CHUNK):
     state0 = _qmr_init(op, b, x0, reltol, abstol, maxiter, initially_zero)
     final = run_chunked(
         lambda s, live: _qmr_step(op, s, live, log_in_place=True),
@@ -179,7 +179,7 @@ def qmr(
     maxiter: int | None = None,
     log: bool = False,
     verbose: bool = False,
-    chunk: int = 256,
+    chunk: int = CHUNK,
 ):
     """Solve A x = b with QMR (~ qmr/qmr!, src/qmr.jl:230-297).  Needs an
     operator with an adjoint matvec (dense and sparse matrices and stencils

@@ -27,7 +27,7 @@ import torch
 
 from ..operators.linear_operator import as_operator
 from ..utils.dtypes import eps, real_dtype
-from .common import (SolveResult, SolverIterator, live_print, log_at,
+from .common import (CHUNK, SolveResult, SolverIterator, live_print, log_at,
                      make_history, norm, run_chunked, select, vdot,
                      with_highest_precision)
 
@@ -80,7 +80,7 @@ def _power_done(state: PowerState, tol, maxiter: int):
 
 @torch.no_grad()
 @with_highest_precision
-def _power_solve(op, x0, tol, maxiter, verbose, chunk=256):
+def _power_solve(op, x0, tol, maxiter, verbose, chunk=CHUNK):
     final = run_chunked(
         lambda s, live: _power_step(op, s, live, log_in_place=True),
         lambda s: _power_done(s, tol, maxiter),
@@ -123,7 +123,7 @@ def powm(
     log: bool = False,
     verbose: bool = False,
     key=None,
-    chunk: int = 256,
+    chunk: int = CHUNK,
 ):
     """Approximate the dominant eigenpair of ``B`` by power iteration.
 

@@ -18,9 +18,10 @@ Macro-iteration (~ svdl_method!, src/svdl.jl:177-247):
           (src/svdl.jl:376-405); extend back to k columns (src/svdl.jl:542-609)
 
 The restart loop runs in :func:`run_chunked` phases of 4 masked
-macro-iterations (one host read a phase), as the JAX package's.  The
-harmonic restart's ``lstsq`` is the minimum-norm solution through the SVD
-of the square part of B (the one the convergence check took), as
+macro-iterations (one host read after each, waiting: ``step_reads_host``,
+as ``svd`` checks its result on the host), as the JAX package's.  The harmonic
+restart's ``lstsq`` is the minimum-norm solution through the SVD of the
+square part of B (the one the convergence check took), as
 ``jnp.linalg.lstsq`` computes it, so a singular B gives the JAX package's
 answer (``torch.linalg.lstsq`` on CUDA assumes full rank).
 
@@ -335,7 +336,8 @@ def _svdl_run(op, L0, tol, reltol, nsv: int, j: int, k: int, dolock: bool,
     def done(S: _SvdlState):
         return S.converged | (S.it >= maxiter)
 
-    return run_chunked(step, done, _svdl_state0(L0, maxiter, log), chunk=4)
+    return run_chunked(step, done, _svdl_state0(L0, maxiter, log), chunk=4,
+                       step_reads_host=True)
 
 
 class _Setup(NamedTuple):

@@ -118,7 +118,7 @@ def test_cg_iterator_matches_jax_iterator(rng):
 def test_run_chunked_numerics_do_not_depend_on_chunk(op):
     P = _port(OPS[op](np.float32))
     b = np.random.default_rng(3).standard_normal(P.shape[0]).astype(np.float32)
-    runs = [pits.cg(P, b, log=True, chunk=c) for c in (1, 8, 256)]
+    runs = [pits.cg(P, b, log=True, chunk=c) for c in (1, 8, 16, 32, 256)]
     x1, h1 = runs[0]
     for x, h in runs[1:]:
         assert torch.equal(x, x1)
@@ -127,11 +127,16 @@ def test_run_chunked_numerics_do_not_depend_on_chunk(op):
 
 
 def test_run_chunked_step_counts_follow_the_warmup_ladder():
-    """Phases of 8, 16, 32, 64, 128, then ``chunk``: the bench's 248- and
-    504-step solves stop exactly at maxiter."""
-    assert [chunked_steps(k) for k in (0, 1, 8, 9, 248, 249, 504, 505)] == [
-        0, 8, 8, 24, 248, 504, 504, 760]
-    assert chunked_steps(20, chunk=8) == 24 and chunked_steps(5, 1) == 5
+    """Phases of 8, 16, 32, 64, 128 (those below ``chunk``), then
+    ``chunk``: a solve runs the phases through its last live step and the
+    one queued before the host read that it was done."""
+    assert [chunked_steps(k, 256)
+            for k in (0, 1, 8, 9, 248, 249, 504, 505)] == [
+        0, 24, 24, 56, 504, 760, 760, 1016]
+    assert [chunked_steps(k, 16) for k in (0, 1, 8, 9, 24, 25, 571, 284)] == [
+        0, 24, 24, 40, 40, 56, 600, 312]
+    assert chunked_steps(20, chunk=8) == 32 and chunked_steps(5, 1) == 5
+    assert chunked_steps(20, chunk=8, step_reads_host=True) == 24
     d = torch.linspace(1.0, 10.0, 1000, dtype=torch.float64)
     calls = []
 
@@ -141,7 +146,8 @@ def test_run_chunked_step_counts_follow_the_warmup_ladder():
 
     op = pits.FunctionOperator(mv, (1000, 1000), torch.float64, device=CPU)
     b = torch.ones(1000, dtype=torch.float64)
-    for maxiter, chunk in ((248, 256), (504, 256), (20, 8), (20, 1)):
+    for maxiter, chunk in ((248, 256), (504, 256), (40, 16), (41, 16),
+                           (56, 32), (20, 8), (20, 1)):
         calls.clear()
         x, h = pits.cg(op, b, reltol=0.0, abstol=0.0, maxiter=maxiter,
                        chunk=chunk, log=True)

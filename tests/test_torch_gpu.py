@@ -1179,7 +1179,8 @@ def test_cuda_replayed_mesh_cg_is_the_eager_mesh_cg(cuda, tmp_path, D):
     solve's x and residual log bit for bit, and its steps; the replays run
     every executed step.  A third solve from b2 with a smaller maxiter
     replays the same graphs (no capture) and stops at maxiter, as the
-    eager solve does."""
+    eager solve does.  Every rank reads the same late exit flags and stops
+    after the same phase."""
     from _torch_dist import launch
     from test_torch_halo_fold import _brick_terms
 
@@ -1215,6 +1216,8 @@ def test_cuda_replayed_mesh_cg_is_the_eager_mesh_cg(cuda, tmp_path, D):
         assert r["g/graph3/resnorm"].shape == (short,)
         np.testing.assert_array_equal(r["g/graph/x"], got[0]["g/graph/x"])
         assert int(r["g/replay_steps"]) == steps
+        # every rank stopped after the same phase
+        assert int(r["g/replays"]) == int(got[0]["g/replays"])
         assert 0 < int(r["g/graphs"]) < int(r["g/replays"])
         assert int(r["g/graphs3"]) == int(r["g/graphs"])
 
@@ -1393,3 +1396,110 @@ def test_cuda_cg_step_kernels_refuse_bad_scalars_and_logs(cuda):
             cuda_cg.cg_update(x, u, r, c, f32, f32, on, f32, k, bad_log)
     assert (cuda_cg.cg_direction.launches,
             cuda_cg.cg_update.launches) == before
+
+
+# ---- run_chunked's late exit read on the card ----------------------------------
+
+def _late_exit_case(cuda, precond):
+    st = pits.laplacian(32, 3, device=cuda)
+    Pl = (pits.RedBlackICPreconditioner.from_stencil(st)
+          if precond == "rbic" else None)
+    return st, _cg_vectors(cuda, st.n)[0], Pl
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precond", ["none", "rbic"])
+def test_cuda_late_exit_gives_the_bits_of_a_read_every_step(cuda, precond):
+    """f32 CG and RB-IC PCG on a 32^3 stencil: the exit read one phase late,
+    at the default phase, at 8, 32 and 256, gives x, the steps and the
+    residual log of ``chunk=1`` (a waiting read before every step) bit for
+    bit, and launches the stencil once an executed step, which
+    ``chunked_steps`` counts."""
+    from iterativesolvers_tpu_torch.solvers.common import CHUNK, chunked_steps
+
+    st, b, Pl = _late_exit_case(cuda, precond)
+    runs = {}
+    for chunk in (1, 8, CHUNK, 32, 256):
+        before = cuda_stencil.stencil_apply.launches
+        x, h = pits.cg(st, b, Pl=Pl, reltol=1e-6, log=True, chunk=chunk)
+        runs[chunk] = (x, h, cuda_stencil.stencil_apply.launches - before)
+    x1, h1, _ = runs[1]
+    assert h1.isconverged and h1.iters > 40
+    for chunk, (x, h, launches) in runs.items():
+        assert torch.equal(x, x1) and h.iters == h1.iters, chunk
+        np.testing.assert_array_equal(h["resnorm"], h1["resnorm"])
+        assert launches == chunked_steps(h.iters, chunk), chunk
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precond", ["none", "rbic"])
+def test_cuda_no_host_wait_between_the_first_and_last_phase(cuda, tmp_path,
+                                                            precond):
+    """Traced, a CG / PCG solve on the card makes no stream or device
+    synchronisation and no synchronous copy from its first step to its
+    last: its exit reads wait on an event each (one after every phase but
+    the first), and its copies to the host in that stretch go to pinned
+    memory."""
+    import json
+
+    from iterativesolvers_tpu_torch.solvers.common import chunked_steps
+    from iterativesolvers_tpu_torch.utils import profiling
+
+    st, b, Pl = _late_exit_case(cuda, precond)
+    pits.cg(st, b, Pl=Pl, reltol=1e-6)      # built and warm
+    torch.cuda.synchronize()
+    with profiling.trace(str(tmp_path)):
+        x, h = pits.cg(st, b, Pl=Pl, reltol=1e-6, log=True)
+    with open(tmp_path / "trace.json") as fh:
+        events = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("ph") == "X"]
+
+    def spans(name):
+        return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                      for e in events if e.get("name") == name)
+
+    steps, reads = spans("its.step"), spans("its.sync")
+    assert len(steps) == chunked_steps(h.iters)
+    phases = len(reads) - 1
+    lo, hi = steps[0][0], steps[-1][1]
+    calls = [e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    inside = [e for e in calls if lo <= float(e["ts"]) <= hi]
+    waits = [e["name"] for e in inside
+             if e["name"] in ("cudaStreamSynchronize", "cudaDeviceSynchronize",
+                              "cudaMemcpy", "cuStreamSynchronize",
+                              "cuCtxSynchronize", "cuMemcpyDtoH_v2")]
+    assert waits == []
+    copies = {e["args"]["correlation"]: e["name"] for e in events
+              if e.get("cat") == "gpu_memcpy"
+              and "correlation" in e.get("args", {})}
+    for e in inside:
+        if e["name"] == "cudaMemcpyAsync":
+            name = copies.get(e.get("args", {}).get("correlation"))
+            assert name is None or "Pinned" in name, name
+    assert sum(e["name"] == "cudaEventSynchronize"
+               for e in calls) == phases - 1
+
+
+@pytest.mark.gpu
+def test_cuda_lobpcg_and_svdl_keep_the_waiting_exit_read(cuda, monkeypatch):
+    """On the card LOBPCG and svdl, whose steps read the host (``eigh``,
+    ``svd``), make no late exit flags; CG makes one set a solve."""
+    from iterativesolvers_tpu_torch.solvers import common as pcommon
+
+    made = []
+    real = pcommon._ExitFlags
+
+    def counted():
+        made.append(1)
+        return real()
+
+    monkeypatch.setattr(pcommon, "_ExitFlags", counted)
+    A = pfix.laplace_dia(12, 3, dtype=np.float64, device=cuda)
+    X0 = torch.randn(A.shape[0], 3, generator=torch.Generator().manual_seed(0),
+                     dtype=torch.float64)
+    assert pits.lobpcg(A, X0.to(cuda), tol=1e-4, maxiter=200).converged
+    pits.svdl(A, nsv=2)
+    assert made == []
+    pits.cg(A, torch.ones(A.shape[0], dtype=torch.float64, device=cuda))
+    assert made == [1]

@@ -14,13 +14,14 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import iterativesolvers_tpu_torch as its
-from iterativesolvers_tpu_torch.solvers.common import _phases, chunked_steps
+from iterativesolvers_tpu_torch.solvers.common import (CHUNK, _phases,
+                                                       chunked_steps)
 from iterativesolvers_tpu_torch.utils import fixtures, profiling
 
 torch.set_num_threads(1)
 
 N = 64
-CHUNKS = (1, 8, 256)
+CHUNKS = (1, 8, CHUNK, 256)
 PRECONDS = ("none", "diagonal")
 
 
@@ -40,15 +41,17 @@ def _solve(precond, chunk):
 
 def _host_reads(iters, chunk):
     """Host reads of ``done`` by ``run_chunked``: one before each step at
-    ``chunk <= 1``, else one before each phase, and the last that ends it."""
+    ``chunk <= 1``; else one before the first phase and one after each phase
+    run: the phases through the last live step and the one queued behind
+    them before the read (of the phase before) that ends the solve."""
     if chunk <= 1:
         return iters + 1
-    ran, reads = 0, 1
+    ran, phases = 0, 0
     for c in _phases(chunk):
         if ran >= iters:
-            return reads
+            return 1 + phases + 1
         ran += c
-        reads += 1
+        phases += 1
 
 
 def _spans(tmp_path, precond, chunk):
